@@ -1,0 +1,182 @@
+"""Host-side WordPiece tokenizer.
+
+Counterpart of ``adaptive_classifier_tpu/models/tokenizer.py``: BERT's
+basic + WordPiece algorithm over a local checkpoint's ``vocab.txt``, padded
+to sequence-length buckets.  Pure Python; the binding to the optional C++
+library under ``native/`` comes with a later slice of the port.
+"""
+
+from __future__ import annotations
+
+import json
+import unicodedata
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+
+def _is_whitespace(ch: str) -> bool:
+    if ch in (" ", "\t", "\n", "\r"):
+        return True
+    return unicodedata.category(ch) == "Zs"
+
+
+def _is_control(ch: str) -> bool:
+    if ch in ("\t", "\n", "\r"):
+        return False
+    return unicodedata.category(ch).startswith("C")
+
+
+def _is_punctuation(ch: str) -> bool:
+    cp = ord(ch)
+    if (33 <= cp <= 47) or (58 <= cp <= 64) or (91 <= cp <= 96) or (123 <= cp <= 126):
+        return True
+    return unicodedata.category(ch).startswith("P")
+
+
+def _is_cjk(cp: int) -> bool:
+    return (
+        (0x4E00 <= cp <= 0x9FFF) or (0x3400 <= cp <= 0x4DBF)
+        or (0x20000 <= cp <= 0x2A6DF) or (0x2A700 <= cp <= 0x2B73F)
+        or (0x2B740 <= cp <= 0x2B81F) or (0x2B820 <= cp <= 0x2CEAF)
+        or (0xF900 <= cp <= 0xFAFF) or (0x2F800 <= cp <= 0x2FA1F)
+    )
+
+
+class WordPieceTokenizer:
+    """BERT-style basic + WordPiece tokenizer over a ``vocab.txt`` vocabulary."""
+
+    def __init__(
+        self,
+        vocab: Dict[str, int],
+        do_lower_case: bool = True,
+        unk_token: str = "[UNK]",
+        cls_token: str = "[CLS]",
+        sep_token: str = "[SEP]",
+        pad_token: str = "[PAD]",
+        max_input_chars_per_word: int = 100,
+    ):
+        self.vocab = vocab
+        self.do_lower_case = do_lower_case
+        self.unk_token = unk_token
+        self.max_input_chars_per_word = max_input_chars_per_word
+        self.unk_id = vocab[unk_token]
+        self.cls_id = vocab[cls_token]
+        self.sep_id = vocab[sep_token]
+        self.pad_id = vocab[pad_token]
+
+    @classmethod
+    def from_pretrained(cls, path: str) -> "WordPieceTokenizer":
+        """Load ``vocab.txt`` (and ``do_lower_case`` from
+        ``tokenizer_config.json``) from a local checkpoint directory."""
+        p = Path(path)
+        do_lower = True
+        cfg_file = p / "tokenizer_config.json"
+        if cfg_file.exists():
+            try:
+                cfg = json.loads(cfg_file.read_text())
+                do_lower = bool(cfg.get("do_lower_case", True))
+            except (json.JSONDecodeError, AttributeError):
+                pass
+        vocab_file = p / "vocab.txt"
+        if vocab_file.exists():
+            vocab = {}
+            with open(vocab_file, encoding="utf-8") as f:
+                for i, line in enumerate(f):
+                    vocab[line.rstrip("\n")] = i
+            return cls(vocab, do_lower_case=do_lower)
+        raise FileNotFoundError(f"No vocab.txt in {path}")
+
+    # ------------------------------------------------------------------
+    # tokenization
+    # ------------------------------------------------------------------
+    def _clean(self, text: str) -> str:
+        out = []
+        for ch in text:
+            cp = ord(ch)
+            if cp == 0 or cp == 0xFFFD or _is_control(ch):
+                continue
+            out.append(" " if _is_whitespace(ch) else ch)
+        return "".join(out)
+
+    def _basic_tokenize(self, text: str) -> List[str]:
+        text = "".join(f" {ch} " if _is_cjk(ord(ch)) else ch
+                       for ch in self._clean(text))
+        tokens: List[str] = []
+        for tok in text.split():
+            if self.do_lower_case:
+                tok = tok.lower()
+                tok = "".join(
+                    c for c in unicodedata.normalize("NFD", tok)
+                    if unicodedata.category(c) != "Mn"
+                )
+            cur: List[str] = []
+            for ch in tok:
+                if _is_punctuation(ch):
+                    if cur:
+                        tokens.append("".join(cur))
+                        cur = []
+                    tokens.append(ch)
+                else:
+                    cur.append(ch)
+            if cur:
+                tokens.append("".join(cur))
+        return tokens
+
+    def _wordpiece(self, token: str) -> List[str]:
+        if len(token) > self.max_input_chars_per_word:
+            return [self.unk_token]
+        pieces: List[str] = []
+        start = 0
+        n = len(token)
+        while start < n:
+            end = n
+            cur = None
+            while start < end:
+                sub = token[start:end]
+                if start > 0:
+                    sub = "##" + sub
+                if sub in self.vocab:
+                    cur = sub
+                    break
+                end -= 1
+            if cur is None:
+                return [self.unk_token]
+            pieces.append(cur)
+            start = end
+        return pieces
+
+    def tokenize(self, text: str) -> List[str]:
+        out: List[str] = []
+        for tok in self._basic_tokenize(text):
+            out.extend(self._wordpiece(tok))
+        return out
+
+    def encode(self, text: str, max_length: int = 512) -> List[int]:
+        ids = [self.vocab.get(t, self.unk_id) for t in self.tokenize(text)]
+        ids = ids[: max_length - 2]
+        return [self.cls_id] + ids + [self.sep_id]
+
+    def __call__(
+        self,
+        texts: Sequence[str],
+        max_length: int = 512,
+        pad_to_buckets: Optional[Sequence[int]] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Batch-encode to padded int32 ``(input_ids, attention_mask)``,
+        padded to the batch's longest row rounded up into a bucket."""
+        encoded = [self.encode(t, max_length=max_length) for t in texts]
+        longest = max(len(e) for e in encoded)
+        for b in sorted(pad_to_buckets or ()):
+            if longest <= b:
+                longest = b
+                break
+        longest = min(max(longest, 8), max(max_length, 8))
+        ids = np.full((len(encoded), longest), self.pad_id, dtype=np.int32)
+        mask = np.zeros((len(encoded), longest), dtype=np.int32)
+        for i, e in enumerate(encoded):
+            e = e[:longest]
+            ids[i, : len(e)] = e
+            mask[i, : len(e)] = 1
+        return ids, mask

@@ -1,0 +1,16 @@
+"""Device ops: the hand-written CUDA kernels and the plain torch around them.
+
+``launch_counts`` holds, per kernel, how many times its wrapper launched it
+on a GPU.  A wrapper adds one where it launches its kernel and nowhere else,
+so a run that zeroes the counts, drives a path and reads them back shows
+which kernels that path went through.
+"""
+
+from typing import Dict
+
+launch_counts: Dict[str, int] = {"attention_qkv": 0}
+
+
+def reset_launch_counts():
+    for name in launch_counts:
+        launch_counts[name] = 0

@@ -5,6 +5,8 @@ setup(
     version="0.1.0",
     description="TPU-native adaptive text classification (JAX/XLA/Pallas)",
     packages=find_packages(exclude=("tests", "scripts", "examples", "native")),
+    # the PyTorch/CUDA port ships its CUDA sources; nvcc builds them on first use
+    package_data={"adaptive_classifier_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -1,0 +1,94 @@
+"""The port and chip_smoke.py stand alone: they import torch, numpy and the
+standard library, nothing of JAX, of the JAX package, or of the packages a
+GPU machine may lack; and chip_smoke.py fails cleanly without a GPU."""
+
+import ast
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "adaptive_classifier_tpu_torch"
+BLOCKED = ("jax", "jaxlib", "flax", "safetensors", "transformers", "tokenizers",
+           "triton")
+ALLOWED_TOP = {"torch", "numpy", "adaptive_classifier_tpu_torch"}
+
+_IMPORT_ALL = f"""
+import importlib, json, pkgutil, sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None
+import adaptive_classifier_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({{"imported": names, "loaded": sorted(sys.modules)}}))
+"""
+
+
+def _python(code, cwd, timeout=120):
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, capture_output=True,
+                          text=True, timeout=timeout)
+
+
+def test_port_imports_without_jax():
+    proc = _python(_IMPORT_ALL, REPO)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "adaptive_classifier_tpu_torch.models.encoder" in out["imported"]
+    assert "adaptive_classifier_tpu_torch.ops.attention_qkv" in out["imported"]
+    leaked = [m for m in out["loaded"]
+              if m == "adaptive_classifier_tpu" or m.startswith("adaptive_classifier_tpu.")]
+    assert leaked == []
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_imports_are_torch_numpy_stdlib(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            tops = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:            # relative import inside the package
+                continue
+            tops = [node.module.split(".")[0]]
+        else:
+            continue
+        for top in tops:
+            assert top in ALLOWED_TOP or top in sys.stdlib_module_names, (
+                f"{path.name}:{node.lineno} imports {top}")
+
+
+def _run_smoke(cwd, block_jax=True, timeout=300):
+    code = ("import runpy, sys\n"
+            + (f"for n in {BLOCKED!r}: sys.modules[n] = None\n" if block_jax else "")
+            + "sys.argv = ['chip_smoke.py']\n"
+            + "runpy.run_path('chip_smoke.py', run_name='__main__')\n")
+    return _python(code, cwd, timeout=timeout)
+
+
+def _assert_failed_without_result(proc):
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour without a GPU")
+    proc = _run_smoke(REPO)
+    _assert_failed_without_result(proc)
+    assert "no CUDA device" in proc.stderr
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    _assert_failed_without_result(_run_smoke(tmp_path, block_jax=False))
