@@ -1,9 +1,13 @@
-"""Weights of the JAX package's encoder → the port's encoder state.
+"""State of the JAX package → the port's state, numpy in and torch out.
 
-The JAX package keeps encoder parameters as a stacked-layer tree
-(``embeddings/*``, and ``layers/*`` with a leading layer axis).  Feeding the
-same tree to both packages is how the tests hold the port's forward to the
-JAX forward on identical weights.
+- ``encoder_params_from_jax``: the stacked-layer encoder tree
+  (``embeddings/*``, and ``layers/*`` with a leading layer axis);
+- ``head_params_from_jax``: linear head params (``out``, optional ``skip``);
+- ``memory_state_from_jax``: the prototype memory's buffers.
+
+Feeding the same state to both packages, or converting one package's state
+to compare with the other's, is how the tests hold the port to the JAX
+package.
 """
 
 from __future__ import annotations
@@ -13,7 +17,9 @@ from typing import Any, Dict, Union
 import numpy as np
 import torch
 
+from .memory import MemoryState
 from .models.encoder import Params, params_from_tree
+from .models.head import HeadParams
 
 
 def encoder_params_from_jax(params: Dict[str, Dict[str, Any]],
@@ -24,3 +30,29 @@ def encoder_params_from_jax(params: Dict[str, Dict[str, Any]],
     tree = {group: {name: np.asarray(arr, np.float32) for name, arr in sub.items()}
             for group, sub in params.items() if group in ("embeddings", "layers")}
     return params_from_tree(tree, device=device, matrix_dtype=matrix_dtype)
+
+
+def _t(a, device, dtype=np.float32) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype)).to(device)
+
+
+def head_params_from_jax(params: Dict[str, Any],
+                         device: Union[str, torch.device] = "cpu") -> HeadParams:
+    """JAX head params ``{"hidden": [], "out": {"w", "b"}, "skip"?}`` (numpy
+    or JAX arrays) → the port's head params on ``device``.  Linear heads
+    only: MLP heads come with a later slice."""
+    if params["hidden"]:
+        raise NotImplementedError("MLP heads come with a later slice")
+    out: HeadParams = {"hidden": [], "out": {"w": _t(params["out"]["w"], device),
+                                             "b": _t(params["out"]["b"], device)}}
+    if "skip" in params:
+        out["skip"] = {"w": _t(params["skip"]["w"], device)}
+    return out
+
+
+def memory_state_from_jax(state: Any,
+                          device: Union[str, torch.device] = "cpu") -> MemoryState:
+    """A JAX ``MemoryState`` (``emb``, ``count``, ``proto``, ``pweight``) →
+    the port's ``MemoryState`` on ``device``."""
+    return MemoryState(emb=_t(state.emb, device), count=_t(state.count, device, np.int32),
+                       proto=_t(state.proto, device), pweight=_t(state.pweight, device))

@@ -10,9 +10,11 @@ and smoothed IDF, L2-normalized.  The IDF table is fitted once and frozen,
 so a loaded checkpoint rebuilds exactly the feature space its prototypes
 live in.  Host-side numpy; the device sees only the dense ``[N, dim]`` block.
 
-This slice carries what loading and predicting need (``load``,
-``transform``, ``weight``) plus ``fit``; the gram-kind and weight sweep
-(``resolve_config``) arrives with ``add_examples`` in a later slice.
+The first ``add_examples`` batch resolves ``grams="auto"`` and
+``weight="auto"`` by a 2-fold ridge-probe balanced accuracy on an
+alternating per-class split of that batch (``resolve_config``), then fits
+and freezes the IDF table.  The probe is closed-form numpy, the same
+arithmetic as the JAX package's, so both packages resolve the same knobs.
 """
 
 from __future__ import annotations
@@ -28,7 +30,10 @@ import numpy as np
 _WORD = re.compile(r"[a-z0-9']+")
 _WS = re.compile(r"\s+")
 
-#: gram kinds: word uni+bigrams, char 3-5-grams, both, typo-invariant
+#: default sweep grid for weight="auto" (0 = lexical off for this task)
+AUTO_WEIGHT_GRID = (0.0, 0.5, 1.0, 2.0, 4.0)
+
+#: gram kinds, cheapest transform first (the tie preference): word uni+bigrams, char 3-5-grams, both, typo-invariant
 #: skeleton uni+bigrams, char+skeleton, all three
 GRAM_KINDS = ("word", "char", "wordchar", "skel", "charskel",
               "wordcharskel")
@@ -70,6 +75,88 @@ def _grams(text: str, kind: str = "word") -> List[str]:
         sk = ["#" + _skeleton(t) for t in _WORD.findall(text.lower())]
         out += sk + [a + " " + b for a, b in zip(sk, sk[1:])]
     return out
+
+
+def _fold_machinery(labels: Sequence[int], seed: Optional[int] = None):
+    """Per-class 2-fold split + ridge-probe fold scorer → (half_a, half_b,
+    fold_acc).  ``seed=None`` is the deterministic alternating-occurrence
+    split; an integer seed shuffles the within-class fold assignment."""
+    y = np.asarray(labels)
+    order = np.zeros(len(y), np.int64)
+    seen: Dict[int, int] = {}
+    for i, c in enumerate(y):
+        order[i] = seen.get(int(c), 0)
+        seen[int(c)] = int(order[i]) + 1
+    if seed is not None:
+        rng = np.random.default_rng(seed)
+        for c in seen:
+            idx = np.flatnonzero(y == c)
+            order[idx] = rng.permutation(len(idx))
+    counts = np.asarray([seen[int(c)] for c in y])
+    half_b = (order % 2 == 1) | (counts <= 1)
+    half_a = (order % 2 == 0)
+    classes = np.asarray(sorted(set(int(c) for c in y)))
+
+    # cap the kernel solve for very large first batches (a fold can exceed
+    # the cap while the batch has < 4096 rows: half_b also holds every
+    # singleton-class row)
+    if (int(half_a.sum()) > 2048 or int(half_b.sum()) > 2048) and len(y) > 4096:
+        keep = np.zeros(len(y), bool)
+        rng = np.random.default_rng(0)
+        keep[rng.choice(len(y), size=4096, replace=False)] = True
+        half_a = half_a & keep
+        half_b = half_b & keep
+
+    cls_idx = np.searchsorted(classes, y)
+    eye = np.eye(len(classes), dtype=np.float32)
+
+    def fold_acc(f, fit, val):
+        F = f[fit].astype(np.float32)
+        if F.shape[0] == 0 or not val.any():
+            return 0.0
+        K = F @ F.T
+        alpha = np.linalg.solve(
+            K + np.eye(K.shape[0], dtype=np.float32), eye[cls_idx[fit]])
+        pred = classes[((f[val].astype(np.float32) @ F.T) @ alpha).argmax(1)]
+        accs = [float((pred[y[val] == c] == c).mean())
+                for c in classes if (y[val] == c).any()]
+        return float(np.mean(accs)) if accs else 0.0
+
+    return half_a, half_b, fold_acc
+
+
+#: fold-split seeds averaged by the probe (None = the alternating split)
+PROBE_SPLITS = (None, 1, 2)
+
+
+def _cv_acc(enc: np.ndarray, lex: np.ndarray, labels: Sequence[int],
+            w: float) -> float:
+    """2-fold ridge-probe balanced accuracy of the composed features,
+    averaged over PROBE_SPLITS."""
+    f = np.concatenate([enc, w * lex], axis=1) / math.sqrt(1 + w * w)
+    scores = []
+    for s in PROBE_SPLITS:
+        half_a, half_b, fold_acc = _fold_machinery(labels, seed=s)
+        scores.append(0.5 * (fold_acc(f, half_a, half_b)
+                             + fold_acc(f, half_b, half_a)))
+    return float(np.mean(scores))
+
+
+def _sweep_weights(enc: np.ndarray, lex: np.ndarray, labels: Sequence[int],
+                   grid: Sequence[float]) -> tuple:
+    """Best (weight, cv_acc) over the grid; ties prefer the weight nearest
+    1.0 (log distance)."""
+    folds = [_fold_machinery(labels, seed=s) for s in PROBE_SPLITS]
+    pref = sorted(grid, key=lambda w: abs(math.log((w or 1e-3) / 1.0)))
+    best_w, best_acc = pref[0], -1.0
+    for w in pref:
+        f = np.concatenate([enc, w * lex], axis=1) / math.sqrt(1 + w * w)
+        acc = float(np.mean([
+            0.5 * (fold_acc(f, half_a, half_b) + fold_acc(f, half_b, half_a))
+            for half_a, half_b, fold_acc in folds]))
+        if acc > best_acc + 1e-9:
+            best_w, best_acc = float(w), acc
+    return best_w, best_acc
 
 
 class HashedTfidf:
@@ -138,6 +225,75 @@ class HashedTfidf:
         norms = np.linalg.norm(out, axis=1, keepdims=True)
         np.divide(out, norms, out=out, where=norms > 0)
         return out
+
+    # -- channel composition and the auto sweep ------------------------------
+    def compose(self, enc: np.ndarray, lex: np.ndarray) -> np.ndarray:
+        """``[enc, w*lex] / sqrt(1+w²)`` — unit-norm concatenation of
+        L2-normalized rows; requires a resolved weight."""
+        w = float(self.weight)
+        scale = 1.0 / math.sqrt(1.0 + w * w)
+        return np.concatenate(
+            [enc * scale, lex * (w * scale)], axis=1).astype(np.float32)
+
+    def resolve_weight(self, enc: np.ndarray, lex: np.ndarray,
+                       labels: Sequence[int],
+                       grid: Sequence[float] = AUTO_WEIGHT_GRID) -> float:
+        """Resolve ``weight="auto"`` by the ridge-probe sweep over ``grid``
+        (ties prefer the weight nearest 1.0); a fixed weight is returned."""
+        if not isinstance(self.weight, str):
+            return float(self.weight)
+        best_w, _ = _sweep_weights(enc, lex, labels, grid)
+        self.weight = best_w
+        return best_w
+
+    def resolve_config(self, enc: np.ndarray, texts: Sequence[str],
+                       labels: Sequence[int],
+                       grid: Sequence[float] = AUTO_WEIGHT_GRID,
+                       typo_views=None) -> None:
+        """Resolve ``grams="auto"`` and/or ``weight="auto"`` on the first
+        batch, then fit (and freeze) the IDF table under the winning kind.
+
+        Gram kind × weight by the 2-fold ridge-probe balanced accuracy; gram
+        ties prefer the earlier GRAM_KINDS entry.  ``typo_views=(enc_typo,
+        texts_typo)`` breaks ties among kinds within 0.3pp of the best by
+        their accuracy with the val fold's features replaced by the typo'd
+        views."""
+        kinds = GRAM_KINDS if self.grams == "auto" else (self.grams,)
+        scored = []  # (acc, order, kind, weight, probe, lex)
+        for order, kind in enumerate(kinds):
+            probe = HashedTfidf(self.dim, weight="auto", grams=kind)
+            probe.fit(texts)
+            lex = probe.transform(texts)
+            if isinstance(self.weight, str):
+                w, acc = _sweep_weights(enc, lex, labels, grid)
+            else:
+                w = float(self.weight)
+                acc = _cv_acc(enc, lex, labels, w)
+            scored.append((acc, order, kind, w, probe, lex))
+        best_acc = max(s[0] for s in scored)
+        cands = [s for s in scored if s[0] >= best_acc - 0.003]
+        if typo_views is not None and len(cands) > 1:
+            enc_t, texts_t = typo_views
+            ranked = []
+            for acc, order, kind, w, probe, lex in cands:
+                lex_t = probe.transform(list(texts_t))
+                sc = 1.0 / math.sqrt(1 + w * w)
+                f_c = np.concatenate([enc * sc, (w * sc) * lex], axis=1)
+                f_t = np.concatenate([enc_t * sc, (w * sc) * lex_t], axis=1)
+                taccs = []
+                for seed in PROBE_SPLITS:
+                    half_a, half_b, fold_acc = _fold_machinery(labels, seed)
+                    for fit_m, val_m in ((half_a, half_b), (half_b, half_a)):
+                        mix = np.where(val_m[:, None], f_t, f_c)
+                        taccs.append(fold_acc(mix, fit_m, val_m))
+                ranked.append((float(np.mean(taccs)), -order, kind, w))
+            _, _, best_kind, best_w = max(ranked)
+            self.grams, self.weight = best_kind, best_w
+        else:
+            _, _, self.grams, self.weight = max(
+                (acc, -order, kind, w) for acc, order, kind, w, _, _ in scored)
+        if not self.fitted:  # never refit a frozen IDF table
+            self.fit(texts)
 
     # -- persistence ---------------------------------------------------------
     def to_dict(self) -> Dict:

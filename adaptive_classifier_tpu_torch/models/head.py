@@ -1,10 +1,15 @@
-"""Classification head over padded class slots — inference, linear heads.
+"""Classification head over padded class slots — linear heads.
 
 Counterpart of ``adaptive_classifier_tpu/models/head.py`` for the linear
 (``head_type: ridge``) head.  Weights are stored ``[in, out]`` for
 ``x @ W``, the output layer padded to the class capacity; columns beyond the
-saved class count are zero and masked off by the caller.  MLP heads and all
-training come with later slices.
+class count are masked off by the caller.
+
+``init_head`` and ``grow_capacity`` start linear heads at zero, where the
+JAX package draws Xavier-uniform weights from ``jax.random``: the ridge fit
+that follows every init or growth overwrites all of them, so the draw never
+reaches a prediction.  MLP heads (hidden layers) and gradient training come
+with a later slice.
 """
 
 from __future__ import annotations
@@ -61,3 +66,35 @@ def from_torch_state_dict(
         params["skip"] = {"w": t(skip)}
     return params, []
 
+
+
+def _require_linear(hidden_dims):
+    if hidden_dims:
+        raise NotImplementedError(
+            f"heads with hidden layers {list(hidden_dims)} (MLP heads) come "
+            f"with a later slice; the port trains linear (ridge) heads")
+
+
+def init_head(input_dim: int, class_capacity: int,
+              hidden_dims=(), device: torch.device | str = "cpu") -> HeadParams:
+    """A linear head ``[input_dim, class_capacity]`` at zero."""
+    _require_linear(hidden_dims)
+    return {"hidden": [],
+            "out": {"w": torch.zeros((input_dim, class_capacity), device=device),
+                    "b": torch.zeros((class_capacity,), device=device)}}
+
+
+def grow_capacity(params: HeadParams, new_capacity: int) -> HeadParams:
+    """Repad the output layer (and the ``skip`` probe) to ``new_capacity``
+    columns; existing columns are kept, new ones start at zero."""
+    _require_linear(params["hidden"])
+    old = params["out"]["w"].shape[1]
+    if new_capacity <= old:
+        return params
+    grow = new_capacity - old
+    out = dict(params)
+    out["out"] = {"w": torch.nn.functional.pad(params["out"]["w"], (0, grow)),
+                  "b": torch.nn.functional.pad(params["out"]["b"], (0, grow))}
+    if "skip" in params:
+        out["skip"] = {"w": torch.nn.functional.pad(params["skip"]["w"], (0, grow))}
+    return out

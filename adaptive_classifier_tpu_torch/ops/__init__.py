@@ -8,7 +8,7 @@ which kernels that path went through.
 
 from typing import Dict
 
-launch_counts: Dict[str, int] = {"attention_qkv": 0}
+launch_counts: Dict[str, int] = {"attention_qkv": 0, "knn_sims": 0, "knn_topk": 0}
 
 
 def reset_launch_counts():

@@ -1,11 +1,12 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` into a shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds).  The
-output goes to ``_build/<hash of the sources and flags>/`` inside the
-package, written under a temporary name and moved into place, so a build
-that is cut off leaves nothing that a later call would reuse.  A library
-that exists for the current hash is loaded as it is.
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` process into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds); the processes are started together and run in parallel.  The
+output goes to ``_build/<hash of the sources and flags>/lib<source>.so``
+inside the package, each written under a temporary name and moved into
+place, so a build that is cut off leaves nothing that a later call would
+reuse.  Libraries that exist for the current hash are loaded as they are.
 
 Nothing here runs at import: the first kernel launch calls :func:`library`.
 """
@@ -20,18 +21,27 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import List, Optional
+from types import SimpleNamespace
+from typing import Dict, List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-LIB_NAME = "libac_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 BUILD_TIMEOUT_S = 300
 
+#: C signature of every entry point: (argument types, return type)
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "ac_attention_qkv": ([_VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _VP], _CI),
+    "ac_masked_sims": ([_VP, _VP, _VP, _VP, _CI, _CI, _CI, _VP], _CI),
+    "ac_topk_sims": ([_VP] * 8 + [_CI] * 6 + [_VP], _CI),
+    "ac_cuda_error_string": ([_CI], ctypes.c_char_p),
+}
+
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_lib: Optional[SimpleNamespace] = None
 
 
 class BuildInfo:
@@ -71,55 +81,68 @@ def _digest(sources: List[Path], nvcc: str) -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the sources if the library for their hash does not exist yet;
-    → the library's path.  Raises with nvcc's output if the build fails."""
+def build() -> Dict[str, Path]:
+    """Compile every source whose library does not exist yet for the current
+    hash, one nvcc process per source, all started together; → library path
+    by source name.  Raises with nvcc's output if any build fails."""
     sources = _sources()
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
     nvcc = find_nvcc()
     out_dir = BUILD_ROOT / _digest(sources, nvcc)
-    lib_path = out_dir / LIB_NAME
-    if lib_path.exists():
-        BuildInfo.compiled = False
-        return lib_path
+    paths = {src.stem: out_dir / f"lib{src.stem}.so" for src in sources}
+    todo = [src for src in sources if not paths[src.stem].exists()]
+    BuildInfo.compiled = bool(todo)
+    if not todo:
+        return paths
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=BUILD_TIMEOUT_S)
-    except subprocess.TimeoutExpired as e:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc timed out after {BUILD_TIMEOUT_S}s: "
-                           f"{' '.join(cmd)}") from e
+    procs = []
+    for src in todo:
+        tmp = out_dir / f".lib{src.stem}.so.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs.append((src, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, tmp, cmd, proc in procs:
+        try:
+            out, _ = proc.communicate(timeout=max(
+                1.0, BUILD_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+            out += f"\nnvcc timed out after {BUILD_TIMEOUT_S}s"
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{' '.join(cmd)}\n{out}")
+        else:
+            os.replace(tmp, paths[src.stem])
     BuildInfo.seconds = time.perf_counter() - t0
-    BuildInfo.log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{BuildInfo.log}")
-    os.replace(tmp, lib_path)
-    BuildInfo.compiled = True
-    return lib_path
+    BuildInfo.log = "\n".join(logs)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return paths
 
 
-def library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use, with the C
-    signatures of every entry point declared."""
+def library() -> SimpleNamespace:
+    """Every entry point of :data:`SIGNATURES`, by name, with its C
+    signature declared; the shared libraries are built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            path = build()
-            lib = ctypes.CDLL(str(path))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.ac_attention_qkv.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
-            lib.ac_attention_qkv.restype = ci
-            lib.ac_cuda_error_string.argtypes = [ci]
-            lib.ac_cuda_error_string.restype = ctypes.c_char_p
-            BuildInfo.path = path
-            _lib = lib
+            paths = build()
+            libs = [ctypes.CDLL(str(path)) for path in paths.values()]
+            fns = {}
+            for name, (argtypes, restype) in SIGNATURES.items():
+                lib = next((l for l in libs if hasattr(l, name)), None)
+                if lib is None:
+                    raise RuntimeError(f"no kernel library exports {name}")
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, restype
+                fns[name] = fn
+            BuildInfo.path = next(iter(paths.values())).parent
+            _lib = SimpleNamespace(**fns)
         return _lib
 
 

@@ -7,7 +7,11 @@ Counterpart of ``adaptive_classifier_tpu/ops/fusion.py``:
   ``predict`` semantics).
 - ``fuse_topk``: prototype softmax over only the top-k neighbors, head
   probabilities truncated to their top-k, fixed scalar weights (the
-  ``predict_batch`` semantics).
+  ``predict_batch`` semantics).  At ``C >= fused_topk_min_classes`` a CUDA
+  tensor takes the prototype top-k from kernel B5 (``ops/knn_topk.py``)
+  without the ``[B, C]`` similarity matrix.
+- ``fuse_dist_from_emb``: the ``fuse_full`` distribution returned whole
+  (the ``predict_proba`` semantics).
 
 Every top-k here ranks ties by lower index, as ``jax.lax.top_k`` does.
 Empty slots get id −1 and score 0.
@@ -19,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import knn
+from . import knn, knn_topk
 from .knn import top_k_lower_index
 from ..models.head import HeadParams, head_forward
 
@@ -166,18 +170,44 @@ def fuse_topk_from_emb(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """kNN sims + head forward + top-k fusion (the ``predict_batch`` path).
 
-    At ``C >= fused_min_classes`` the JAX package routes the prototype stage
-    through its streaming top-k kernel (B5); on a GPU that raises here until
-    B5 is ported.
+    At ``C >= fused_min_classes`` (when nonzero) and ``k <= 128`` the JAX
+    package routes the prototype stage through its streaming top-k kernel;
+    here a CUDA tensor takes kernel B5 there, and a CPU tensor the plain
+    materialized path.
     """
     C = proto.shape[0]
+    kk = min(k, C)
     if (emb.is_cuda and fused_min_classes and C >= fused_min_classes
-            and min(k, C) <= 128):
-        raise NotImplementedError(
-            f"prototype top-k at C={C} >= fused_topk_min_classes="
-            f"{fused_min_classes} runs in kernel B5 (_topk_sims_pallas), "
-            f"which is not yet ported to CUDA")
+            and kk <= knn_topk.KPAD):
+        topk_sc, topk_idx = knn_topk.topk_scores_fused(
+            emb, proto, proto_valid, kk, bias=proto_bias)
+        logits = (head_forward(head_params, emb) if has_head
+                  else torch.zeros((emb.shape[0], C), device=emb.device))
+        return _fuse_from_proto_topk(topk_sc, topk_idx, logits, active, C,
+                                     proto_weight, head_weight, kk, has_head)
     sims, logits = _sims_and_logits(emb, proto, proto_valid, head_params,
                                     has_head, pallas_min_classes)
     return fuse_topk(sims, logits, proto_valid, active, proto_weight,
                      head_weight, k, has_head, proto_bias=proto_bias)
+
+
+def fuse_dist_from_emb(
+    emb: torch.Tensor,           # [B, D] normalized embeddings
+    proto: torch.Tensor,         # [C, D]
+    proto_valid: torch.Tensor,   # [C] bool
+    head_params: Optional[HeadParams],
+    active: torch.Tensor,        # [C] bool
+    proto_w: torch.Tensor,       # [C] per-label weights
+    head_w: torch.Tensor,        # [C]
+    has_head: bool,
+    pallas_min_classes: int = 512,
+    proto_bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Full fused probability distribution ``[B, C]``: the ``fuse_full``
+    combination returned whole.  Rows sum to 1 over scorable classes;
+    non-scorable columns are 0."""
+    sims, logits = _sims_and_logits(emb, proto, proto_valid, head_params,
+                                    has_head, pallas_min_classes)
+    combined, scorable = _combined_dist(sims, logits, proto_valid, active,
+                                        proto_w, head_w, has_head, proto_bias)
+    return torch.where(scorable[None, :], combined, torch.zeros_like(combined))

@@ -6,9 +6,10 @@ softmax over the selected neighbors.
 
 The JAX package sends ``masked_sims`` to a Pallas kernel at
 ``C >= pallas_min_classes`` (``masked_sims_pallas``, kernel B4) and keeps the
-plain computation below it.  The port keeps that threshold: below it the
-plain computation is the package's own choice; at or above it on a GPU the
-call raises until B4 is ported.  It never computes B4's work in plain torch.
+plain computation below it.  The port keeps that threshold.  At or above it
+a CPU tensor takes the plain version, ``masked_sims_ref``, and a CUDA tensor
+launches the hand-written kernel in ``csrc/knn_sims.cu`` or raises; there is
+no fallback between them.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from . import _build, launch_counts
 
 
 def masked_sims_ref(
@@ -30,19 +33,63 @@ def masked_sims_ref(
     return torch.where(valid[None, :], torch.exp(-d2), torch.zeros_like(d2))
 
 
+def check_knn_inputs(queries: torch.Tensor, protos: torch.Tensor,
+                     valid: torch.Tensor, *extra: torch.Tensor):
+    """Raise ValueError unless the inputs are what the kNN kernels take:
+    ``queries [B, D]`` and ``protos [C, D]`` float32, ``valid [C]`` bool,
+    and any ``extra`` ``[C]`` float32, contiguous on one CUDA device."""
+    if queries.dim() != 2 or protos.dim() != 2 or queries.shape[1] != protos.shape[1]:
+        raise ValueError(f"queries {tuple(queries.shape)} and prototypes "
+                         f"{tuple(protos.shape)} must be [B, D] and [C, D]")
+    C = protos.shape[0]
+    if tuple(valid.shape) != (C,) or valid.dtype != torch.bool:
+        raise ValueError(f"valid must be [{C}] bool, got {tuple(valid.shape)} {valid.dtype}")
+    for t in (queries, protos) + extra:
+        if t.dtype != torch.float32:
+            raise ValueError(f"kNN kernels take float32, got {t.dtype}")
+    for t in extra:
+        if tuple(t.shape) != (C,):
+            raise ValueError(f"per-prototype input must be [{C}], got {tuple(t.shape)}")
+    for t in (queries, protos, valid) + extra:
+        if t.device != queries.device:
+            raise ValueError(f"inputs on {t.device} and {queries.device}")
+        if not t.is_contiguous():
+            raise ValueError("kNN kernel inputs must be contiguous")
+    if queries.shape[0] == 0 or C == 0 or queries.shape[1] == 0:
+        raise ValueError("kNN kernels take non-empty inputs")
+
+
+def masked_sims_cuda(queries: torch.Tensor, protos: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """Kernel B4 on the GPU: ``[B, C]`` masked ``exp(−d²)``, f32 throughout."""
+    if queries.device.type != "cuda":
+        raise ValueError(f"masked_sims_cuda takes CUDA tensors, got {queries.device}")
+    check_knn_inputs(queries, protos, valid)
+    B, D = queries.shape
+    C = protos.shape[0]
+    out = torch.empty((B, C), dtype=torch.float32, device=queries.device)
+    lib = _build.library()
+    with torch.cuda.device(queries.device):
+        stream = torch.cuda.current_stream(queries.device).cuda_stream
+        err = lib.ac_masked_sims(queries.data_ptr(), protos.data_ptr(),
+                                 valid.data_ptr(), out.data_ptr(), B, C, D, stream)
+    _build.check(err, "knn_sims launch")
+    launch_counts["knn_sims"] += 1
+    return out
+
+
 def masked_sims(
     queries: torch.Tensor,
     protos: torch.Tensor,
     valid: torch.Tensor,
     pallas_min_classes: int = 512,
 ) -> torch.Tensor:
-    """Prototype similarities, dispatched by the JAX package's threshold."""
-    if queries.is_cuda and protos.shape[0] >= pallas_min_classes:
-        raise NotImplementedError(
-            f"masked kNN similarities at C={protos.shape[0]} >= "
-            f"pallas_min_classes={pallas_min_classes} run in kernel B4 "
-            f"(masked_sims_pallas), which is not yet ported to CUDA")
-    return masked_sims_ref(queries, protos, valid)
+    """Prototype similarities, dispatched by the JAX package's threshold:
+    below it the plain computation; at or above it kernel B4 for a CUDA
+    tensor, its plain version for a CPU tensor."""
+    if protos.shape[0] < pallas_min_classes or queries.device.type == "cpu":
+        return masked_sims_ref(queries, protos, valid)
+    return masked_sims_cuda(queries, protos, valid)
 
 
 def top_k_lower_index(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

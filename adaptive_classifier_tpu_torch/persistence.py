@@ -55,7 +55,8 @@ def load_classifier(cls, model_path: Union[str, Path],
         saved_examples = config_dict.get("examples", {})
 
     model_name = _resolve_model_name(model_path, config_dict["model_name"])
-    clf = cls(model_name, device=device, config=config_dict.get("config", None))
+    clf = cls(model_name, device=device, config=config_dict.get("config", None),
+              seed=config_dict.get("ac_seed", 42))
     if model_name == str(model_path / "encoder"):
         clf.model_name = config_dict["model_name"]
     if "ac_fusion_alpha" in config_dict:
@@ -78,6 +79,7 @@ def load_classifier(cls, model_path: Union[str, Path],
     clf.id_to_label = {int(k): v for k, v in config_dict["id_to_label"].items()}
     for idx in sorted(clf.id_to_label):
         clf.memory.register_label(clf.id_to_label[idx])
+    clf.train_steps = config_dict.get("train_steps", 0)
     clf.training_history = dict(config_dict.get("training_history", {}))
 
     tensors_path = model_path / "model.safetensors"
@@ -90,12 +92,16 @@ def load_classifier(cls, model_path: Union[str, Path],
         ex_data = saved_examples.get(label, [])
         texts = [d["text"] for d in ex_data]
         proto = tensors.get(f"prototype_{label}")
-        if proto is None and ex_data and ex_data[0].get("embedding") is not None:
+        if ex_data and ex_data[0].get("embedding") is not None:
             embs = np.asarray([d["embedding"] for d in ex_data], np.float32)
         else:
             embs = np.zeros((len(texts), clf.embedding_dim), np.float32)
         if texts or proto is not None:
-            clf.memory.restore_class(label, texts, embs, prototype=proto)
+            # the saved prototype aggregates every example the class trained
+            # on; later adds update it as a running mean at that weight
+            clf.memory.restore_class(
+                label, texts, embs, prototype=proto,
+                prototype_weight=clf.training_history.get(label, 0))
 
     head_sd = {k[len("adaptive_head_"):]: v for k, v in tensors.items()
                if k.startswith("adaptive_head_")}

@@ -7,17 +7,32 @@ Phases, each of which must pass:
 1. a CUDA device is present; prints its name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``adaptive_classifier_tpu_torch/csrc`` with
    nvcc (timed, with ptxas' register and shared-memory report);
-3. holds every kernel against its plain torch version on the card (f32:
-   max abs error <= 1e-4 with TF32 off; bf16: cosine > 0.999 and max abs
-   error <= 0.05), then times kernel, plain version and the nearest single
-   PyTorch call at the shapes the main path gives the kernel;
-4. drives the main path: loads zoo classifiers on the full-width encoder
-   (checkpoints/ac-base-v2: BERT, 8 layers, hidden 512, 8 heads) and answers
-   ``predict_batch`` on each task's test rows; checks that the kernels ran
-   (launch counts), the accuracy against the zoo manifest, and top-1
-   agreement with the same run through the plain attention;
+3. holds every kernel against its plain torch version on the card, TF32
+   off (asserted): attention (B1) in f32 to max abs error <= 1e-4 and in
+   bf16 to cosine > 0.999 and max abs error <= 0.05; the masked kNN
+   similarities (B4) to max abs error <= 1e-5; the streaming top-k (B5) to
+   identical indices on inputs with no near-ties, lower-index order on
+   exact ties, and values within 1e-5;
+4. serves saved zoo classifiers on the full-width encoder
+   (checkpoints/ac-base-v2: BERT, 8 layers, hidden 512, 8 heads):
+   ``predict_batch`` on each task's test rows, with launch counts, accuracy
+   against the zoo manifest, and top-1 agreement with the plain attention;
+6. builds banking-intents from data/intents.json with ``add_examples`` on
+   the production config (lexical_dim 32768, ridge head, auto knobs), then
+   adds its three new classes; accuracy >= manifest - 0.03;
+7. grows a 1,024-class classifier (960 + 64 classes): kernel B4 carries
+   the recalibration and every ``predict_batch`` chunk, with top-1
+   agreement >= 0.99 against the plain versions on the same embeddings;
+8. builds a 16,384-class classifier: kernel B5 carries ``predict_batch``
+   (agreement >= 0.99 with the plain path), B4 ``predict`` and
+   ``predict_proba``;
+3b. times every kernel, its plain version and the nearest single PyTorch
+   call at the shapes the main path gave it, on the main path's inputs;
 5. prints the ``kernels`` JSON line, then as its last line
    ``{"ok": true, "device": {...}}``.
+
+Each phase prints its seconds; phases 4, 6, 7 and 8 zero the launch counts
+just before they run and read them just after.
 
 Exits non-zero, without the last line, if there is no CUDA device, if the
 package is not beside this file, or if any phase fails.
@@ -186,6 +201,170 @@ def time_attention(shapes) -> list:
     return rows
 
 
+def unit_rows(r, shape):
+    x = r.standard_normal(shape).astype(np.float32)
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+def knn_inputs(seed, B, C, D, valid="all"):
+    """Unit-norm queries and prototypes (the real domain: d² in [0, 4])."""
+    r = np.random.default_rng(seed)
+    v = {"all": np.ones(C, bool), "none": np.zeros(C, bool),
+         "mixed": r.random(C) < 0.5}[valid]
+    return (torch.from_numpy(unit_rows(r, (B, D))).cuda(),
+            torch.from_numpy(unit_rows(r, (C, D))).cuda(), torch.from_numpy(v).cuda())
+
+
+def planted_topk_inputs(seed, B, C, D, k, bias=False, valid_per_query=None,
+                        none_valid=False, dup=False):
+    """Top-k inputs with no near-ties among each query's winners: query b's
+    k+1 nearest prototypes sit at distances growing with t (noise
+    orthogonal to the query), every other prototype is random (similarity
+    ~0.14).  ``bias``: random {0, -0.3} on the others, 0 on the nearer half
+    of the planted ones and -0.3 on the farther half.  ``valid_per_query``:
+    only that many planted prototypes per query are valid.  ``dup``: query
+    0's nearest prototype is copied onto two free slots (exact ties).
+    → (q, p, valid, bias or None, expected order of the tie or None)."""
+    r = np.random.default_rng(seed)
+    q = unit_rows(r, (B, D))
+    p = unit_rows(r, (C, D))
+    m = k + 1
+    planted = r.permutation(C)[:B * m].reshape(B, m)
+    t = np.linspace(0.2, 1.2, m)[:, None]
+    for b in range(B):
+        n = r.standard_normal((m, D))
+        n -= (n @ q[b])[:, None] * q[b][None, :]
+        n /= np.linalg.norm(n, axis=1, keepdims=True)
+        x = q[b] + t * n
+        p[planted[b]] = x / np.linalg.norm(x, axis=1, keepdims=True)
+    valid = np.ones(C, bool)
+    if valid_per_query is not None:
+        valid[:] = False
+        valid[planted[:, :valid_per_query].reshape(-1)] = True
+    if none_valid:
+        valid[:] = False
+    tie = None
+    if dup:
+        free = np.setdiff1d(np.arange(C), planted.reshape(-1))
+        p[free[0]] = p[free[-1]] = p[planted[0, 0]]
+        tie = sorted([int(planted[0, 0]), int(free[0]), int(free[-1])])
+    b = None
+    if bias:
+        b = (-0.3 * r.integers(0, 2, C)).astype(np.float32)
+        b[planted[:, :m // 2]] = 0.0
+        b[planted[:, m // 2:]] = -0.3
+    cuda = lambda a: None if a is None else torch.from_numpy(a).cuda()
+    return cuda(q), cuda(p), cuda(valid), cuda(b), tie
+
+
+def check_knn() -> dict:
+    """Kernels B4 and B5 against their plain versions on the card; raises
+    on any disagreement."""
+    from adaptive_classifier_tpu_torch.ops import knn, knn_topk
+
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off"
+    out = {"knn_sims": [], "knn_topk": []}
+    for name, (B, C, D, valid) in {
+        "[256,512]x[1024,512]": (256, 1024, 512, "all"),
+        "[256,512]x[16384,512]": (256, 16384, 512, "all"),
+        "[3,33280]x[1000,33280]": (3, 1000, 33280, "all"),
+        "ragged [250,500]x[1021,500]": (250, 1021, 500, "mixed"),
+        "all invalid [64,512]x[600,512]": (64, 600, 512, "none"),
+        "mixed valid [100,512]x[2000,512]": (100, 2000, 512, "mixed"),
+    }.items():
+        q, p, v = knn_inputs(len(out["knn_sims"]), B, C, D, valid)
+        got = knn.masked_sims_cuda(q, p, v)
+        want = knn.masked_sims_ref(q, p, v)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        res = {"case": name, "max_abs_err": err,
+               "finite": bool(torch.isfinite(got).all().item())}
+        res["ok"] = res["finite"] and err <= 1e-5
+        log(f"  check knn_sims {json.dumps(res)}")
+        if not res["ok"]:
+            raise AssertionError(f"knn_sims kernel disagrees with plain: {res}")
+        out["knn_sims"].append(res)
+    for name, (B, C, k, kw) in {
+        "k=5 C=16384": (256, 16384, 5, {}),
+        "k=1 C=16385 bias": (256, 16385, 1, {"bias": True}),
+        "k=128 C=16384 bias": (64, 16384, 128, {"bias": True}),
+        "k=5 C=16385": (32, 16385, 5, {}),
+        "k=20 fewer valid (12)": (4, 16385, 20, {"valid_per_query": 3}),
+        "k=5 none valid": (8, 16384, 5, {"none_valid": True}),
+        "k=6 exact ties": (16, 16384, 6, {"dup": True}),
+    }.items():
+        q, p, v, b, tie = planted_topk_inputs(3, B, C, 512, k, **kw)
+        vals, idx = knn_topk.topk_sims_cuda(q, p, v, k, bias=b)
+        want_v, want_i = knn_topk.topk_sims_ref(q, p, v, k, bias=b)
+        scores, sidx = knn_topk.topk_scores_fused(q, p, v, k, bias=b)
+        torch.cuda.synchronize()
+        err = (vals - want_v).abs().max().item()
+        res = {"case": name, "max_abs_err": err,
+               "same_idx": bool(torch.equal(idx, want_i)),
+               "finite_scores": bool(torch.isfinite(scores).all().item())}
+        res["ok"] = res["same_idx"] and err <= 1e-5 and res["finite_scores"]
+        if tie is not None:
+            res["tie_order"] = idx[0, :3].tolist()
+            res["ok"] = res["ok"] and res["tie_order"] == tie
+        if kw.get("none_valid"):
+            res["ok"] = res["ok"] and bool((sidx == -1).all()) and bool((scores == 0).all())
+        log(f"  check knn_topk {json.dumps(res)}")
+        if not res["ok"]:
+            raise AssertionError(f"knn_topk kernel disagrees with plain: {res}")
+        out["knn_topk"].append(res)
+    return out
+
+
+def knn_bound(B, C, D, k=None):
+    """Least time for B4 (k None) or B5: inputs read once (queries,
+    prototypes, the validity bytes and for B5 the bias), outputs written
+    once ([B, C] f32, or [B, k] values and indices), against 2·B·C·D FLOP
+    at the f32 rate outside the tensor cores."""
+    if k is None:
+        nbytes = 4 * (B * D + C * D + B * C) + C
+    else:
+        nbytes = 4 * (B * D + C * D + C) + C + 8 * B * k
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * B * C * D / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_knn(shapes: dict) -> dict:
+    """B4 and B5, their plain versions and the nearest single PyTorch call,
+    on inputs the main path gave them."""
+    from adaptive_classifier_tpu_torch.ops import knn, knn_topk
+
+    rows = {"knn_sims": [], "knn_topk": []}
+    for name, (q, p, v) in shapes["knn_sims"].items():
+        B, D = q.shape
+        C = p.shape[0]
+        err = (knn.masked_sims_cuda(q, p, v) - knn.masked_sims_ref(q, p, v)).abs().max().item()
+        row = {"shape": name, "B": B, "C": C, "D": D, "max_abs_err": err,
+               "ms": cuda_ms(lambda: knn.masked_sims_cuda(q, p, v)),
+               "plain_ms": cuda_ms(lambda: knn.masked_sims_ref(q, p, v)),
+               # nearest single call: returns d, not exp(-d²)
+               "library_ms": cuda_ms(lambda: torch.cdist(q, p)),
+               "library_call": "torch.cdist"}
+        row["bound_ms"], row["bound_by"] = knn_bound(B, C, D)
+        log(f"  time knn_sims {json.dumps(row)}")
+        rows["knn_sims"].append(row)
+    for name, (q, p, v, b, k) in shapes["knn_topk"].items():
+        B, D = q.shape
+        C = p.shape[0]
+        vals, idx = knn_topk.topk_sims_cuda(q, p, v, k, bias=b)
+        want_v, want_i = knn_topk.topk_sims_ref(q, p, v, k, bias=b)
+        row = {"shape": name, "B": B, "C": C, "D": D, "k": k,
+               "max_abs_err": (vals - want_v).abs().max().item(),
+               "same_idx_share": (idx == want_i).float().mean().item(),
+               "ms": cuda_ms(lambda: knn_topk.topk_sims_cuda(q, p, v, k, bias=b)),
+               "plain_ms": cuda_ms(lambda: knn_topk.topk_sims_ref(q, p, v, k, bias=b)),
+               "library_ms": None}
+        row["bound_ms"], row["bound_by"] = knn_bound(B, C, D, k)
+        log(f"  time knn_topk {json.dumps(row)}")
+        rows["knn_topk"].append(row)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -282,6 +461,252 @@ def run_task(task: str, manifest: dict, gpu: str) -> dict:
     return {"summary": out, "shape": shape}
 
 
+# ---------------------------------------------------------------------------
+# phases 6-8: building and growing classifiers with add_examples
+# ---------------------------------------------------------------------------
+
+#: the zoo's build config (checkpoints/zoo/manifest.json top level)
+PRODUCTION = {"lexical_dim": 32768, "head_type": "ridge", "fusion_weights": "auto",
+              "ridge_lambda": "auto"}
+#: the many-class phases: the production ridge head, lexical channel off
+MANY = {"head_type": "ridge", "ridge_lambda": 1.0, "example_capacity_buckets": [4],
+        "example_capacity_slack": 4, "max_examples_per_class": 4}
+TOPICS = ["billing", "shipping", "returns", "privacy", "hardware",
+          "software", "travel", "finance"]
+ENCODER = REPO / "checkpoints" / "ac-base-v2"
+
+
+class Launches:
+    """Launch counts of the main path: each step runs with the counts zeroed
+    just before and read just after; ``total`` sums the steps."""
+
+    def __init__(self):
+        self.total = {}
+
+    def run(self, fn):
+        import adaptive_classifier_tpu_torch as port
+
+        port.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = dict(port.launch_counts)
+        for name, n in counts.items():
+            self.total[name] = self.total.get(name, 0) + n
+        return out, counts
+
+
+def intents_rows(block: str):
+    """(texts, labels) of data/intents.json, rows in the order of
+    scripts/build_classifier_zoo.py."""
+    intents = json.loads((REPO / "data" / "intents.json").read_text())
+    if block in ("train", "new_classes"):
+        rows = [(t, lbl) for lbl, ts in intents[block].items() for t in ts]
+    else:   # test rows of the base ("train") or the new classes
+        src = "train" if block == "test_base" else "new_classes"
+        rows = [(t, lbl) for lbl in intents[src] for t in intents["test"][lbl]]
+    return [t for t, _ in rows], [lbl for _, lbl in rows]
+
+
+def top1(preds):
+    return [p[0][0] if p else None for p in preds]
+
+
+def accuracy(preds, labels) -> float:
+    return float(np.mean([a == b for a, b in zip(top1(preds), labels)]))
+
+
+def run_build(manifest: dict, launches: Launches) -> dict:
+    """Phase 6: banking-intents built from data on the production config,
+    then its three new classes added."""
+    import adaptive_classifier_tpu_torch as port
+
+    clf = port.AdaptiveClassifier(str(ENCODER), config=dict(PRODUCTION), device="cuda")
+    texts, labels = intents_rows("train")
+    t0 = time.perf_counter()
+    _, first = launches.run(lambda: clf.add_examples(texts, labels))
+    add_s = time.perf_counter() - t0
+    test_t, test_l = intents_rows("test_base")
+    preds, pred_counts = launches.run(lambda: clf.predict_batch(test_t, k=1))
+    acc = accuracy(preds, test_l)
+    floor = manifest["classifiers"]["banking-intents"]["expected_accuracy"] - 0.03
+    if not acc >= floor:
+        raise AssertionError(f"banking-intents built from data: top-1 {acc:.4f} < {floor:.4f}")
+    zoo = port.AdaptiveClassifier.load(REPO / "checkpoints" / "zoo" / "banking-intents",
+                                       device="cuda")
+    zoo_cfg = json.loads((REPO / "checkpoints" / "zoo" / "banking-intents"
+                          / "config.json").read_text())
+    zoo_agree = float(np.mean([a == b for a, b in zip(
+        top1(preds), top1(zoo.predict_batch(test_t, k=1)))]))
+    knobs = {"lexical_grams": clf.lexical.grams, "lexical_weight": clf.lexical.weight,
+             "ridge_lambda": clf.config.ridge_lambda, "fusion_alpha": clf._fusion_alpha}
+    zoo_m = manifest["classifiers"]["banking-intents"]
+    zoo_knobs = {"lexical_grams": zoo_m["lexical_grams"],
+                 "lexical_weight": zoo_m["lexical_weight"],
+                 "ridge_lambda": zoo_cfg["config"]["ridge_lambda"],
+                 "fusion_alpha": zoo_m["fusion_alpha"]}
+    del zoo
+
+    new_t, new_l = intents_rows("new_classes")
+    t0 = time.perf_counter()
+    _, second = launches.run(lambda: clf.add_examples(new_t, new_l))
+    add_new_s = time.perf_counter() - t0
+    after = accuracy(clf.predict_batch(test_t, k=1), test_l)
+    nt_t, nt_l = intents_rows("test_new")
+    new_acc = accuracy(clf.predict_batch(nt_t, k=1), nt_l)
+    for name, counts in (("first add", first), ("predict_batch", pred_counts),
+                         ("new-class add", second)):
+        if counts["attention_qkv"] == 0:
+            raise AssertionError(f"phase 6 {name}: the attention kernel never launched")
+    out = {"phase": 6, "train_rows": len(texts), "test_rows": len(test_t),
+           "top1_accuracy": acc, "accuracy_floor": floor,
+           "top1_agreement_with_zoo_checkpoint": zoo_agree,
+           "resolved": knobs, "zoo": zoo_knobs,
+           "add_examples_s": add_s, "add_new_classes_s": add_new_s,
+           "new_class_rows": len(new_t), "base_accuracy_before": acc,
+           "base_accuracy_after": after,
+           "base_relative_drop": (acc - after) / acc if acc else None,
+           "new_class_test_rows": len(nt_t), "new_class_accuracy": new_acc,
+           "proto_bias_min": float(np.min(clf._proto_bias)) if clf._proto_bias is not None else None,
+           "launches": {"first_add": first, "predict_batch": pred_counts,
+                        "new_class_add": second}}
+    log(f"  build {json.dumps(out)}")
+    del clf
+    torch.cuda.empty_cache()
+    return out
+
+
+def many_class_rows(first: int, n: int, per_class: int, r):
+    """Templated texts: bench.py's phrasing and, with ``per_class`` 2, a
+    second one whose topic is drawn from ``r``."""
+    texts, labels = [], []
+    for i in range(first, first + n):
+        texts.append(f"route this {TOPICS[i % len(TOPICS)]} case number {i} to "
+                     f"the owning specialist team")
+        if per_class == 2:
+            texts.append(f"a {TOPICS[int(r.integers(len(TOPICS)))]} question about "
+                         f"ticket {i} needs the right team")
+        labels += [f"class_{i:05d}"] * per_class
+    return texts, labels
+
+
+def many_class_queries(n: int, n_classes: int):
+    ids = [(i * 7919) % n_classes for i in range(n)]
+    return ([f"please send case number {c} about {TOPICS[c % len(TOPICS)]} to its team"
+             for c in ids], [f"class_{c:05d}" for c in ids])
+
+
+def plain_top1(clf, emb: torch.Tensor, k: int):
+    """predict_batch(k)'s top-1 on the same embeddings through the plain
+    versions: masked_sims_ref, the materialized top-k and fusion."""
+    from adaptive_classifier_tpu_torch.models.head import head_forward
+    from adaptive_classifier_tpu_torch.ops import fusion, knn
+
+    st = clf.memory.state
+    active = clf._active_mask()
+    bias = clf._proto_bias_arr()
+    pw = 0.7 if clf._fusion_alpha is None else float(clf._fusion_alpha)
+    ids = []
+    with torch.inference_mode():
+        for s in range(0, emb.shape[0], 256):
+            e = emb[s:s + 256]
+            sims = knn.masked_sims_ref(e, st.proto, st.valid)
+            _, idx = fusion.fuse_topk(sims, head_forward(clf.head_params, e),
+                                      st.valid, active, pw, 1.0 - pw, k, True,
+                                      proto_bias=bias)
+            ids += idx[:, 0].tolist()
+    return [clf.id_to_label.get(i) for i in ids]
+
+
+def run_many(phase: int, launches: Launches, seed: int = 0) -> dict:
+    """Phase 7 (1,024 classes: 960 + 64 added, two texts each, kernel B4)
+    or phase 8 (16,384 classes, one text each, kernel B5)."""
+    import adaptive_classifier_tpu_torch as port
+    from adaptive_classifier_tpu_torch.ops import fusion
+
+    r = np.random.default_rng(seed)
+    C = 1024 if phase == 7 else 16384
+    cfg = dict(MANY, class_capacity_buckets=[C],
+               train_size_buckets=[2048 if phase == 7 else 16384])
+    clf = port.AdaptiveClassifier(str(ENCODER), config=cfg, device="cuda")
+    per = 2 if phase == 7 else 1
+    first_n = 960 if phase == 7 else C
+    texts, labels = many_class_rows(0, first_n, per, r)
+    t0 = time.perf_counter()
+    _, build_counts = launches.run(lambda: clf.add_examples(texts, labels))
+    build_s = time.perf_counter() - t0
+    out = {"phase": phase, "classes": first_n, "texts_per_class": per,
+           "build_s": build_s, "launches": {"build": build_counts}}
+    if phase == 7:
+        texts, labels = many_class_rows(first_n, 64, per, r)
+        t0 = time.perf_counter()
+        _, add_counts = launches.run(lambda: clf.add_examples(texts, labels))
+        out["add_64_classes_s"] = time.perf_counter() - t0
+        out["launches"]["new_class_add"] = add_counts
+        out["classes"] = first_n + 64
+        if add_counts["knn_sims"] < 1:
+            raise AssertionError("phase 7: kernel B4 did not carry the recalibration")
+    if clf._class_capacity != C:
+        raise AssertionError(f"phase {phase}: class capacity {clf._class_capacity} != {C}")
+
+    k = 1 if phase == 7 else 5
+    kernel = "knn_sims" if phase == 7 else "knn_topk"
+    queries, qlabels = many_class_queries(2048, out["classes"])
+    n_chunks = math.ceil(len(queries) / max(clf.config.embed_chunk_size, 64))
+    preds, pb_counts = launches.run(lambda: clf.predict_batch(queries, k=k))
+    out["launches"]["predict_batch"] = pb_counts
+    if pb_counts[kernel] != n_chunks:
+        raise AssertionError(f"phase {phase}: {kernel} launched {pb_counts[kernel]} "
+                             f"times over {n_chunks} predict_batch chunks")
+    emb = torch.from_numpy(clf._get_embeddings(queries)).cuda()
+    agree = float(np.mean([a == b for a, b in zip(top1(preds), plain_top1(clf, emb, k))]))
+    if not agree >= 0.99:
+        raise AssertionError(f"phase {phase}: kernel and plain paths agree on "
+                             f"{agree:.4f} of top-1 labels (< 0.99)")
+    (probs, _), proba_counts = launches.run(lambda: clf.predict_proba(queries[:256]))
+    row_err = float(np.abs(probs.sum(axis=1) - 1.0).max())
+    if not row_err <= 1e-5:
+        raise AssertionError(f"phase {phase}: predict_proba rows sum to 1 +- {row_err}")
+    out["launches"]["predict_proba"] = proba_counts
+    if phase == 8:
+        _, predict_counts = launches.run(lambda: clf.predict(queries[0], k=5))
+        out["launches"]["predict"] = predict_counts
+        if predict_counts["knn_sims"] < 1 or proba_counts["knn_sims"] < 1:
+            raise AssertionError("phase 8: predict / predict_proba did not launch B4")
+        steady = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            clf.predict_batch(queries, k=k)
+            steady.append(time.perf_counter() - t0)
+        out["predict_batch_2048_ms"] = min(steady) * 1e3
+        # where a chunk's time goes: host tokenization of all chunks, then
+        # the device work of one full chunk (encoder forward; fusion with B5)
+        CH = max(clf.config.embed_chunk_size, 64)
+        t0 = time.perf_counter()
+        for s in range(0, len(queries), CH):
+            ids, mask, _ = clf._tokenize_chunk(queries[s:s + CH], CH)
+        out["host_tokenize_ms"] = (time.perf_counter() - t0) * 1e3
+        out["encoder_forward_ms_per_chunk"] = cuda_ms(
+            lambda: clf.encoder.embed_ids(ids, mask), iters=10)
+        st = clf.memory.state
+        active, bias = clf._active_mask(), clf._proto_bias_arr()
+        with torch.inference_mode():
+            out["fuse_ms_per_chunk"] = cuda_ms(lambda: fusion.fuse_topk_from_emb(
+                emb[:CH], st.proto, st.valid, clf.head_params, active, 0.7, 0.3, k,
+                True, proto_bias=bias, fused_min_classes=clf.config.fused_topk_min_classes),
+                iters=10)
+    out.update({"queries": len(queries), "k": k,
+                "top1_accuracy": accuracy(preds, qlabels),
+                "top1_agreement_with_plain": agree,
+                "predict_proba_row_sum_err": row_err})
+    log(f"  many {json.dumps(out)}")
+    st = clf.memory.state
+    bias = clf._proto_bias_arr()
+    shapes = {"emb": emb, "proto": st.proto, "valid": st.valid,
+              "bias": bias, "k": k}
+    del clf
+    return {"summary": out, "shapes": shapes}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr, flush=True)
@@ -294,6 +719,11 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    seconds = {}
+
+    def phase_done(name, t0):
+        seconds[name] = time.perf_counter() - t0
+        log(f"  phase {name}: {seconds[name]:.1f}s")
 
     gpu = gpu_name_and_power()
     log(f"phase 1: device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
@@ -303,21 +733,63 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     log(f"phase 2: kernels built in {time.perf_counter() - t0:.1f}s "
-        f"(nvcc {_build.BuildInfo.seconds:.1f}s, compiled={_build.BuildInfo.compiled}) "
-        f"-> {_build.BuildInfo.path}")
+        f"(parallel nvcc {_build.BuildInfo.seconds:.1f}s, "
+        f"compiled={_build.BuildInfo.compiled}) -> {_build.BuildInfo.path}")
     for line in _build.BuildInfo.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if ("registers" in line or "spill" in line or "Compiling entry" in line
+                or line.startswith("==")):
             log(f"  ptxas {line.strip()}")
+    phase_done("2", t0)
 
-    log("phase 3: kernel vs plain version on the card")
+    log("phase 3: kernels vs plain versions on the card")
+    t0 = time.perf_counter()
     checks = check_attention()
+    knn_checks = check_knn()
+    phase_done("3", t0)
 
-    log("phase 4: main path (predict_batch on zoo classifiers)")
+    launches = Launches()
+    log("phase 4: serve saved zoo classifiers (predict_batch)")
+    t0 = time.perf_counter()
     manifest = json.loads((REPO / "checkpoints" / "zoo" / "manifest.json").read_text())
     runs = {task: run_task(task, manifest, gpu) for task in TASKS}
+    for r in runs.values():
+        for name, n in r["summary"]["launches"].items():
+            launches.total[name] = launches.total.get(name, 0) + n
+    phase_done("4", t0)
+
+    log("phase 6: build banking-intents from data on the production config")
+    t0 = time.perf_counter()
+    build = run_build(manifest, launches)
+    phase_done("6", t0)
+
+    log("phase 7: 1,024 classes (960 + 64 added), kernel B4")
+    t0 = time.perf_counter()
+    p7 = run_many(7, launches)
+    phase_done("7", t0)
+
+    log("phase 8: 16,384 classes, kernel B5")
+    t0 = time.perf_counter()
+    p8 = run_many(8, launches)
+    phase_done("8", t0)
 
     log("phase 3b: kernel timing at the main path's shapes")
+    t0 = time.perf_counter()
     timings = time_attention({t: r["shape"] for t, r in runs.items()})
+    s7, s8 = p7["shapes"], p8["shapes"]
+    knn_times = time_knn({
+        "knn_sims": {
+            "phase 7 predict_batch chunk": (s7["emb"][:256], s7["proto"], s7["valid"]),
+            "phase 7 recalibration": (s7["emb"], s7["proto"], s7["valid"]),
+            "phase 8 predict_proba chunk": (s8["emb"][:256], s8["proto"], s8["valid"]),
+        },
+        "knn_topk": {
+            "phase 8 predict_batch chunk": (s8["emb"][:256], s8["proto"], s8["valid"],
+                                            s8["bias"], s8["k"]),
+        },
+    })
+    phase_done("3b", t0)
+    del p7, p8
+    torch.cuda.empty_cache()
 
     main_row = timings[0]
     kernels = [{
@@ -325,11 +797,9 @@ def main() -> int:
         "route": "cuda",
         "source": "adaptive_classifier_tpu_torch/csrc/attention_qkv.cu",
         "replaces": "adaptive_classifier_tpu/ops/attention_qkv.py:216",
-        "launches": sum(r["summary"]["launches"]["attention_qkv"] for r in runs.values()),
+        "launches": launches.total["attention_qkv"],
         "max_abs_err": max(r["max_abs_err"] for r in timings),
-        "max_err": max(r["max_abs_err"] for r in timings),
         "ms": main_row["ms"],
-        "kernel_ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
@@ -340,7 +810,30 @@ def main() -> int:
         "checks_max_abs_err": max(c["max_abs_err"] for c in checks.values()),
         "per_shape": timings,
     }]
+    for name, replaces, tol in (
+            ("knn_sims", "adaptive_classifier_tpu/ops/knn.py:78",
+             "f32 max abs err <= 1e-5 (TF32 off)"),
+            ("knn_topk", "adaptive_classifier_tpu/ops/knn_topk.py:120",
+             "identical idx on inputs without near-ties, lower index on exact "
+             "ties, values max abs err <= 1e-5")):
+        row = knn_times[name][0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"adaptive_classifier_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": launches.total[name],
+            "max_abs_err": max(c["max_abs_err"] for c in knn_checks[name] + knn_times[name]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": [row["B"], row["C"], row["D"]] + ([row["k"]] if "k" in row else []),
+            "tolerance": tol, "per_shape": knn_times[name],
+        })
+    for name, n in launches.total.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} never launched on the main path")
     log("phase 5: summary")
+    log(f"  seconds per phase {json.dumps(seconds)}")
+    log(f"  main path launches {json.dumps(launches.total)}")
     log(gpu)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,7 @@ setup(
     description="TPU-native adaptive text classification (JAX/XLA/Pallas)",
     packages=find_packages(exclude=("tests", "scripts", "examples", "native")),
     # the PyTorch/CUDA port ships its CUDA sources; nvcc builds them on first use
-    package_data={"adaptive_classifier_tpu_torch": ["csrc/*.cu"]},
+    package_data={"adaptive_classifier_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import adaptive_classifier_tpu_torch as port
-from adaptive_classifier_tpu_torch.ops import knn
+from adaptive_classifier_tpu_torch.ops import knn, knn_topk
 from adaptive_classifier_tpu_torch.ops.attention_qkv import (
     attention_from_qkv,
     attention_from_qkv_ref,
@@ -88,10 +88,9 @@ def test_attention_counts_launches(cuda):
 
 
 def test_unported_kernels_raise_on_the_gpu(cuda):
-    q = torch.zeros(2, 8, device=cuda)
-    with pytest.raises(NotImplementedError, match="B4"):
-        knn.masked_sims(q, torch.zeros(512, 8, device=cuda),
-                        torch.ones(512, dtype=torch.bool, device=cuda))
+    clf = port.AdaptiveClassifier.load(REPO / "checkpoints/zoo/banking-intents")
+    with pytest.raises(NotImplementedError, match="B6"):
+        clf.encoder._attn_impl(1024)
 
 
 def test_zoo_predict_batch_on_the_gpu(cuda):
@@ -105,3 +104,126 @@ def test_zoo_predict_batch_on_the_gpu(cuda):
     assert acc >= 0.92 - 0.03
     with pytest.raises(NotImplementedError, match="B6"):
         clf.encoder._attn_impl(1024)
+
+
+def _knn_inputs(dev, seed, B, C, D, n_valid=None, dup=False):
+    """Unit-norm queries and prototypes (the real domain: d² in [0, 4]);
+    ``dup`` copies prototype 3 onto 10 and 40 so similarities tie exactly."""
+    r = np.random.default_rng(seed)
+    q = r.standard_normal((B, D)).astype(np.float32)
+    p = r.standard_normal((C, D)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    p /= np.linalg.norm(p, axis=1, keepdims=True)
+    if dup:
+        p[10] = p[40] = p[3]
+        q[0] = p[3]
+    valid = np.ones(C, bool) if n_valid is None else np.arange(C) < n_valid
+    return (torch.from_numpy(q).to(dev), torch.from_numpy(p).to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+@pytest.mark.parametrize("B,C,D,n_valid", [
+    (256, 1024, 512, None),
+    (250, 1021, 500, 700),
+    (3, 1000, 33280, None),
+    (5, 600, 40, 0),
+])
+def test_masked_sims_kernel_matches_plain(cuda, B, C, D, n_valid):
+    q, p, valid = _knn_inputs(cuda, 0, B, C, D, n_valid)
+    port.reset_launch_counts()
+    got = knn.masked_sims(q, p, valid)
+    want = knn.masked_sims_ref(q, p, valid)
+    torch.cuda.synchronize()
+    assert port.launch_counts["knn_sims"] == 1
+    # f32 sums in another order on unit-norm rows
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+def planted_topk_inputs(seed, B, C, D, k, bias=False, n_valid_per_query=None,
+                        none_valid=False, dup=False):
+    """Top-k inputs with no near-ties among each query's winners: query b's
+    k+1 nearest prototypes are planted at growing distances, every other
+    prototype is random (similarity ~0.14).  ``bias`` draws each class's
+    shift from {0, -0.3}.  ``n_valid_per_query`` keeps only that many of
+    each query's planted prototypes valid (and nothing else); ``dup`` copies
+    query 0's nearest prototype onto two more slots (exact ties).
+    → (q, p, valid, bias or None, planted [B, k+1])."""
+    r = np.random.default_rng(seed)
+
+    def unit(x):
+        return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+    q = unit(r.standard_normal((B, D)))
+    p = unit(r.standard_normal((C, D)))
+    m = k + 1
+    planted = r.permutation(C)[:B * m].reshape(B, m)
+    t = np.linspace(0.2, 1.2, m)[:, None]
+    for b in range(B):
+        # noise orthogonal to q[b]: distance grows strictly with t
+        n = r.standard_normal((m, D))
+        n -= (n @ q[b])[:, None] * q[b][None, :]
+        p[planted[b]] = unit(q[b] + t * unit(n))
+    valid = np.ones(C, bool)
+    if n_valid_per_query is not None:
+        valid[:] = False
+        valid[planted[:, :n_valid_per_query].reshape(-1)] = True
+    if none_valid:
+        valid[:] = False
+    if dup:
+        free = np.setdiff1d(np.arange(C), planted.reshape(-1))
+        p[free[0]] = p[free[-1]] = p[planted[0, 0]]
+    b = None
+    if bias:
+        # random on the others; on the planted ones a shift of the farther
+        # half, which keeps the winners apart
+        b = (-0.3 * r.integers(0, 2, C)).astype(np.float32)
+        b[planted[:, :m // 2]] = 0.0
+        b[planted[:, m // 2:]] = -0.3
+    return q, p, valid, b, planted
+
+
+def min_winner_gap(q, p, valid, bias, k):
+    """Smallest gap between consecutive entries of each query's k+1 best
+    valid values, in float64 (exact duplicates excluded)."""
+    q, p = q.astype(np.float64), p.astype(np.float64)
+    d2 = (q * q).sum(1)[:, None] + (p * p).sum(1)[None, :] - 2.0 * q @ p.T
+    v = np.exp(-np.maximum(d2, 0.0)) + (0.0 if bias is None else bias[None, :])
+    v = np.where(valid[None, :], v, -np.inf)
+    top = -np.sort(-v, axis=1)[:, :k + 1]
+    finite = np.isfinite(top[:, 1:])
+    gaps = np.where(finite, top[:, :-1] - np.where(finite, top[:, 1:], 0.0), 0.0)
+    gaps = gaps[gaps > 0]
+    return gaps.min() if gaps.size else np.inf
+
+
+@pytest.mark.parametrize("B,C,k,bias,n_valid,none_valid,dup", [
+    (256, 16384, 5, False, None, False, False),
+    (256, 16385, 1, True, None, False, False),
+    (64, 16384, 128, True, None, False, False),
+    (4, 16385, 20, False, 3, False, False),
+    (8, 16384, 5, False, None, True, False),
+    (16, 16384, 6, False, None, False, True),
+])
+def test_topk_kernel_matches_plain(cuda, B, C, k, bias, n_valid, none_valid, dup):
+    q, p, valid, b, planted = planted_topk_inputs(
+        3, B, C, 512, k, bias, n_valid, none_valid, dup)
+    assert min_winner_gap(q, p, valid, b, k) > 1e-5
+    q, p, valid = (torch.from_numpy(a).to(cuda) for a in (q, p, valid))
+    b = None if b is None else torch.from_numpy(b).to(cuda)
+    port.reset_launch_counts()
+    vals, idx = knn_topk.topk_sims(q, p, valid, k, bias=b)
+    want_v, want_i = knn_topk.topk_sims_ref(q, p, valid, k, bias=b)
+    torch.cuda.synchronize()
+    assert port.launch_counts["knn_topk"] == 1
+    torch.testing.assert_close(vals, want_v, atol=1e-5, rtol=0)
+    if dup:
+        # exact ties rank by the lower prototype index
+        free = np.setdiff1d(np.arange(C), planted.reshape(-1))
+        assert idx[0, :3].tolist() == sorted([int(planted[0, 0]), int(free[0]),
+                                              int(free[-1])])
+    else:
+        assert torch.equal(idx, want_i)
+    scores, sidx = knn_topk.topk_scores_fused(q, p, valid, k, bias=b)
+    assert torch.isfinite(scores).all()
+    if none_valid:
+        assert (sidx == -1).all() and (scores == 0).all()

@@ -39,7 +39,9 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "adaptive_classifier_tpu_torch.models.encoder" in out["imported"]
-    assert "adaptive_classifier_tpu_torch.ops.attention_qkv" in out["imported"]
+    for mod in ("ops.attention_qkv", "ops.knn", "ops.knn_topk", "ops.fusion",
+                "memory", "training", "lexical", "convert"):
+        assert f"adaptive_classifier_tpu_torch.{mod}" in out["imported"]
     leaked = [m for m in out["loaded"]
               if m == "adaptive_classifier_tpu" or m.startswith("adaptive_classifier_tpu.")]
     assert leaked == []
@@ -64,6 +66,40 @@ def test_imports_are_torch_numpy_stdlib(path):
         for top in tops:
             assert top in ALLOWED_TOP or top in sys.stdlib_module_names, (
                 f"{path.name}:{node.lineno} imports {top}")
+
+
+def test_cuda_sources_are_packaged_and_bound():
+    """Every csrc file ships with the package, every quoted include exists,
+    every C entry point the build module declares is defined by a source,
+    and there is a launch counter for each kernel wrapper."""
+    import re
+    import tomllib
+    from fnmatch import fnmatch
+
+    from adaptive_classifier_tpu_torch.ops import _build, launch_counts
+
+    globs = tomllib.loads((REPO / "pyproject.toml").read_text())[
+        "tool"]["setuptools"]["package-data"]["adaptive_classifier_tpu_torch"]
+    setup_py = (REPO / "setup.py").read_text()
+    sources = sorted((PORT / "csrc").iterdir())
+    assert {p.suffix for p in sources} == {".cu", ".cuh"}
+    text = ""
+    for src in sources:
+        rel = f"csrc/{src.name}"
+        assert any(fnmatch(rel, g) for g in globs), rel
+        assert any(fnmatch(rel, g) and f'"{g}"' in setup_py for g in globs), rel
+        body = src.read_text()
+        for inc in re.findall(r'#include "([^"]+)"', body):
+            assert (PORT / "csrc" / inc).exists(), (src.name, inc)
+        text += body
+    for fn in _build.SIGNATURES:
+        assert re.search(rf'extern "C" [^(]*\b{fn}\(', text), fn
+    assert set(launch_counts) == {"attention_qkv", "knn_sims", "knn_topk"}
+    # the kernels call no library (cuBLAS, CUTLASS) and no tensor-core path
+    # (TF32 would move exp(-d²) by ~1e-3)
+    code = re.sub(r"//[^\n]*", "", text).lower()
+    for word in ("cublas", "cutlass", "tf32", "wmma", "mma."):
+        assert word not in code, word
 
 
 def _run_smoke(cwd, block_jax=True, timeout=300):
