@@ -41,6 +41,7 @@ class AdaptiveClassifier:
     """A saved adaptive classifier, served from PyTorch.
 
     ``device`` defaults to ``"cuda"``; pass ``"cpu"`` to run on the CPU.
+    ``config={"quantization": "int8"}`` runs the encoder's int8 forward.
     """
 
     def __init__(
@@ -49,6 +50,7 @@ class AdaptiveClassifier:
         device: Optional[Union[str, torch.device]] = None,
         config: Optional[Dict[str, Any]] = None,
         seed: int = 42,
+        encoder: Optional[Encoder] = None,
     ):
         self.config = ModelConfig(config)
         if self.config.enable_strategic_mode:
@@ -56,9 +58,10 @@ class AdaptiveClassifier:
         self.model_name = model_name
         self.seed = seed
         self.device = resolve_device(device)
-        self.encoder = Encoder(model_name, compute_dtype=self.config.compute_dtype,
-                               device=self.device,
-                               quantization=self.config.quantization)
+        #: ``encoder``: one built elsewhere (a checkpoint's int8 export)
+        self.encoder = encoder if encoder is not None else Encoder(
+            model_name, compute_dtype=self.config.compute_dtype, device=self.device,
+            quantization=self.config.quantization)
         #: hashed TF-IDF lexical channel; None = encoder embedding only
         self.lexical = None
         if self.config.lexical_dim:

@@ -19,7 +19,8 @@ from typing import Dict, Union
 
 import numpy as np
 
-_DTYPES = {"F32": np.dtype("<f4"), "F16": np.dtype("<f2"), "I64": np.dtype("<i8")}
+_DTYPES = {"F32": np.dtype("<f4"), "F16": np.dtype("<f2"), "I64": np.dtype("<i8"),
+           "I8": np.dtype("i1")}
 
 
 def _bf16_to_f32(raw: np.ndarray) -> np.ndarray:

@@ -13,9 +13,15 @@ products stay ``torch.matmul``; attention goes through
 ``ops.attention_qkv.attention_from_qkv``, whose CUDA kernel serves every
 layer on the GPU.
 
+``quantization="int8"`` quantizes the float32 weights once and runs the
+int8 forward (``models/encoder_int8.py``: kernels B2 and B3 on the GPU);
+``"auto"`` resolves by ``resolve_quantization``.  A checkpoint's int8
+export can stand in for a missing base checkpoint
+(``Encoder.from_quantized_export``).
+
 Weights load from a local HuggingFace-layout BERT checkpoint
-(``config.json`` + ``model.safetensors``).  Other encoder families, the int8
-forward and the offline random-weight mode come with later slices and raise
+(``config.json`` + ``model.safetensors``).  Other encoder families and the
+offline random-weight mode come with later slices and raise
 ``NotImplementedError`` here.
 """
 
@@ -208,6 +214,38 @@ def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.to(x.dtype)).float() + b.float()
 
 
+def embed_tokens(params: Params, input_ids: torch.Tensor, cfg: EncoderConfig,
+                 compute_dtype: torch.dtype) -> torch.Tensor:
+    """Word + position (+ token type 0) embeddings and their LayerNorm →
+    ``[B, S, D]`` in ``compute_dtype``."""
+    S = input_ids.shape[1]
+    h = (params["embeddings.word"][input_ids.long()]
+         + params["embeddings.position"][:S][None, :, :])
+    if cfg.type_vocab_size > 0:
+        h = h + params["embeddings.token_type"][0][None, None, :]
+    h = _add_layer_norm(h, None, params["embeddings.ln_scale"],
+                        params["embeddings.ln_bias"], cfg.layer_norm_eps)
+    return h.to(compute_dtype)
+
+
+def _n_layers(cfg: EncoderConfig) -> int:
+    """Layers the forward runs: ``pool_layer`` when it truncates, else all."""
+    return cfg.pool_layer if 0 < cfg.pool_layer < cfg.num_layers else cfg.num_layers
+
+
+def pool_and_normalize(hidden: torch.Tensor, attention_mask: torch.Tensor,
+                       pooling: str) -> torch.Tensor:
+    """CLS (``"cls"``) or masked-mean (``"mean"``) pooling of ``[B, S, D]``,
+    then L2 normalization → ``[B, D]``."""
+    if pooling == "mean":
+        m = attention_mask[:, :, None].to(hidden.dtype)
+        pooled = (hidden * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
+    else:
+        pooled = hidden[:, 0, :]
+    norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
+    return pooled / torch.clamp(norm, min=1e-12)
+
+
 def encoder_forward(
     params: Params,
     input_ids: torch.Tensor,       # [B, S] int
@@ -223,21 +261,10 @@ def encoder_forward(
     """
     if attn_impl not in ("fusedqkv", "einsum"):
         raise NotImplementedError(f"attn_impl={attn_impl!r} comes with a later slice")
-    B, S = input_ids.shape
-    ids = input_ids.long()
-    h = (params["embeddings.word"][ids]
-         + params["embeddings.position"][:S][None, :, :])
-    if cfg.type_vocab_size > 0:
-        h = h + params["embeddings.token_type"][0][None, None, :]
-    h = _add_layer_norm(h, None, params["embeddings.ln_scale"],
-                        params["embeddings.ln_bias"], cfg.layer_norm_eps)
-    h = h.to(compute_dtype)
-
+    h = embed_tokens(params, input_ids, cfg, compute_dtype)
     H, Dh, eps = cfg.num_heads, cfg.head_dim, cfg.layer_norm_eps
     attend = attention_from_qkv if attn_impl == "fusedqkv" else attention_from_qkv_ref
-    n_layers = (cfg.pool_layer if 0 < cfg.pool_layer < cfg.num_layers
-                else cfg.num_layers)
-    for i in range(n_layers):
+    for i in range(_n_layers(cfg)):
         p = {n: params[f"layers.{i}.{n}"] for n in _MATRICES + _VECTORS}
         x = h
         qkv = _linear(x, p["qkv_w"], p["qkv_b"]).to(compute_dtype)
@@ -261,22 +288,56 @@ def embed_texts_device(params: Params, input_ids: torch.Tensor,
     ``[B, D]`` float32."""
     hidden = encoder_forward(params, input_ids, attention_mask, cfg,
                              compute_dtype, attn_impl=attn_impl)
-    if cfg.pooling == "mean":
-        m = attention_mask[:, :, None].to(hidden.dtype)
-        pooled = (hidden * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
-    else:
-        pooled = hidden[:, 0, :]
-    norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
-    return pooled / torch.clamp(norm, min=1e-12)
+    return pool_and_normalize(hidden, attention_mask, cfg.pooling)
 
 
 # ---------------------------------------------------------------------------
 # Encoder facade
 # ---------------------------------------------------------------------------
 
+#: ``quantization="auto"`` resolves to int8 on a CUDA device only where the
+#: int8 forward beat the bf16 forward at both zoo chunk shapes on the card
+#: (PERF.md, the "auto" decision); elsewhere, and on the CPU, to float
+_AUTO_INT8_ON_CUDA = False
+
+
+def resolve_quantization(quantization: Optional[str],
+                         device: torch.device) -> Optional[str]:
+    """``None`` (float), ``"int8"``, or ``"auto"`` resolved for ``device``."""
+    if quantization == "auto":
+        return "int8" if _AUTO_INT8_ON_CUDA and device.type == "cuda" else None
+    if quantization not in (None, "int8"):
+        raise NotImplementedError(
+            f"quantization={quantization!r}: the port runs None, 'int8' or 'auto'")
+    return quantization
+
+
+def check_int8_arch(cfg: EncoderConfig):
+    """The int8 forward is BERT's (the JAX package also takes distilbert,
+    roberta and projection-free ELECTRA, which come with a later slice)."""
+    if cfg.arch != "bert":
+        raise NotImplementedError(
+            f"quantization='int8' for arch {cfg.arch!r}: the port's int8 "
+            f"forward runs BERT encoders")
+
+
+def config_from_dict(d: Dict) -> EncoderConfig:
+    """An ``EncoderConfig`` from the JAX package's config fields (an int8
+    export's ``encoder_config``); fields the port lacks are ignored, and a
+    non-BERT arch raises."""
+    if d.get("arch", "bert") != "bert":
+        raise NotImplementedError(
+            f"encoder arch {d.get('arch')!r}: the port loads BERT encoders; "
+            f"the other families come with a later slice")
+    names = EncoderConfig.__dataclass_fields__
+    return EncoderConfig(**{k: v for k, v in d.items() if k in names})
+
+
 class Encoder:
     """Owns the encoder's weights on the device, its tokenizer, and the
-    attention policy."""
+    attention policy.  With ``quantization="int8"`` the weights are the
+    int8 state (``quantization.quantize_encoder_for_inference``) and
+    ``embed_ids`` runs the int8 forward (``encoder_int8``)."""
 
     #: sequence-length buckets: short queries pay for 32 tokens, not 512
     SEQ_BUCKETS = (32, 64, 128, 256, 512)
@@ -286,17 +347,7 @@ class Encoder:
                  quantization: Optional[str] = None):
         from .tokenizer import WordPieceTokenizer
 
-        self.device = resolve_device(device)
-        if compute_dtype not in _DTYPES:
-            raise ValueError(f"compute_dtype {compute_dtype!r} not in {list(_DTYPES)}")
-        self.compute_dtype = _DTYPES[compute_dtype]
-        # "auto" picks int8 only where the int8 kernels win (the JAX package:
-        # only on a TPU); the float path is the port's until int8 is ported
-        if quantization not in (None, "auto"):
-            raise NotImplementedError(
-                f"quantization={quantization!r}: the int8 encoder (kernels B2, "
-                f"B3) comes with a later slice")
-        self.quantization = None
+        self._setup(compute_dtype, device, quantization)
         self.model_name = model_name
         ckpt = _find_local_checkpoint(model_name)
         if ckpt is None:
@@ -304,13 +355,70 @@ class Encoder:
                 f"no local checkpoint at {model_name!r}: the offline "
                 f"random-weight encoder comes with a later slice")
         self.config = _read_hf_config(ckpt)
-        self.params = params_from_tree(
-            _map_hf_weights(_load_state_dict(ckpt), self.config),
-            device=self.device, matrix_dtype=self.compute_dtype)
+        tree = _map_hf_weights(_load_state_dict(ckpt), self.config)
+        if self.quantization == "int8":
+            from ..quantization import quantize_encoder_for_inference
+
+            check_int8_arch(self.config)
+            # from the float32 checkpoint, before any cast: the int8 values
+            # and scales are then the JAX package's bit for bit
+            self.params = self._on_device(
+                quantize_encoder_for_inference(params_from_tree(tree)))
+        else:
+            self.params = params_from_tree(tree, device=self.device,
+                                           matrix_dtype=self.compute_dtype)
         self.tokenizer = WordPieceTokenizer.from_pretrained(str(ckpt))
         self.pretrained = True
+
+    def _setup(self, compute_dtype: str, device, quantization: Optional[str]):
+        self.device = resolve_device(device)
+        if compute_dtype not in _DTYPES:
+            raise ValueError(f"compute_dtype {compute_dtype!r} not in {list(_DTYPES)}")
+        self.compute_dtype = _DTYPES[compute_dtype]
+        self.quantization = resolve_quantization(quantization, self.device)
         #: forces the attention path ("einsum" = plain torch); None = policy
         self.attn_impl: Optional[str] = None
+
+    def _on_device(self, params: Params) -> Params:
+        return {k: v.to(self.device) for k, v in params.items()}
+
+    @classmethod
+    def from_quantized_export(cls, directory: Union[str, Path], model_name: str,
+                              compute_dtype: str = "bfloat16",
+                              device: Optional[Union[str, torch.device]] = None,
+                              quantization: Optional[str] = None) -> "Encoder":
+        """The encoder a checkpoint's ``quantized/`` export captured, for a
+        machine without the base checkpoint: its config and vocabulary, as
+        the int8 state (int8 quantization) or dequantized float weights."""
+        from ..quantization import load_quantized_encoder_params
+        from .tokenizer import WordPieceTokenizer
+
+        directory = Path(directory)
+        self = cls.__new__(cls)
+        self._setup(compute_dtype, device, quantization)
+        self.model_name = model_name
+        want = "int8" if self.quantization == "int8" else "float"
+        params, enc_cfg, qcfg = load_quantized_encoder_params(directory, want=want)
+        if not qcfg.get("encoder_pretrained", False):
+            raise NotImplementedError(
+                f"the export at {directory} holds a random-weight encoder: the "
+                f"offline random-weight encoder comes with a later slice")
+        if not (directory / "vocab.txt").exists():
+            # pretrained rows paired with another vocabulary's ids would
+            # embed confident nonsense
+            raise ValueError(
+                f"int8 export at {directory} has no vocab.txt and no real "
+                f"tokenizer is available: refusing to pair pretrained weights "
+                f"with another vocabulary")
+        self.config = config_from_dict(enc_cfg)
+        if self.quantization == "int8":
+            self.params = self._on_device(params)
+        else:
+            self.params = params_from_tree(params, device=self.device,
+                                           matrix_dtype=self.compute_dtype)
+        self.tokenizer = WordPieceTokenizer.from_pretrained(str(directory))
+        self.pretrained = True
+        return self
 
     @property
     def hidden_size(self) -> int:
@@ -339,10 +447,16 @@ class Encoder:
         """Padded token ids and mask (host int32) → normalized ``[B, D]``."""
         ids_t = torch.as_tensor(ids).to(self.device, non_blocking=True)
         mask_t = torch.as_tensor(mask).to(self.device, non_blocking=True)
+        attn_impl = self._attn_impl(ids.shape[1])
         with torch.inference_mode():
+            if self.quantization == "int8":
+                from .encoder_int8 import embed_texts_device_int8
+
+                return embed_texts_device_int8(
+                    self.params, ids_t, mask_t, self.config, self.compute_dtype,
+                    pooling=self.config.pooling, attn_impl=attn_impl)
             return embed_texts_device(self.params, ids_t, mask_t, self.config,
-                                      self.compute_dtype,
-                                      attn_impl=self._attn_impl(ids.shape[1]))
+                                      self.compute_dtype, attn_impl=attn_impl)
 
     def embed(self, texts: Sequence[str], max_length: int = 512) -> torch.Tensor:
         """Tokenize on the host, embed on the device → normalized ``[B, D]``."""

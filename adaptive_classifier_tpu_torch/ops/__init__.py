@@ -8,7 +8,10 @@ which kernels that path went through.
 
 from typing import Dict
 
-launch_counts: Dict[str, int] = {"attention_qkv": 0, "knn_sims": 0, "knn_topk": 0}
+launch_counts: Dict[str, int] = {
+    "attention_qkv": 0, "knn_sims": 0, "knn_topk": 0,
+    "matmul_int8": 0, "ffn_int8": 0, "proj_residual_ln_int8": 0, "attn_ffn_int8": 0,
+}
 
 
 def reset_launch_counts():

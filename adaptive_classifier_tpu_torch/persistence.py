@@ -8,8 +8,11 @@ Counterpart of ``load_classifier`` in ``adaptive_classifier_tpu/persistence.py``
 lexical channel on, ``lexical.json``.  Prototypes and head load exactly, so
 predictions match the classifier that was saved.
 
-Saving, and restoring the encoder from a checkpoint's int8 export, come with
-later slices.
+When the encoder's checkpoint is not on this machine but the checkpoint's
+``quantized/`` export captured a pretrained encoder, the encoder is built
+from the export (``Encoder.from_quantized_export``): as the int8 state when
+the classifier's ``quantization`` resolves to int8, else as dequantized
+float weights.  Saving comes with a later slice.
 """
 
 from __future__ import annotations
@@ -23,7 +26,9 @@ import numpy as np
 import torch
 
 from . import io_safetensors
+from .config import ModelConfig
 from .models import head as head_lib
+from .models.encoder import Encoder, _find_local_checkpoint
 
 logger = logging.getLogger(__name__)
 
@@ -55,8 +60,17 @@ def load_classifier(cls, model_path: Union[str, Path],
         saved_examples = config_dict.get("examples", {})
 
     model_name = _resolve_model_name(model_path, config_dict["model_name"])
+    encoder = None
+    qdir = model_path / "quantized"
+    if (_find_local_checkpoint(model_name) is None
+            and (qdir / "model_int8.safetensors").exists()):
+        cfg = ModelConfig(config_dict.get("config", None))
+        encoder = Encoder.from_quantized_export(
+            qdir, model_name, compute_dtype=cfg.compute_dtype, device=device,
+            quantization=cfg.quantization)
+        logger.info("Restored encoder weights from the int8 checkpoint export")
     clf = cls(model_name, device=device, config=config_dict.get("config", None),
-              seed=config_dict.get("ac_seed", 42))
+              seed=config_dict.get("ac_seed", 42), encoder=encoder)
     if model_name == str(model_path / "encoder"):
         clf.model_name = config_dict["model_name"]
     if "ac_fusion_alpha" in config_dict:

@@ -7,6 +7,7 @@ with a GPU: ``python -m pytest tests/test_torch_cuda.py``.
 """
 
 import json
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -14,7 +15,9 @@ import pytest
 import torch
 
 import adaptive_classifier_tpu_torch as port
-from adaptive_classifier_tpu_torch.ops import knn, knn_topk
+from adaptive_classifier_tpu_torch import quantization
+from adaptive_classifier_tpu_torch.models import encoder_int8
+from adaptive_classifier_tpu_torch.ops import ffn_int8, knn, knn_topk, matmul_int8
 from adaptive_classifier_tpu_torch.ops.attention_qkv import (
     attention_from_qkv,
     attention_from_qkv_ref,
@@ -227,3 +230,177 @@ def test_topk_kernel_matches_plain(cuda, B, C, k, bias, n_valid, none_valid, dup
     assert torch.isfinite(scores).all()
     if none_valid:
         assert (sidx == -1).all() and (scores == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# the int8 kernels (B2, B3, B8, B9) and the int8 forward
+# ---------------------------------------------------------------------------
+
+def _int8_weight(r, shape, dev):
+    w = torch.from_numpy((r.standard_normal(shape) * 0.05).astype(np.float32))
+    q, s = quantization.quantize_weight(w)
+    b = torch.from_numpy((r.standard_normal(shape[1]) * 0.01).astype(np.float32))
+    return q.to(dev), s.to(dev), b.to(dev)
+
+
+def _int8_layer(dev, seed, M, dtype, D=512, F=2048):
+    """Rows of the zoo's widths (D 512, F 2048) and int8 weights for every
+    product of a layer: O [D, D], QKV [D, 3D], W1 [D, F], W2 [F, D]."""
+    r = np.random.default_rng(seed)
+    rows = [torch.from_numpy((r.standard_normal((M, D)) * 0.5).astype(np.float32))
+            .to(dev, dtype) for _ in range(2)]
+    mats = {name: _int8_weight(r, shape, dev) for name, shape in
+            (("o", (D, D)), ("qkv", (D, 3 * D)), ("w1", (D, F)), ("w2", (F, D)))}
+    lns = [(torch.from_numpy((1.0 + 0.1 * r.standard_normal(D)).astype(np.float32)).to(dev),
+            torch.from_numpy((0.1 * r.standard_normal(D)).astype(np.float32)).to(dev))
+           for _ in range(2)]
+    return rows, mats, lns
+
+
+def _assert_int8_close(got, want, dtype, f32_atol=None):
+    """f32: max abs error <= f32_atol, or (requantized GELU) per-row cosine
+    >= 0.9999 and max abs error <= 0.05; bf16: cosine > 0.999."""
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    if dtype == torch.bfloat16:
+        assert (g * w).sum() / (g.norm() * w.norm()) > 0.999
+    elif f32_atol is not None:
+        torch.testing.assert_close(g, w, atol=f32_atol, rtol=0)
+    else:
+        cos = (g * w).sum(1) / (g.norm(dim=1) * w.norm(dim=1))
+        assert cos.min() >= 0.9999
+        assert (g - w).abs().max() <= 0.05
+
+
+_INT8_CASES = [(torch.float32, 8192), (torch.float32, 1000),
+               (torch.bfloat16, 8192), (torch.bfloat16, 200)]
+
+
+@pytest.mark.parametrize("dtype,M", _INT8_CASES)
+def test_quant_matmul_kernel_matches_plain(cuda, dtype, M):
+    (x, _), m, _ = _int8_layer(cuda, 0, M, dtype)
+    port.reset_launch_counts()
+    got = matmul_int8.quant_matmul_int8(x, *m["qkv"])
+    want = matmul_int8.quant_matmul_int8_ref(x, *m["qkv"])
+    torch.cuda.synchronize()
+    assert port.launch_counts["matmul_int8"] == 1
+    assert got.dtype == dtype and got.shape == (M, 1536)
+    _assert_int8_close(got, want, dtype, f32_atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,M", _INT8_CASES)
+def test_proj_residual_ln_kernel_matches_plain(cuda, dtype, M):
+    (x, res), m, lns = _int8_layer(cuda, 1, M, dtype)
+    args = (x, *m["o"], res, *lns[0], 1e-12)
+    port.reset_launch_counts()
+    got = matmul_int8.proj_residual_ln_int8(*args)
+    want = matmul_int8.proj_residual_ln_int8_ref(*args)
+    torch.cuda.synchronize()
+    assert port.launch_counts["proj_residual_ln_int8"] == 1
+    _assert_int8_close(got, want, dtype, f32_atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,M", _INT8_CASES)
+def test_ffn_block_kernel_matches_plain(cuda, dtype, M):
+    (h, _), m, lns = _int8_layer(cuda, 2, M, dtype)
+    args = (h, *m["w1"], *m["w2"], *lns[0], 1e-12)
+    port.reset_launch_counts()
+    got = ffn_int8.ffn_block_int8(*args)
+    want = ffn_int8.ffn_block_int8_ref(*args)
+    torch.cuda.synchronize()
+    assert port.launch_counts["ffn_int8"] == 1
+    _assert_int8_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype,M", _INT8_CASES)
+def test_attn_ffn_block_kernel_matches_plain(cuda, dtype, M):
+    (ctx, x), m, lns = _int8_layer(cuda, 3, M, dtype)
+    args = (ctx, x, *m["o"], *lns[0], *m["w1"], *m["w2"], *lns[1], 1e-12)
+    port.reset_launch_counts()
+    got = ffn_int8.attn_ffn_block_int8(*args)
+    want = ffn_int8.attn_ffn_block_int8_ref(*args)
+    torch.cuda.synchronize()
+    assert port.launch_counts["attn_ffn_int8"] == 1
+    _assert_int8_close(got, want, dtype)
+
+
+def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    (x, _), m, lns = _int8_layer(cuda, 4, 64, torch.float32)
+    w, s, b = m["qkv"]
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        matmul_int8.quant_matmul_int8(x.half(), w, s, b)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        matmul_int8.quant_matmul_int8(x[:, :500].contiguous(), w[:500].contiguous(), s, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        matmul_int8.quant_matmul_int8(x.t().contiguous().t(), w, s, b)
+    with pytest.raises(ValueError, match="inputs on"):
+        matmul_int8.quant_matmul_int8(x, w.cpu(), s, b)
+    with pytest.raises(ValueError, match="int8"):
+        ffn_int8.ffn_block_int8(x, m["w1"][0].float(), *m["w1"][1:], *m["w2"], *lns[0],
+                                1e-12)
+    with pytest.raises(ValueError, match="shared memory"):
+        # F = 4096 needs more shared memory than a block has
+        r = np.random.default_rng(0)
+        w1 = _int8_weight(r, (512, 4096), cuda)
+        w2 = _int8_weight(r, (4096, 512), cuda)
+        ffn_int8.ffn_block_int8(x, *w1, *w2, *lns[0], 1e-12)
+
+
+def _int8_zoo(tmp_path, task="banking-intents"):
+    """A copy of a zoo classifier with ``quantization: "int8"``, its encoder
+    named by absolute path."""
+    dst = tmp_path / task
+    shutil.copytree(REPO / "checkpoints/zoo" / task, dst)
+    cfg = json.loads((dst / "config.json").read_text())
+    cfg["config"]["quantization"] = "int8"
+    cfg["model_name"] = str(REPO / "checkpoints/ac-base-v2")
+    (dst / "config.json").write_text(json.dumps(cfg))
+    return dst
+
+
+def test_int8_zoo_predict_batch_on_the_gpu(cuda, tmp_path):
+    clf = port.AdaptiveClassifier.load(_int8_zoo(tmp_path))
+    assert clf.encoder.quantization == "int8"
+    data = json.loads((REPO / "data/intents.json").read_text())
+    rows = [(t, lbl) for lbl in data["train"] for t in data["test"][lbl]]
+    port.reset_launch_counts()
+    preds = clf.predict_batch([t for t, _ in rows], k=1)
+    layers = clf.encoder.config.num_layers
+    assert port.launch_counts["matmul_int8"] == layers
+    assert port.launch_counts["ffn_int8"] == layers
+    assert port.launch_counts["attention_qkv"] == layers
+    assert port.launch_counts["attn_ffn_int8"] == 0
+    acc = np.mean([p[0][0] == lbl for p, (_, lbl) in zip(preds, rows)])
+    assert acc >= 0.92 - 0.03
+
+
+def test_int8_forward_fuse_o_proj_on_the_gpu(cuda, tmp_path):
+    """fuse_o_proj=True sends every layer's post-attention body through B8.
+    Per embedding (pooled, one per text): in f32 it computes the default
+    int8 forward's function up to the LayerNorms' last bits (cosine >=
+    0.999); in bf16 the default forward also rounds to bf16 between the
+    products where B8 keeps f32 (the int8 envelope, cosine > 0.99)."""
+    from adaptive_classifier_tpu_torch.models.encoder import pool_and_normalize
+
+    clf = port.AdaptiveClassifier.load(_int8_zoo(tmp_path))
+    enc = clf.encoder
+    data = json.loads((REPO / "data/intents.json").read_text())
+    texts = [t for ts in data["test"].values() for t in ts][:256]
+    ids, mask = enc.tokenizer(texts, max_length=512, pad_to_buckets=enc.SEQ_BUCKETS)
+    ids, mask = torch.from_numpy(ids).to(cuda), torch.from_numpy(mask).to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        with torch.inference_mode():
+            base = encoder_int8.encoder_forward_int8(
+                enc.params, ids, mask, enc.config, compute_dtype=dtype,
+                attn_impl="fusedqkv")
+            port.reset_launch_counts()
+            fused = encoder_int8.encoder_forward_int8(
+                enc.params, ids, mask, enc.config, compute_dtype=dtype,
+                attn_impl="fusedqkv", fuse_o_proj=True)
+        torch.cuda.synchronize()
+        assert port.launch_counts["attn_ffn_int8"] == enc.config.num_layers
+        assert port.launch_counts["ffn_int8"] == 0
+        a = pool_and_normalize(base, mask, enc.config.pooling)
+        b = pool_and_normalize(fused, mask, enc.config.pooling)
+        cos = ((a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1))).min()
+        assert cos >= (0.999 if dtype == torch.float32 else 0.99)

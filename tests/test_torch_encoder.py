@@ -126,8 +126,12 @@ def test_encoder_defaults_to_the_gpu():
 
 
 def test_encoder_rejects_int8():
+    """The int8 forward is BERT's: int8 for another family, or a
+    quantization the port does not run, raises."""
     with pytest.raises(NotImplementedError, match="int8"):
-        tenc.Encoder(str(CKPTS / "ac-tiny"), device="cpu", quantization="int8")
+        tenc.check_int8_arch(tenc.EncoderConfig(arch="roberta"))
+    with pytest.raises(NotImplementedError, match="int8"):
+        tenc.Encoder(str(CKPTS / "ac-tiny"), device="cpu", quantization="int4")
 
 
 def _intent_texts():

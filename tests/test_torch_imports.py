@@ -40,7 +40,8 @@ def test_port_imports_without_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "adaptive_classifier_tpu_torch.models.encoder" in out["imported"]
     for mod in ("ops.attention_qkv", "ops.knn", "ops.knn_topk", "ops.fusion",
-                "memory", "training", "lexical", "convert"):
+                "ops.matmul_int8", "ops.ffn_int8", "models.encoder_int8",
+                "quantization", "memory", "training", "lexical", "convert"):
         assert f"adaptive_classifier_tpu_torch.{mod}" in out["imported"]
     leaked = [m for m in out["loaded"]
               if m == "adaptive_classifier_tpu" or m.startswith("adaptive_classifier_tpu.")]
@@ -94,12 +95,20 @@ def test_cuda_sources_are_packaged_and_bound():
         text += body
     for fn in _build.SIGNATURES:
         assert re.search(rf'extern "C" [^(]*\b{fn}\(', text), fn
-    assert set(launch_counts) == {"attention_qkv", "knn_sims", "knn_topk"}
-    # the kernels call no library (cuBLAS, CUTLASS) and no tensor-core path
-    # (TF32 would move exp(-d²) by ~1e-3)
+    assert set(launch_counts) == {"attention_qkv", "knn_sims", "knn_topk",
+                                  "matmul_int8", "ffn_int8", "proj_residual_ln_int8",
+                                  "attn_ffn_int8"}
+    # the kernels call no library (cuBLAS, CUTLASS) and no float tensor-core
+    # path (TF32 would move exp(-d²) by ~1e-3); the int8 kernels' tensor-core
+    # product (mma ... s8.s8.s32) is exact, and the only mma they issue
     code = re.sub(r"//[^\n]*", "", text).lower()
-    for word in ("cublas", "cutlass", "tf32", "wmma", "mma."):
+    for word in ("cublas", "cutlass", "tf32", "wmma"):
         assert word not in code, word
+    mmas = re.findall(r"mma\.sync\.[a-z0-9.]+", code)
+    assert mmas and set(mmas) == {"mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32"}
+    for src in sources:
+        if "int8" not in src.name:
+            assert "mma" not in re.sub(r"//[^\n]*", "", src.read_text()).lower(), src.name
 
 
 def _run_smoke(cwd, block_jax=True, timeout=300):
