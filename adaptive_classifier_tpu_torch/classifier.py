@@ -42,6 +42,9 @@ class AdaptiveClassifier:
 
     ``device`` defaults to ``"cuda"``; pass ``"cpu"`` to run on the CPU.
     ``config={"quantization": "int8"}`` runs the encoder's int8 forward.
+    ``model_name`` is a local checkpoint directory, or a BERT model name
+    (``"bert-base-uncased"``, ``"prajjwal1/bert-tiny"``, ...) built offline
+    with random weights.
     """
 
     def __init__(
@@ -58,10 +61,12 @@ class AdaptiveClassifier:
         self.model_name = model_name
         self.seed = seed
         self.device = resolve_device(device)
-        #: ``encoder``: one built elsewhere (a checkpoint's int8 export)
+        #: ``encoder``: one built elsewhere (a checkpoint's int8 export); a
+        #: model name with no local checkpoint builds its offline random
+        #: weights from ``seed``, as the JAX package does
         self.encoder = encoder if encoder is not None else Encoder(
             model_name, compute_dtype=self.config.compute_dtype, device=self.device,
-            quantization=self.config.quantization)
+            quantization=self.config.quantization, seed=seed)
         #: hashed TF-IDF lexical channel; None = encoder embedding only
         self.lexical = None
         if self.config.lexical_dim:

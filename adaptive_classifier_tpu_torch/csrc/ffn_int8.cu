@@ -35,6 +35,14 @@
 // matrices (2 MB) from L2, M/16 times in all, and that L2 traffic, with no
 // wgmma or TMA yet, keeps the kernel well above its operation bound.
 // Ragged M is masked in the kernel: no padding to a tile multiple.
+//
+// Where the f32 GELU tile does not fit a block (bert-base: D = 768,
+// F = 3,072 needs 293 KB), the kernel runs the first product twice
+// instead (TWO_PASS): the first pass keeps only each row's |GELU| maximum,
+// the second recomputes the same values, bit for bit, and quantizes them
+// straight into a [16, F] int8 tile (49 KB at F = 3,072; 145 KB in all).
+// The result is the one-pass kernel's exactly; the cost is the first
+// product's operations and weight reads once more, 1.5x the operations.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -60,27 +68,32 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 }
 
 struct Layout {
-  int ldh, lda, ldf;          // f32 row stride of h, byte stride of xq, f32 stride of f
+  int ldh, lda;               // f32 row stride of h, byte stride of xq
+  int ldf, ldfq;              // f32 row stride of f (one pass), byte stride of q(f)
   size_t h, xq, xs, f, fs, bs, total;
 };
 
-__host__ __device__ inline Layout layout(int D, int F) {
+// One pass: f32 f, quantized in place (ldfq = 4 * ldf).  Two passes: only
+// the int8 q(f), row stride F + 16 bytes.
+__host__ __device__ inline Layout layout(int D, int F, bool two_pass) {
   Layout l;
   l.ldh = D + 4;
   l.lda = D + 16;
   l.ldf = F + 4;
+  l.ldfq = two_pass ? F + 16 : 4 * l.ldf;
   l.h = 0;
   l.xq = l.h + (size_t)ROWS * l.ldh * sizeof(float);
   l.xs = l.xq + (size_t)ROWS * l.lda;
   l.f = l.xs + ROWS * sizeof(float);
-  l.fs = l.f + (size_t)ROWS * l.ldf * sizeof(float);
+  l.fs = l.f + (size_t)ROWS * l.ldfq;
   l.bs = l.fs + ROWS * sizeof(float);
   l.total = l.bs + (size_t)TN * (MAX_TKS + 16);
   return l;
 }
 
 // FUSE_O = false: B3 on h = in0.  FUSE_O = true: B8 on ctx = in0, x = in1.
-template <typename T, bool FUSE_O>
+// TWO_PASS: the first product twice, no f32 GELU tile (see the top).
+template <typename T, bool FUSE_O, bool TWO_PASS>
 __global__ void __launch_bounds__(THREADS)
 ffn_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
            const int8_t* __restrict__ wo, const float* __restrict__ so,
@@ -92,7 +105,7 @@ ffn_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
            const float* __restrict__ g2, const float* __restrict__ be2, float eps,
            T* __restrict__ out, int M, int D, int F) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const Layout l = layout(D, F);
+  const Layout l = layout(D, F, TWO_PASS);
   float* hs = reinterpret_cast<float*>(smem + l.h);
   int8_t* xq = reinterpret_cast<int8_t*>(smem + l.xq);
   float* xs = reinterpret_cast<float*>(smem + l.xs);
@@ -124,21 +137,51 @@ ffn_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
   }
   __syncthreads();
 
-  // f = gelu_tanh(q(h) @ W1 * s_h * s1 + b1), kept in shared memory
+  // f = gelu_tanh(q(h) @ W1 * s_h * s1 + b1), then q(f) in shared memory
   quant_rows_smem<false>(hs, l.ldh, D, ROWS, xq, l.lda, xs);
-  gemm_rows<1, 1, 8>(xq, l.lda, w1, D, F, bs,
-      [&](int n0, int row0, int col0, int (&acc)[1][1][4]) {
-        #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = row0 + acc_row(i), c = n0 + col0 + acc_col(i);
-          fv[r * l.ldf + c] = gelu_tanh(dequant(acc[0][0][i], xs[r], s1[c], b1[c]));
-        }
-      });
-  __syncthreads();
-  quant_rows_smem<false>(fv, l.ldf, F, ROWS, fq, 4 * l.ldf, fsc);
+  if (TWO_PASS) {
+    // pass 1: each row's max |f|, as the bits of a non-negative float (whose
+    // order is the unsigned order); pass 2: f again, quantized at once
+    unsigned* famax = reinterpret_cast<unsigned*>(fsc);
+    if (threadIdx.x < ROWS) famax[threadIdx.x] = 0u;
+    gemm_rows<1, 1, 8>(xq, l.lda, w1, D, F, bs,       // begins with a barrier
+        [&](int n0, int row0, int col0, int (&acc)[1][1][4]) {
+          float m[2] = {0.f, 0.f};
+          #pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = row0 + acc_row(i), c = n0 + col0 + acc_col(i);
+            m[i >> 1] = fmaxf(m[i >> 1], fabsf(gelu_tanh(
+                dequant(acc[0][0][i], xs[r], s1[c], b1[c]))));
+          }
+          atomicMax(famax + row0 + acc_row(0), __float_as_uint(m[0]));
+          atomicMax(famax + row0 + acc_row(2), __float_as_uint(m[1]));
+        });
+    __syncthreads();
+    if (threadIdx.x < ROWS) fsc[threadIdx.x] = row_scale<false>(__uint_as_float(famax[threadIdx.x]));
+    gemm_rows<1, 1, 8>(xq, l.lda, w1, D, F, bs,       // begins with a barrier
+        [&](int n0, int row0, int col0, int (&acc)[1][1][4]) {
+          #pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = row0 + acc_row(i), c = n0 + col0 + acc_col(i);
+            fq[r * l.ldfq + c] = (int8_t)quant(
+                gelu_tanh(dequant(acc[0][0][i], xs[r], s1[c], b1[c])), fsc[r]);
+          }
+        });
+  } else {
+    gemm_rows<1, 1, 8>(xq, l.lda, w1, D, F, bs,
+        [&](int n0, int row0, int col0, int (&acc)[1][1][4]) {
+          #pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = row0 + acc_row(i), c = n0 + col0 + acc_col(i);
+            fv[r * l.ldf + c] = gelu_tanh(dequant(acc[0][0][i], xs[r], s1[c], b1[c]));
+          }
+        });
+    __syncthreads();
+    quant_rows_smem<false>(fv, l.ldf, F, ROWS, fq, l.ldfq, fsc);
+  }
 
   // out = LN2(q(f) @ W2 * s_f * s2 + b2 + h)
-  gemm_rows<1, 1, 8>(fq, 4 * l.ldf, w2, F, D, bs,
+  gemm_rows<1, 1, 8>(fq, l.ldfq, w2, F, D, bs,
       [&](int n0, int row0, int col0, int (&acc)[1][1][4]) {
         #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -151,6 +194,27 @@ ffn_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
   layer_norm_rows<true>(hs, l.ldh, D, ROWS, g2, be2, eps, out, m0, M);
 }
 
+template <typename T, bool FUSE_O, bool TWO_PASS>
+cudaError_t launch_pass(const void* in0, const void* in1, const int8_t* wo,
+                        const float* so, const float* bo, const float* g1,
+                        const float* be1, const int8_t* w1, const float* s1,
+                        const float* b1, const int8_t* w2, const float* s2,
+                        const float* b2, const float* g2, const float* be2, float eps,
+                        void* out, int M, int D, int F, cudaStream_t stream) {
+  const size_t smem = layout(D, F, TWO_PASS).total;
+  cudaError_t err = cudaFuncSetAttribute(ffn_kernel<T, FUSE_O, TWO_PASS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (M + ROWS - 1) / ROWS;
+  ffn_kernel<T, FUSE_O, TWO_PASS><<<blocks, THREADS, smem, stream>>>(
+      static_cast<const T*>(in0), static_cast<const T*>(in1), wo, so, bo, g1, be1,
+      w1, s1, b1, w2, s2, b2, g2, be2, eps, static_cast<T*>(out), M, D, F);
+  return cudaGetLastError();
+}
+
+// One pass where its f32 GELU tile fits a block of the current device, else
+// two passes.
 template <typename T, bool FUSE_O>
 cudaError_t launch(const void* in0, const void* in1, const int8_t* wo, const float* so,
                    const float* bo, const float* g1, const float* be1,
@@ -158,15 +222,16 @@ cudaError_t launch(const void* in0, const void* in1, const int8_t* wo, const flo
                    const int8_t* w2, const float* s2, const float* b2,
                    const float* g2, const float* be2, float eps, void* out,
                    int M, int D, int F, cudaStream_t stream) {
-  const size_t smem = layout(D, F).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_kernel<T, FUSE_O>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, have = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&have, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  const int blocks = (M + ROWS - 1) / ROWS;
-  ffn_kernel<T, FUSE_O><<<blocks, THREADS, smem, stream>>>(
-      static_cast<const T*>(in0), static_cast<const T*>(in1), wo, so, bo, g1, be1,
-      w1, s1, b1, w2, s2, b2, g2, be2, eps, static_cast<T*>(out), M, D, F);
-  return cudaGetLastError();
+  if (layout(D, F, false).total <= (size_t)have)
+    return launch_pass<T, FUSE_O, false>(in0, in1, wo, so, bo, g1, be1, w1, s1, b1, w2,
+                                         s2, b2, g2, be2, eps, out, M, D, F, stream);
+  return launch_pass<T, FUSE_O, true>(in0, in1, wo, so, bo, g1, be1, w1, s1, b1, w2,
+                                      s2, b2, g2, be2, eps, out, M, D, F, stream);
 }
 
 template <bool FUSE_O>
@@ -197,10 +262,11 @@ int dispatch(const void* in0, const void* in1, const void* wo, const void* so,
 
 }  // namespace
 
-// Shared memory a block of either kernel needs at widths D, F (a launch
-// fails past the card's 227 KB).
-extern "C" long long ac_ffn_int8_smem_bytes(int D, int F) {
-  return (long long)layout(D, F).total;
+// Shared memory a block of either kernel needs at widths D, F, in one pass
+// (two_pass = 0) or two (a launch takes one pass where it fits the card's
+// 227 KB, else two, and fails past that).
+extern "C" long long ac_ffn_int8_smem_bytes(int D, int F, int two_pass) {
+  return (long long)layout(D, F, two_pass != 0).total;
 }
 
 // B3.  dtype: 0 = float32, 1 = bfloat16 (of h and out).  h, out [M, D];

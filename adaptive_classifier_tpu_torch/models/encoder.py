@@ -2,16 +2,22 @@
 
 Counterpart of ``adaptive_classifier_tpu/models/encoder.py`` for the
 ``bert`` architecture: embeddings + LayerNorm, then per layer the fused
-``[D, 3D]`` QKV projection, all-heads attention off the packed QKV tensor,
-the O-projection, residual + LayerNorm, an exact-erf GELU FFN and residual +
-LayerNorm; then pooling and L2 normalization.
+``[D, 3D]`` QKV projection, all-heads attention, the O-projection, residual
++ LayerNorm, an exact-erf GELU FFN and residual + LayerNorm; then pooling
+and L2 normalization.
 
 Matrix products take compute-dtype inputs (bf16 by default) and accumulate
 in f32; biases are added and LayerNorm statistics taken in f32, as the JAX
 forward does with ``preferred_element_type=jnp.float32``.  The plain matrix
-products stay ``torch.matmul``; attention goes through
-``ops.attention_qkv.attention_from_qkv``, whose CUDA kernel serves every
-layer on the GPU.
+products stay ``torch.matmul``.  Attention takes one of four paths
+(``attn_impl``): ``"fusedqkv"`` (``ops.attention_qkv``, kernel B1, the
+default on the GPU), ``"flash"`` and ``"oneshot"`` (``ops.flash_attention``,
+kernels B6 and B7; the GPU default from 1,024 tokens is ``"flash"``), or
+``"einsum"``, the plain torch version of B1 (the CPU default).
+``AC_ATTN_IMPL`` in the environment forces the path, as in the JAX package.
+The two residual LayerNorms per layer run through kernel B10
+(``ops.layernorm.add_layer_norm``) when ``use_fused_ln`` is on, which it is
+by default on a CUDA device (``_FUSED_LN_ON_CUDA``).
 
 ``quantization="int8"`` quantizes the float32 weights once and runs the
 int8 forward (``models/encoder_int8.py``: kernels B2 and B3 on the GPU);
@@ -20,14 +26,17 @@ export can stand in for a missing base checkpoint
 (``Encoder.from_quantized_export``).
 
 Weights load from a local HuggingFace-layout BERT checkpoint
-(``config.json`` + ``model.safetensors``).  Other encoder families and the
-offline random-weight mode come with later slices and raise
-``NotImplementedError`` here.
+(``config.json`` + ``model.safetensors``).  A model name with no local
+checkpoint builds the named BERT architecture offline with deterministic
+random weights from a numpy RNG, equal to the JAX package's bit for bit
+(``init_params``), and the built-in vocabulary.  Other encoder families
+come with later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Union
@@ -39,6 +48,8 @@ import torch.nn.functional as F
 from .. import io_safetensors
 from .._device import resolve_device
 from ..ops.attention_qkv import attention_from_qkv, attention_from_qkv_ref
+from ..ops.flash_attention import flash_attention, oneshot_attention
+from ..ops.layernorm import add_layer_norm, add_layer_norm_ref
 
 #: the stacked-layer tree of the JAX package: {"embeddings": {...},
 #: "layers": {name: [L, ...]}} of numpy arrays
@@ -69,6 +80,101 @@ class EncoderConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+
+#: named BERT architectures for offline (weightless) operation: the exact
+#: dims of the HF models (the JAX package's ``KNOWN_ARCHS``, BERT entries)
+KNOWN_ARCHS: Dict[str, EncoderConfig] = {
+    "prajjwal1/bert-tiny": EncoderConfig(hidden_size=128, num_layers=2, num_heads=2,
+                                         intermediate_size=512),
+    "bert-base-uncased": EncoderConfig(),
+    "bert-base-cased": EncoderConfig(vocab_size=28996),
+    "google-bert/bert-large-cased": EncoderConfig(
+        vocab_size=28996, hidden_size=1024, num_layers=24, num_heads=16,
+        intermediate_size=4096),
+    "bert-large-uncased": EncoderConfig(hidden_size=1024, num_layers=24, num_heads=16,
+                                        intermediate_size=4096),
+}
+
+#: name fragments of the other families the JAX package builds offline, in
+#: the order its ``config_for_model_name`` tests them
+_OTHER_FAMILIES = (("modernbert", "ModernBERT"), ("mpnet", "MPNet"),
+                   ("electra", "ELECTRA"), ("deberta", "DeBERTa"))
+
+
+def config_for_model_name(name: str) -> EncoderConfig:
+    """The architecture an offline model name builds: a ``KNOWN_ARCHS``
+    entry, else by name fragment as the JAX package resolves it, else
+    bert-base.  The other families raise."""
+    if name in KNOWN_ARCHS:
+        return KNOWN_ARCHS[name]
+    lowered = name.lower()
+    for fragment, family in _OTHER_FAMILIES:
+        if fragment in lowered:
+            raise NotImplementedError(
+                f"offline {family} encoder ({name!r}): the port builds BERT "
+                f"encoders offline; {family} comes with a later slice")
+    if "tiny" in lowered:
+        return KNOWN_ARCHS["prajjwal1/bert-tiny"]
+    if "large" in lowered:
+        return KNOWN_ARCHS["bert-large-uncased"]
+    if "distil" in lowered:
+        raise NotImplementedError(
+            f"offline distilbert encoder ({name!r}): the port builds BERT "
+            f"encoders offline; distilbert comes with a later slice")
+    return EncoderConfig()
+
+
+def init_params(seed: int, cfg: EncoderConfig) -> Tree:
+    """BERT init as the JAX package draws it: normal(0.02) weights from
+    ``np.random.default_rng(seed)`` in the same order, zero biases, unit
+    LayerNorms → the stacked-layer tree of float32 numpy arrays, equal to
+    the JAX ``init_params`` array for array."""
+    if cfg.arch != "bert":
+        raise NotImplementedError(f"offline init for arch {cfg.arch!r} comes with "
+                                  f"a later slice")
+    D, F, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    rng = np.random.default_rng(seed)
+
+    def nrm(shape):
+        return rng.standard_normal(shape, np.float32) * 0.02
+
+    def zeros(*shape):
+        return np.zeros(shape, np.float32)
+
+    def ones(*shape):
+        return np.ones(shape, np.float32)
+
+    emb = {"word": nrm((cfg.vocab_size, D)),
+           "position": nrm((cfg.max_position_embeddings, D)),
+           "token_type": nrm((max(cfg.type_vocab_size, 1), D)),
+           "ln_scale": ones(D), "ln_bias": zeros(D)}
+    layers = {
+        "q_w": nrm((L, D, D)), "q_b": zeros(L, D),
+        "k_w": nrm((L, D, D)), "k_b": zeros(L, D),
+        "v_w": nrm((L, D, D)), "v_b": zeros(L, D),
+        "o_w": nrm((L, D, D)), "o_b": zeros(L, D),
+        "attn_ln_scale": ones(L, D), "attn_ln_bias": zeros(L, D),
+        "ffn_in_w": nrm((L, D, F)), "ffn_in_b": zeros(L, F),
+        "ffn_out_w": nrm((L, F, D)), "ffn_out_b": zeros(L, D),
+        "ffn_ln_scale": ones(L, D), "ffn_ln_bias": zeros(L, D),
+    }
+    return {"embeddings": emb, "layers": layers}
+
+
+def hash_name(s: str) -> int:
+    """Stable string hash, FNV-1a over UTF-8 (Python's ``hash`` is salted
+    per process); the JAX package's ``hash_name``."""
+    h = 2166136261
+    for ch in s.encode("utf-8"):
+        h = ((h ^ ch) * 16777619) & 0xFFFFFFFF
+    return h
+
+
+def offline_seed(seed: int, model_name: str) -> int:
+    """The seed of a name's offline weights: same name and seed → same
+    weights, as the JAX package derives it."""
+    return (seed * 1000003 + (hash_name(model_name) % 65521)) & 0x7FFFFFFF
 
 
 # ---------------------------------------------------------------------------
@@ -196,16 +302,6 @@ def params_from_tree(tree: Tree, device: Union[str, torch.device] = "cpu",
 # forward pass
 # ---------------------------------------------------------------------------
 
-def _add_layer_norm(x: torch.Tensor, resid: Optional[torch.Tensor],
-                    scale: torch.Tensor, bias: torch.Tensor,
-                    eps: float) -> torch.Tensor:
-    """``LayerNorm(x + resid)`` with f32 statistics → dtype of ``x``."""
-    s = x.float() if resid is None else x.float() + resid.float()
-    mean = s.mean(dim=-1, keepdim=True)
-    var = (s - mean).square().mean(dim=-1, keepdim=True)
-    y = (s - mean) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
-
 
 def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``x @ w + b`` → f32, the product on compute-dtype inputs.  torch's
@@ -217,14 +313,19 @@ def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def embed_tokens(params: Params, input_ids: torch.Tensor, cfg: EncoderConfig,
                  compute_dtype: torch.dtype) -> torch.Tensor:
     """Word + position (+ token type 0) embeddings and their LayerNorm →
-    ``[B, S, D]`` in ``compute_dtype``."""
+    ``[B, S, D]`` in ``compute_dtype``.  Raises past the position table
+    (the JAX package's gather clamps there and reuses its last row)."""
     S = input_ids.shape[1]
+    if S > cfg.max_position_embeddings:
+        raise ValueError(f"S={S} tokens > max_position_embeddings="
+                         f"{cfg.max_position_embeddings}: the position table "
+                         f"has no row for them")
     h = (params["embeddings.word"][input_ids.long()]
          + params["embeddings.position"][:S][None, :, :])
     if cfg.type_vocab_size > 0:
         h = h + params["embeddings.token_type"][0][None, None, :]
-    h = _add_layer_norm(h, None, params["embeddings.ln_scale"],
-                        params["embeddings.ln_bias"], cfg.layer_norm_eps)
+    h = add_layer_norm_ref(h, None, params["embeddings.ln_scale"],
+                           params["embeddings.ln_bias"], cfg.layer_norm_eps)
     return h.to(compute_dtype)
 
 
@@ -246,6 +347,32 @@ def pool_and_normalize(hidden: torch.Tensor, attention_mask: torch.Tensor,
     return pooled / torch.clamp(norm, min=1e-12)
 
 
+ATTN_IMPLS = ("fusedqkv", "flash", "oneshot", "einsum")
+
+
+def attention_fn(attn_impl: str):
+    """The attention of ``attn_impl`` as ``(qkv [B, S, 3D], mask [B, S], H,
+    Dh) → [B, S, D]`` in qkv's type: ``"fusedqkv"`` B1, ``"flash"`` B6,
+    ``"oneshot"`` B7 (each its CUDA kernel on a GPU tensor, its plain version
+    on a CPU tensor), ``"einsum"`` the plain version of B1."""
+    if attn_impl == "fusedqkv":
+        return attention_from_qkv
+    if attn_impl == "einsum":
+        return attention_from_qkv_ref
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl={attn_impl!r} not in {ATTN_IMPLS}")
+    heads = flash_attention if attn_impl == "flash" else oneshot_attention
+
+    def attend(qkv, attention_mask, H, Dh):
+        B, S, _ = qkv.shape
+        D = H * Dh
+        # [B, S, H, Dh] views of the packed tensor, no copy
+        q, k, v = (qkv[..., j * D:(j + 1) * D].unflatten(-1, (H, Dh)) for j in range(3))
+        return heads(q, k, v, attention_mask).reshape(B, S, D)
+
+    return attend
+
+
 def encoder_forward(
     params: Params,
     input_ids: torch.Tensor,       # [B, S] int
@@ -253,41 +380,47 @@ def encoder_forward(
     cfg: EncoderConfig,
     compute_dtype: torch.dtype = torch.bfloat16,
     attn_impl: str = "einsum",
+    use_fused_ln: Optional[bool] = None,
 ) -> torch.Tensor:
     """Full encoder forward → last hidden state ``[B, S, D]`` (float32).
 
-    ``attn_impl``: ``"fusedqkv"`` = ``attention_from_qkv`` (the CUDA kernel
-    on a GPU), ``"einsum"`` = its plain torch version.
+    ``attn_impl``: one of ``ATTN_IMPLS`` (``attention_fn``).
+    ``use_fused_ln``: the two residual LayerNorms of each layer through
+    ``ops.layernorm.add_layer_norm`` (kernel B10 on a GPU); ``None`` follows
+    ``_FUSED_LN_ON_CUDA`` on a CUDA device and is off elsewhere.
     """
-    if attn_impl not in ("fusedqkv", "einsum"):
-        raise NotImplementedError(f"attn_impl={attn_impl!r} comes with a later slice")
+    attend = attention_fn(attn_impl)
+    if use_fused_ln is None:
+        use_fused_ln = _FUSED_LN_ON_CUDA and input_ids.device.type == "cuda"
+    add_ln = add_layer_norm if use_fused_ln else add_layer_norm_ref
     h = embed_tokens(params, input_ids, cfg, compute_dtype)
     H, Dh, eps = cfg.num_heads, cfg.head_dim, cfg.layer_norm_eps
-    attend = attention_from_qkv if attn_impl == "fusedqkv" else attention_from_qkv_ref
     for i in range(_n_layers(cfg)):
         p = {n: params[f"layers.{i}.{n}"] for n in _MATRICES + _VECTORS}
         x = h
         qkv = _linear(x, p["qkv_w"], p["qkv_b"]).to(compute_dtype)
         ctx = attend(qkv, attention_mask, H, Dh).to(compute_dtype)
         attn_out = _linear(ctx, p["o_w"], p["o_b"])
-        h = _add_layer_norm(attn_out.to(compute_dtype), x, p["attn_ln_scale"],
-                            p["attn_ln_bias"], eps)
+        h = add_ln(attn_out.to(compute_dtype), x, p["attn_ln_scale"],
+                   p["attn_ln_bias"], eps)
         ff = F.gelu(_linear(h, p["ffn_in_w"], p["ffn_in_b"]),
                     approximate="none").to(compute_dtype)
         ff = _linear(ff, p["ffn_out_w"], p["ffn_out_b"])
-        h = _add_layer_norm(ff.to(compute_dtype), h, p["ffn_ln_scale"],
-                            p["ffn_ln_bias"], eps)
+        h = add_ln(ff.to(compute_dtype), h, p["ffn_ln_scale"],
+                   p["ffn_ln_bias"], eps)
     return h.float()
 
 
 def embed_texts_device(params: Params, input_ids: torch.Tensor,
                        attention_mask: torch.Tensor, cfg: EncoderConfig,
                        compute_dtype: torch.dtype = torch.bfloat16,
-                       attn_impl: str = "einsum") -> torch.Tensor:
+                       attn_impl: str = "einsum",
+                       use_fused_ln: Optional[bool] = None) -> torch.Tensor:
     """Encoder forward + CLS or masked-mean pooling + L2 normalize →
     ``[B, D]`` float32."""
     hidden = encoder_forward(params, input_ids, attention_mask, cfg,
-                             compute_dtype, attn_impl=attn_impl)
+                             compute_dtype, attn_impl=attn_impl,
+                             use_fused_ln=use_fused_ln)
     return pool_and_normalize(hidden, attention_mask, cfg.pooling)
 
 
@@ -299,6 +432,14 @@ def embed_texts_device(params: Params, input_ids: torch.Tensor,
 #: int8 forward beat the bf16 forward at both zoo chunk shapes on the card
 #: (PERF.md, the "auto" decision); elsewhere, and on the CPU, to float
 _AUTO_INT8_ON_CUDA = False
+
+#: the float forward's residual LayerNorms go through kernel B10 on a CUDA
+#: device: with it the bf16 forward per chunk measured faster at both zoo
+#: chunk shapes on an H100 (NVIDIA H100 80GB HBM3, 700 W: 5.19 against
+#: 7.34 ms at [256, 32], 19.4 against 28.4 ms at [256, 128]; PERF.md, the
+#: fused-LayerNorm decision).  The JAX package's counterpart,
+#: ``use_fused_ln`` in its encoder forward, is off on its own TPU record.
+_FUSED_LN_ON_CUDA = True
 
 
 def resolve_quantization(quantization: Optional[str],
@@ -344,31 +485,37 @@ class Encoder:
 
     def __init__(self, model_name: str, compute_dtype: str = "bfloat16",
                  device: Optional[Union[str, torch.device]] = None,
-                 quantization: Optional[str] = None):
+                 quantization: Optional[str] = None, seed: int = 0):
         from .tokenizer import WordPieceTokenizer
 
         self._setup(compute_dtype, device, quantization)
         self.model_name = model_name
         ckpt = _find_local_checkpoint(model_name)
-        if ckpt is None:
-            raise NotImplementedError(
-                f"no local checkpoint at {model_name!r}: the offline "
-                f"random-weight encoder comes with a later slice")
-        self.config = _read_hf_config(ckpt)
-        tree = _map_hf_weights(_load_state_dict(ckpt), self.config)
+        if ckpt is not None:
+            self.config = _read_hf_config(ckpt)
+            tree = _map_hf_weights(_load_state_dict(ckpt), self.config)
+            self.tokenizer = WordPieceTokenizer.from_pretrained(str(ckpt))
+            self.pretrained = True
+        else:
+            # offline: the named architecture with the JAX package's random
+            # weights for this name and seed, and the built-in vocabulary
+            # padded to the arch's size (so the JAX package's shrink of the
+            # word table to the vocabulary leaves it as it is)
+            self.config = config_for_model_name(model_name)
+            tree = init_params(offline_seed(seed, model_name), self.config)
+            self.tokenizer = WordPieceTokenizer.hermetic(self.config.vocab_size)
+            self.pretrained = False
         if self.quantization == "int8":
             from ..quantization import quantize_encoder_for_inference
 
             check_int8_arch(self.config)
-            # from the float32 checkpoint, before any cast: the int8 values
+            # from the float32 weights, before any cast: the int8 values
             # and scales are then the JAX package's bit for bit
             self.params = self._on_device(
                 quantize_encoder_for_inference(params_from_tree(tree)))
         else:
             self.params = params_from_tree(tree, device=self.device,
                                            matrix_dtype=self.compute_dtype)
-        self.tokenizer = WordPieceTokenizer.from_pretrained(str(ckpt))
-        self.pretrained = True
 
     def _setup(self, compute_dtype: str, device, quantization: Optional[str]):
         self.device = resolve_device(device)
@@ -376,7 +523,8 @@ class Encoder:
             raise ValueError(f"compute_dtype {compute_dtype!r} not in {list(_DTYPES)}")
         self.compute_dtype = _DTYPES[compute_dtype]
         self.quantization = resolve_quantization(quantization, self.device)
-        #: forces the attention path ("einsum" = plain torch); None = policy
+        #: forces the attention path (one of ``ATTN_IMPLS``; it wins over
+        #: ``AC_ATTN_IMPL``); None = policy
         self.attn_impl: Optional[str] = None
 
     def _on_device(self, params: Params) -> Params:
@@ -425,18 +573,20 @@ class Encoder:
         return self.config.hidden_size
 
     def _attn_impl(self, seq_len: int) -> str:
-        """Attention policy: plain torch on the CPU; on the GPU the packed-QKV
-        kernel inside its envelope, and an error outside it until the flash
-        kernel (B6) is ported.  ``self.attn_impl`` overrides it."""
+        """Attention policy, read on every call: ``self.attn_impl`` if set,
+        else ``AC_ATTN_IMPL`` if set (the JAX package's override), else plain
+        torch on the CPU; on the GPU the flash kernel (B6) from 1,024 tokens
+        and the packed-QKV kernel (B1) below, inside its envelope."""
         if self.attn_impl is not None:
             return self.attn_impl
+        forced = os.environ.get("AC_ATTN_IMPL")
+        if forced:
+            return forced
         if self.device.type == "cpu":
             return "einsum"
-        dh = self.config.head_dim
         if seq_len >= 1024:
-            raise NotImplementedError(
-                f"S={seq_len} >= 1024 runs in the flash kernel (B6, "
-                f"flash_attention_padded), which is not yet ported to CUDA")
+            return "flash"
+        dh = self.config.head_dim
         if dh > 128 or dh % 8 or seq_len % 8:
             raise NotImplementedError(
                 f"head_dim={dh}, S={seq_len} is outside the packed-QKV kernel's "

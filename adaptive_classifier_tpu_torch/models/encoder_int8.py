@@ -8,8 +8,9 @@ activations are quantized per row on the fly.  Per layer, with
 
 - kernel B2 (``ops.matmul_int8.quant_matmul_int8``): the fused QKV
   projection;
-- attention off the packed QKV tensor (kernel B1 with ``attn_impl=
-  "fusedqkv"``, its plain version with ``"einsum"``);
+- attention off the packed QKV tensor (``encoder.attention_fn``: kernel B1
+  with ``attn_impl="fusedqkv"``, B6 with ``"flash"``, B7 with
+  ``"oneshot"``, the plain version of B1 with ``"einsum"``);
 - the O-projection as a plain int8 product (``_q_matmul``), residual and
   LayerNorm — or, with ``fuse_o_proj``, kernel B8 (``attn_ffn_block_int8``)
   for the O-projection and everything after it;
@@ -34,11 +35,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention_qkv import attention_from_qkv, attention_from_qkv_ref
 from ..ops.ffn_int8 import attn_ffn_block_int8, ffn_block_int8
+from ..ops.layernorm import add_layer_norm_ref
 from ..ops.matmul_int8 import int8_matmul, quant_matmul_int8, quant_rows
-from .encoder import (EncoderConfig, Params, _add_layer_norm, _n_layers,
-                      embed_tokens, pool_and_normalize)
+from .encoder import (EncoderConfig, Params, _n_layers, attention_fn, embed_tokens,
+                      pool_and_normalize)
 
 
 def _dyn_quant_rows(x: torch.Tensor):
@@ -58,7 +59,7 @@ def _q_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
 
 def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                 eps: float) -> torch.Tensor:
-    return _add_layer_norm(x, None, scale, bias, eps)
+    return add_layer_norm_ref(x, None, scale, bias, eps)
 
 
 def encoder_forward_int8(
@@ -73,15 +74,13 @@ def encoder_forward_int8(
 ) -> torch.Tensor:
     """BERT forward with int8 products → last hidden state ``[B, S, D]``
     (float32)."""
-    if attn_impl not in ("fusedqkv", "einsum"):
-        raise NotImplementedError(f"attn_impl={attn_impl!r} comes with a later slice")
+    attend = attention_fn(attn_impl)
     B, S = input_ids.shape
     D = cfg.hidden_size
     if use_fused_ffn is None:
         use_fused_ffn = (input_ids.device.type == "cuda" and B * S >= 256
                          and D % 128 == 0 and cfg.intermediate_size % 128 == 0)
     fuse_o_proj = bool(fuse_o_proj) and use_fused_ffn
-    attend = attention_from_qkv if attn_impl == "fusedqkv" else attention_from_qkv_ref
     H, Dh, eps = cfg.num_heads, cfg.head_dim, cfg.layer_norm_eps
     cd = compute_dtype
     h = embed_tokens(qparams, input_ids, cfg, cd)

@@ -1,8 +1,9 @@
 """Host-side WordPiece tokenizer.
 
 Counterpart of ``adaptive_classifier_tpu/models/tokenizer.py``: BERT's
-basic + WordPiece algorithm over a local checkpoint's ``vocab.txt``, padded
-to sequence-length buckets.  Pure Python; the binding to the optional C++
+basic + WordPiece algorithm over a local checkpoint's ``vocab.txt`` or the
+built-in offline vocabulary (``hermetic``), padded to sequence-length
+buckets.  Pure Python; the binding to the optional C++
 library under ``native/`` comes with a later slice of the port.
 """
 
@@ -87,6 +88,64 @@ class WordPieceTokenizer:
                     vocab[line.rstrip("\n")] = i
             return cls(vocab, do_lower_case=do_lower)
         raise FileNotFoundError(f"No vocab.txt in {path}")
+
+    @classmethod
+    def hermetic(cls, vocab_size: int = 8192) -> "WordPieceTokenizer":
+        """Deterministic built-in vocabulary for fully offline operation,
+        the JAX package's token for token.
+
+        Covers the specials, all single printable-ASCII characters and their
+        '##' continuations, and common English subwords; everything else
+        falls back to character-level pieces, so any ASCII text tokenizes
+        without [UNK] and identically across runs.
+        """
+        tokens: List[str] = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+        chars = [chr(c) for c in range(33, 127)]
+        tokens += [c for c in chars]
+        tokens += [f"##{c}" for c in chars if c.isalnum()]
+        common = (
+            "the of and to in is was it for on as with be by at this that from "
+            "are an or have has had not but they you his her she he we their its "
+            "which will would there been one all can more if no so what when who "
+            "out up about into them then some could these two may other do over "
+            "such our him time years only most also new after first than where "
+            "many must through before should well people down just state year "
+            "good very make world still own see men work long here get both "
+            "between life being under never day same another know while last "
+            "might us great old off come since go against came right used take "
+            "three himself few house use during without again place around "
+            "however home small found mrs thought went say part once general "
+            "high upon school every don does got united left number course war "
+            "until always away something fact though water less public put "
+            "think almost hand enough far took head yet government system "
+            "better set told nothing night end why called didn eyes find going "
+            "look asked later knew point next city business case week company "
+            "system group problem service price order great product quality "
+            "love hate terrible awful amazing wonderful excellent poor bad best "
+            "worst happy sad angry positive negative neutral movie film book "
+            "music food restaurant hotel travel sports game team player win "
+            "lose technical support billing account password email urgent "
+            "refund payment card credit bank money insurance legal medical "
+            "doctor health news politics science technology computer software "
+            "hardware phone mobile internet web site data model machine "
+            "learning language question answer help please thanks thank sorry "
+            "yes maybe sure issue error bug fix update version release test"
+        ).split()
+        seen = set(tokens)
+        for w in common:
+            for t in (w, f"##{w}"):
+                if t not in seen:
+                    seen.add(t)
+                    tokens.append(t)
+        # pad out with numbered filler tokens to reach vocab_size
+        i = 0
+        while len(tokens) < vocab_size:
+            t = f"[unused{i}]"
+            if t not in seen:
+                tokens.append(t)
+            i += 1
+        vocab = {t: i for i, t in enumerate(tokens[:vocab_size])}
+        return cls(vocab, do_lower_case=True)
 
     # ------------------------------------------------------------------
     # tokenization
@@ -180,3 +239,7 @@ class WordPieceTokenizer:
             ids[i, : len(e)] = e
             mask[i, : len(e)] = 1
         return ids, mask
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.vocab)

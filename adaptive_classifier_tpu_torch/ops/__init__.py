@@ -9,7 +9,8 @@ which kernels that path went through.
 from typing import Dict
 
 launch_counts: Dict[str, int] = {
-    "attention_qkv": 0, "knn_sims": 0, "knn_topk": 0,
+    "attention_qkv": 0, "flash_attention": 0, "oneshot_attention": 0,
+    "add_layer_norm": 0, "knn_sims": 0, "knn_topk": 0,
     "matmul_int8": 0, "ffn_int8": 0, "proj_residual_ln_int8": 0, "attn_ffn_int8": 0,
 }
 

@@ -32,16 +32,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 BUILD_TIMEOUT_S = 300
 
 #: C signature of every entry point: (argument types, return type)
-_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_VP, _CI, _CF, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     "ac_attention_qkv": ([_VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _VP], _CI),
+    "ac_flash_attention": ([_VP] * 5 + [_CI] * 4 + [_CL] * 3 + [_CI, _VP], _CI),
+    "ac_oneshot_attention": ([_VP] * 5 + [_CI] * 4 + [_CL] * 3 + [_CI, _VP], _CI),
+    "ac_add_layer_norm": ([_VP] * 4 + [_CF, _VP, _CI, _CI, _CI, _VP], _CI),
     "ac_masked_sims": ([_VP, _VP, _VP, _VP, _CI, _CI, _CI, _VP], _CI),
     "ac_topk_sims": ([_VP] * 8 + [_CI] * 6 + [_VP], _CI),
     "ac_quant_matmul_int8": ([_VP] * 5 + [_CI] * 4 + [_VP], _CI),
     "ac_proj_residual_ln_int8": ([_VP] * 7 + [_CF, _VP] + [_CI] * 3 + [_VP], _CI),
     "ac_ffn_block_int8": ([_VP] * 9 + [_CF, _VP] + [_CI] * 4 + [_VP], _CI),
     "ac_attn_ffn_block_int8": ([_VP] * 15 + [_CF, _VP] + [_CI] * 4 + [_VP], _CI),
-    "ac_ffn_int8_smem_bytes": ([_CI, _CI], ctypes.c_longlong),
+    "ac_ffn_int8_smem_bytes": ([_CI, _CI, _CI], ctypes.c_longlong),
     "ac_cuda_error_string": ([_CI], ctypes.c_char_p),
 }
 

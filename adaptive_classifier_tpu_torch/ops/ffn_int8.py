@@ -14,9 +14,13 @@ Counterpart of ``adaptive_classifier_tpu/ops/ffn_int8.py``.
 ``absmax / 127``; the GELU is the tanh form (``_gelu_tanh``), not the float
 path's erf.  Each wrapper takes its plain version (``*_ref``) for a CPU
 tensor and launches its CUDA kernel (``csrc/ffn_int8.cu``) for a CUDA
-tensor, or raises; there is no fallback between them.  The plain versions
-repeat the kernels' arithmetic step for step; a last-ulp difference of
-``tanh`` can move one requantized GELU value by one int8 step.
+tensor, or raises; there is no fallback between them.  Where the f32 GELU
+tile does not fit a block (bert-base's F = 3,072), the kernel computes the
+first product twice, once for each row's GELU maximum and once to quantize
+the same values, and returns what the one-pass kernel would.  The plain
+versions repeat the kernels' arithmetic step for step; a last-ulp
+difference of ``tanh`` can move one requantized GELU value by one int8
+step.
 """
 
 from __future__ import annotations
@@ -79,7 +83,9 @@ def _check_ffn(name: str, D: int, w1_q, s1, b1, w2_q, s2, b2, ln_scale, ln_bias)
 
 
 def _check_smem(name: str, device: torch.device, D: int, F: int):
-    need = _build.library().ac_ffn_int8_smem_bytes(D, F)
+    """Raise unless B3's and B8's two-pass row tile, the smaller, fits a
+    block of ``device`` (the kernel takes one pass where that fits)."""
+    need = _build.library().ac_ffn_int8_smem_bytes(D, F, 1)
     have = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
     if need > have:
         raise ValueError(f"{name}: D={D}, F={F} needs {need} bytes of shared "

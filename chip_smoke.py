@@ -13,14 +13,20 @@ Phases, each of which must pass:
    similarities (B4) to max abs error <= 1e-5; the streaming top-k (B5) to
    identical indices on inputs with no near-ties, lower-index order on
    exact ties, and values within 1e-5; the int8 kernels at the zoo's
-   widths (M 8,192 and ragged, f32 and bf16): the QKV projection (B2) to
+   widths (M 8,192 and ragged) and at bert-base's (D 768, F 3,072, where
+   B3 and B8 take two passes; M 16,384 and ragged), f32 and bf16: the QKV projection (B2) to
    1e-5 and the projection + LayerNorm (B9) to 1e-4 in f32, the FFN block
    (B3) and the post-attention body (B8) to per-row cosine >= 0.9999 and
-   max abs error <= 0.05 in f32, all to cosine > 0.999 in bf16;
+   max abs error <= 0.05 in f32, all to cosine > 0.999 in bf16; flash
+   attention (B6) at S 32 to 2,048 and one-shot attention (B7) at S 32 to
+   512, H 8 and 12, with ragged masks and a fully masked row, to B1's
+   tolerances; the fused add + LayerNorm (B10) at M 8,192, 32,768 and
+   1,000, D 512, to 1e-5 in f32 and one bf16 step in bf16;
 4. serves saved zoo classifiers on the full-width encoder
    (checkpoints/ac-base-v2: BERT, 8 layers, hidden 512, 8 heads):
-   ``predict_batch`` on each task's test rows, with launch counts, accuracy
-   against the zoo manifest, and top-1 agreement with the plain attention;
+   ``predict_batch`` on each task's test rows, with launch counts (B1 once
+   and B10 twice per layer per chunk), accuracy against the zoo manifest,
+   and top-1 agreement with the plain attention;
 4i. serves the same classifiers with ``quantization: "int8"``: B2, B3 and
    B1 once per layer per chunk, every embedding within cosine 0.99 of the
    bf16 forward's, accuracy >= manifest - 0.03, top-1 agreement >= 0.95
@@ -29,6 +35,15 @@ Phases, each of which must pass:
    bf16 encoder forwards per chunk in turns; on the first banking chunk,
    ``fuse_o_proj=True`` sends every layer through B8 (cosine >= 0.999 with
    the default int8 forward);
+4a. serves both zoo tasks with ``AC_ATTN_IMPL=flash`` and then
+   ``=oneshot`` (bf16), and banking-intents int8 with each: B6 or B7 once
+   per layer per chunk and B1 never, accuracy >= manifest - 0.03, top-1
+   agreement >= 0.99 with phase 4 (4i) and every embedding within cosine
+   0.999 of the default path's (0.99, the int8 envelope, in int8); then
+   the bf16 encoder forward of one chunk of each task with the fused
+   LayerNorm off / on / on / off (B10 twice per layer with it on, never
+   with it off, embeddings within cosine 0.999), the timing behind
+   ``_FUSED_LN_ON_CUDA``;
 6. builds banking-intents from data/intents.json with ``add_examples`` on
    the production config (lexical_dim 32768, ridge head, auto knobs), then
    adds its three new classes; accuracy >= manifest - 0.03; 6i does the
@@ -39,13 +54,20 @@ Phases, each of which must pass:
 8. builds a 16,384-class classifier: kernel B5 carries ``predict_batch``
    (agreement >= 0.99 with the plain path), B4 ``predict`` and
    ``predict_proba``;
+9. the attention A/B at bert-base width: ``Encoder("bert-base-uncased")``
+   builds the JAX package's offline random weights (12 layers, hidden 768,
+   12 heads); B = 32, S in {64, 128, 512}, bf16 and int8, through
+   fusedqkv, oneshot, flash and einsum: ms per batch and embedding cosine
+   >= 0.999 against fusedqkv; then ``AdaptiveClassifier("bert-base-uncased")``
+   takes add_examples and answers predict_batch (random weights: launch
+   counts and answers gated, accuracy reported);
 3b. times every kernel, its plain version and the nearest single PyTorch
    call at the shapes the main path gave it, on the main path's inputs;
 5. prints the ``kernels`` JSON line, then as its last line
    ``{"ok": true, "device": {...}}``.
 
-Each phase prints its seconds; phases 4, 4i, 6, 6i, 7 and 8 zero the launch
-counts just before each step and read them just after.  B9 has no caller
+Each phase prints its seconds; phases 4, 4i, 4a, 6, 6i, 7, 8 and 9 zero the
+launch counts just before each step and read them just after.  B9 has no caller
 on any path (in the JAX package too); it is held in phase 3 and timed in
 3b, and the ``kernels`` line gives it 0 main-path launches.
 
@@ -57,10 +79,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -213,6 +237,198 @@ def time_attention(shapes) -> list:
                "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by}
         log(f"  time {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+def head_views(qkv, H, Dh):
+    """q, k, v as ``[B, S, H, Dh]`` views of a packed ``[B, S, 3D]`` tensor,
+    as the encoder passes them to B6 and B7 (no copy)."""
+    D = H * Dh
+    return [qkv[..., j * D:(j + 1) * D].unflatten(-1, (H, Dh)) for j in range(3)]
+
+
+FLASH_TOLERANCE = ("f32: max abs err <= 1e-4 (TF32 off); bf16: max abs err <= 0.05 "
+                   "and cosine > 0.999; a fully masked row is the uniform average of V")
+
+
+def check_flash() -> dict:
+    """B6 at S in {32, 128, 512, 1024, 2048} and B7 at S in {32, 128, 512},
+    H 8 and 12, Dh 64, f32 and bf16, ragged masks with batch row 1 fully
+    masked, against their plain versions; raises on any disagreement."""
+    from adaptive_classifier_tpu_torch.ops import flash_attention as fa
+
+    out = {"flash_attention": [], "oneshot_attention": []}
+    batch = {32: 16, 128: 8, 512: 4, 1024: 2, 2048: 2}
+    cases = [(name, S, H, dtype) for name in out for S in batch for H in (8, 12)
+             for dtype in (torch.float32, torch.bfloat16)
+             if name == "flash_attention" or S <= 512]
+    for i, (name, S, H, dtype) in enumerate(cases):
+        B, Dh = batch[S], 64
+        qkv, mask = qkv_inputs(200 + i, dtype, B, S, H, Dh, masked_rows=(1,))
+        q, k, v = head_views(qkv, H, Dh)
+        got = getattr(fa, name)(q, k, v, mask)
+        want = getattr(fa, name + "_ref")(q, k, v, mask)
+        torch.cuda.synchronize()
+        res = {"case": f"{str(dtype).split('.')[-1]} B={B} S={S} H={H}",
+               **compare(got, want, dtype)}
+        uni = v[1].float().mean(dim=0)
+        res["uniform_err"] = (got[1].float() - uni).abs().max().item()
+        res["ok"] = res["ok"] and res["uniform_err"] <= (
+            1e-4 if dtype == torch.float32 else 0.05)
+        log(f"  check {name} {json.dumps(res)}")
+        if not res["ok"]:
+            raise AssertionError(f"{name} kernel disagrees with plain: {res}")
+        out[name].append(res)
+    return out
+
+
+def bf16_step(w: torch.Tensor) -> torch.Tensor:
+    """One bf16 step (unit in the last place) at the magnitude of ``w``,
+    taken at 2^-7 for smaller values: there the two f32 results' absolute
+    difference (~1e-6, from sums of O(1) values in another order) exceeds a
+    step, so a near-zero output can round to neighbours many steps apart."""
+    return 2.0 ** (torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -7))) - 7)
+
+
+def ln_inputs(seed, M, D, dtype):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x, r = ((2.0 * torch.randn((M, D), generator=g, device="cuda") + 0.3).to(dtype)
+            for _ in range(2))
+    scale = 1.0 + 0.1 * torch.randn(D, generator=g, device="cuda")
+    bias = 0.1 * torch.randn(D, generator=g, device="cuda")
+    return x, r, scale, bias
+
+
+def ln_compare(got, want, dtype) -> dict:
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    finite = bool(torch.isfinite(g).all().item())
+    if dtype == torch.float32:
+        ok = err <= 1e-5
+    else:
+        ok = bool(((g - w).abs() <= bf16_step(w)).all().item())
+    return {"max_abs_err": err, "finite": finite, "ok": ok and finite}
+
+
+LN_TOLERANCE = ("f32: max abs err <= 1e-5; bf16: every value within one bf16 step "
+                "(the step at 2^-7 for smaller values)")
+
+
+def check_layernorm() -> list:
+    """B10 at M 8,192, 32,768 and a ragged 1,000 rows, D 512, f32 and bf16,
+    against its plain version; raises on any disagreement."""
+    from adaptive_classifier_tpu_torch.ops import layernorm as ln
+
+    out = []
+    for i, (dtype, M) in enumerate((d, m) for d in (torch.float32, torch.bfloat16)
+                                   for m in (8192, 32768, 1000)):
+        x, r, scale, bias = ln_inputs(300 + i, M, 512, dtype)
+        got = ln.add_layer_norm(x, r, scale, bias, 1e-12)
+        want = ln.add_layer_norm_ref(x, r, scale, bias, 1e-12)
+        torch.cuda.synchronize()
+        res = {"case": f"{str(dtype).split('.')[-1]} M={M}", **ln_compare(got, want, dtype)}
+        log(f"  check add_layer_norm {json.dumps(res)}")
+        if not res["ok"]:
+            raise AssertionError(f"add_layer_norm kernel disagrees with plain: {res}")
+        out.append(res)
+    return out
+
+
+def sdpa_backend(q, k, v, bias) -> str:
+    """The backend one default SDPA call takes on these inputs: the first of
+    PyTorch's priority order that accepts them."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    order = getattr(torch._C, "_get_sdp_priority_order", None)
+    backends = ([SDPBackend(i) for i in order()] if order is not None else
+                [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                 SDPBackend.MATH])
+    for b in backends:
+        if b.name in ("ERROR", "OVERRIDEABLE"):
+            continue
+        try:
+            with sdpa_kernel([b]):
+                sdpa(q, k, v, attn_mask=bias)
+            return b.name
+        except RuntimeError:
+            continue
+    return "none accepted the inputs"
+
+
+def time_flash(shapes: dict) -> dict:
+    """B6 and B7, their plain versions and SDPA with the additive mask, at
+    the main path's shapes (random q, k, v on the run's token masks)."""
+    from adaptive_classifier_tpu_torch.ops import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {"flash_attention": [], "oneshot_attention": []}
+    for where, (mask_np, H, Dh, dtype) in shapes.items():
+        B, S = mask_np.shape
+        mask = torch.from_numpy(np.ascontiguousarray(mask_np)).to("cuda")
+        qkv, _ = qkv_inputs(400, dtype, B, S, H, Dh, lengths=mask.sum(dim=1))
+        q, k, v = head_views(qkv, H, Dh)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        bias = torch.where(mask > 0, 0.0, -1e9).to(dtype)[:, None, None, :]
+        backend = sdpa_backend(qt, kt, vt, bias)
+        library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=bias))
+        bound_ms, bound_by = attention_bound(B, S, H, Dh, dtype)
+        for name in rows:
+            kernel = getattr(fa, name)
+            plain = getattr(fa, name + "_ref")
+            res = compare(kernel(q, k, v, mask), plain(q, k, v, mask), dtype)
+            if not res["ok"]:
+                raise AssertionError(f"{name} disagrees at {where}'s shape: {res}")
+            row = {"where": where, "shape": [B, S, H, Dh], "dtype": str(dtype),
+                   "valid_keys": int(mask.sum().item()),
+                   "max_abs_err": res["max_abs_err"], "cosine": res["cosine"],
+                   "ms": cuda_ms(lambda: kernel(q, k, v, mask)),
+                   "plain_ms": cuda_ms(lambda: plain(q, k, v, mask), iters=5),
+                   "library_ms": library_ms,
+                   "library_call": f"F.scaled_dot_product_attention, additive mask "
+                                   f"({backend})",
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            row["ms_repeat"] = cuda_ms(lambda: kernel(q, k, v, mask))
+            log(f"  time {name} {json.dumps(row)}")
+            rows[name].append(row)
+    return rows
+
+
+def ln_bound(M, D, dtype):
+    """Least time for B10: x and resid read and the output written once,
+    the two f32 vectors read once, over the card's memory rate (its ~8·M·D
+    f32 operations take a tenth of that at the f32 peak)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    t_bytes = (3 * M * D * item + 8 * D) / PEAK_BYTES_PER_S * 1e3
+    t_ops = 8 * M * D / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_layernorm(chunks: dict) -> list:
+    """B10, its plain version and F.layer_norm(x + r) at the zoo's chunk
+    shapes (M rows of D 512, bf16)."""
+    from adaptive_classifier_tpu_torch.ops import layernorm as ln
+
+    rows = []
+    for where, M in chunks.items():
+        x, r, scale, bias = ln_inputs(500, M, 512, torch.bfloat16)
+        res = ln_compare(ln.add_layer_norm(x, r, scale, bias, 1e-12),
+                         ln.add_layer_norm_ref(x, r, scale, bias, 1e-12), torch.bfloat16)
+        if not res["ok"]:
+            raise AssertionError(f"add_layer_norm disagrees at {where}'s shape: {res}")
+        row = {"where": where, "M": M, "D": 512, "dtype": "bfloat16",
+               "max_abs_err": res["max_abs_err"],
+               "ms": cuda_ms(lambda: ln.add_layer_norm(x, r, scale, bias, 1e-12)),
+               "plain_ms": cuda_ms(lambda: ln.add_layer_norm_ref(x, r, scale, bias,
+                                                                 1e-12)),
+               "library_ms": cuda_ms(lambda: torch.nn.functional.layer_norm(
+                   x + r, (512,), scale.to(x.dtype), bias.to(x.dtype), 1e-12)),
+               "library_call": "F.layer_norm(x + r): two calls (the add, then the "
+                               "norm; bf16 scale and bias)"}
+        row["ms_repeat"] = cuda_ms(lambda: ln.add_layer_norm(x, r, scale, bias, 1e-12))
+        row["bound_ms"], row["bound_by"] = ln_bound(M, 512, torch.bfloat16)
+        log(f"  time add_layer_norm {json.dumps(row)}")
         rows.append(row)
     return rows
 
@@ -382,8 +598,8 @@ def time_knn(shapes: dict) -> dict:
 
 
 def int8_weights(seed, D=512, F=2048):
-    """Random int8 weights at the zoo's widths, quantized as the port
-    quantizes a checkpoint: O [D, D], QKV [D, 3D], W1 [D, F], W2 [F, D],
+    """Random int8 weights at widths D, F (by default the zoo's), quantized
+    as the port quantizes a checkpoint: O [D, D], QKV [D, 3D], W1 [D, F], W2 [F, D],
     each with its per-column scale and a bias; two LayerNorms."""
     from adaptive_classifier_tpu_torch.quantization import quantize_weight
 
@@ -467,27 +683,38 @@ INT8_TOLERANCE = {
 }
 
 
+#: (D, F) of the int8 checks: the zoo's widths (B3 and B8 in one pass) and
+#: bert-base's (the f32 GELU tile does not fit a block: two passes)
+INT8_WIDTHS = ((512, 2048), (768, 3072))
+
+
 def check_int8() -> dict:
     """B2, B3, B9 and B8 against their plain versions at the zoo's widths
-    (D 512, F 2048), M = 8,192 (a banking chunk) and a ragged M, f32 and
-    bf16; raises on any disagreement.  → results and the launches made."""
+    (D 512, F 2048: M = 8,192, a banking chunk, and a ragged M) and at
+    bert-base's (D 768, F 3,072: M = 16,384, a B = 32, S = 512 batch, and a
+    ragged M), f32 and bf16; raises on any disagreement.  → results and the
+    launches made."""
     import adaptive_classifier_tpu_torch as port
 
-    mats, lns = int8_weights(0)
     out = {name: [] for name in INT8_TOLERANCE}
     port.reset_launch_counts()
-    for dtype, M in ((torch.float32, 8192), (torch.float32, 1000),
-                     (torch.bfloat16, 8192), (torch.bfloat16, 200)):
-        calls = int8_calls(mats, lns, int8_rows(M, M, 512, dtype))
-        for name, (kernel, plain, _) in calls.items():
-            got, want = kernel(), plain()
-            torch.cuda.synchronize()
-            res = {"case": f"{str(dtype).split('.')[-1]} M={M}",
-                   **int8_compare(name, got, want, dtype)}
-            log(f"  check {name} {json.dumps(res)}")
-            if not res["ok"]:
-                raise AssertionError(f"{name} kernel disagrees with plain: {res}")
-            out[name].append(res)
+    for D, F in INT8_WIDTHS:
+        mats, lns = int8_weights(0, D, F)
+        big = 8192 if D == 512 else 16384
+        for dtype, M in ((torch.float32, big), (torch.float32, 1000),
+                         (torch.bfloat16, big), (torch.bfloat16, 200)):
+            calls = int8_calls(mats, lns, int8_rows(M, M, D, dtype))
+            for name, (kernel, plain, _) in calls.items():
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                res = {"case": f"{str(dtype).split('.')[-1]} M={M} D={D} F={F}",
+                       **int8_compare(name, got, want, dtype)}
+                log(f"  check {name} {json.dumps(res)}")
+                if not res["ok"]:
+                    raise AssertionError(f"{name} kernel disagrees with plain: {res}")
+                out[name].append(res)
+        del mats, lns, calls
+        torch.cuda.empty_cache()
     return {"results": out, "launches": dict(port.launch_counts)}
 
 
@@ -513,25 +740,29 @@ def int8_bound(name, M, dtype, D=512, F=2048):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_int8(chunks: dict, mats, lns) -> dict:
+def time_int8(chunks: dict) -> dict:
     """The four int8 kernels, their plain versions and the products alone
     (torch._int_mm on the quantized operands) at the main path's chunk
-    shapes, bf16 rows; every kernel result is held to its plain version."""
+    shapes (name → (M, D, F)), bf16 rows; every kernel result is held to its
+    plain version."""
     rows = {name: [] for name in INT8_TOLERANCE}
-    for task, M in chunks.items():
-        calls = int8_calls(mats, lns, int8_rows(7, M, 512, torch.bfloat16))
+    weights = {}
+    for task, (M, D, F) in chunks.items():
+        if (D, F) not in weights:
+            weights[(D, F)] = int8_weights(1, D, F)
+        calls = int8_calls(*weights[(D, F)], int8_rows(7, M, D, torch.bfloat16))
         for name, (kernel, plain, library) in calls.items():
             res = int8_compare(name, kernel(), plain(), torch.bfloat16)
             if not res["ok"]:
                 raise AssertionError(f"{name} disagrees at {task}'s shape: {res}")
-            row = {"task": task, "M": M, "dtype": "bfloat16",
+            row = {"task": task, "M": M, "D": D, "F": F, "dtype": "bfloat16",
                    "max_abs_err": res["max_abs_err"], "cosine": res["cosine"],
                    "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain, iters=5),
                    "library_ms": cuda_ms(library),
                    "library_call": "torch._int_mm on the quantized operands "
                                    "(the int8 products alone)"}
             row["ms_repeat"] = cuda_ms(kernel)
-            row["bound_ms"], row["bound_by"] = int8_bound(name, M, torch.bfloat16)
+            row["bound_ms"], row["bound_by"] = int8_bound(name, M, torch.bfloat16, D, F)
             log(f"  time {name} {json.dumps(row)}")
             rows[name].append(row)
     return rows
@@ -583,6 +814,12 @@ def run_task(task: str, manifest: dict, gpu: str) -> dict:
         raise AssertionError(f"{task}: attention kernel launched "
                              f"{launches['attention_qkv']} times, expected "
                              f"{layers} layers x {n_chunks} chunks")
+    from adaptive_classifier_tpu_torch.models.encoder import _FUSED_LN_ON_CUDA
+
+    want_ln = 2 * layers * n_chunks if _FUSED_LN_ON_CUDA else 0
+    if launches["add_layer_norm"] != want_ln:
+        raise AssertionError(f"{task}: add_layer_norm launched "
+                             f"{launches['add_layer_norm']} times, expected {want_ln}")
     top1 = [p[0][0] if p else None for p in preds]
     acc = float(np.mean([p == y for p, y in zip(top1, labels)]))
     floor = manifest["classifiers"][task]["expected_accuracy"] - 0.03
@@ -770,6 +1007,207 @@ def run_task_int8(task: str, manifest: dict, gpu: str, bf16_top1, float_encoder,
     if task == TASKS[0]:
         out["fuse_o_proj"] = run_fuse_o_proj(enc, ids, mask, layers, launches)
     log(f"  task int8 {json.dumps(out)}")
+    out["top1"] = top1
+    del clf
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4a: the flash and one-shot attention paths, the fused LayerNorm
+# ---------------------------------------------------------------------------
+
+ATTN_KERNELS = {"fusedqkv": "attention_qkv", "flash": "flash_attention",
+                "oneshot": "oneshot_attention", "einsum": None}
+
+
+def run_attn_path(task: str, impl: str, manifest: dict, base_top1, launches: Launches,
+                  int8: bool = False) -> dict:
+    """A zoo classifier (bf16, or int8 with ``int8``) served with
+    ``AC_ATTN_IMPL=impl``: the chosen kernel once per layer per chunk and
+    B1 never; top-1 >= manifest - 0.03; top-1 agreement >= 0.99 with the
+    same classifier's phase 4 (4i) run; every embedding within cosine
+    0.999 of the default path's in bf16.  In int8 the bound is the int8
+    envelope, 0.99: each path rounds its bf16 probabilities at another
+    place, and the per-row requantization of the attention output turns
+    that into int8 steps (0.9986 flash against fusedqkv through the int8
+    forward on banking-intents, CPU plain versions)."""
+    import adaptive_classifier_tpu_torch as port
+
+    texts, labels = task_rows(task)
+    path = int8_checkpoint(task) if int8 else REPO / "checkpoints" / "zoo" / task
+    clf = port.AdaptiveClassifier.load(path, device="cuda")
+    enc = clf.encoder
+    cfg = enc.config
+    n_chunks = math.ceil(len(texts) / max(clf.config.embed_chunk_size, 64))
+    layers = cfg.pool_layer if 0 < cfg.pool_layer < cfg.num_layers else cfg.num_layers
+    with torch.inference_mode():
+        base = enc.embed(texts)
+    with mock.patch.dict(os.environ, {"AC_ATTN_IMPL": impl}):
+        preds, counts = launches.run(lambda: clf.predict_batch(texts, k=1))
+        with torch.inference_mode():
+            emb = enc.embed(texts)
+    kernel = ATTN_KERNELS[impl]
+    if counts[kernel] != layers * n_chunks or counts["attention_qkv"] != 0:
+        raise AssertionError(f"{task} {impl}: {kernel} launched {counts[kernel]} times "
+                             f"(expected {layers} x {n_chunks}), attention_qkv "
+                             f"{counts['attention_qkv']}")
+    got = top1(preds)
+    acc = float(np.mean([a == b for a, b in zip(got, labels)]))
+    agree = float(np.mean([a == b for a, b in zip(got, base_top1)]))
+    cos = row_cosines(emb, base)
+    floor = manifest["classifiers"][task]["expected_accuracy"] - 0.03
+    out = {"task": task, "impl": impl, "quantization": enc.quantization,
+           "chunks": n_chunks, "launches": counts, "top1_accuracy": acc,
+           "accuracy_floor": floor, "top1_agreement_with_phase_4": agree,
+           "min_embedding_cosine": cos.min().item()}
+    log(f"  attn path {json.dumps(out)}")
+    min_cos = 0.99 if int8 else 0.999
+    if not (acc >= floor and agree >= 0.99 and out["min_embedding_cosine"] >= min_cos):
+        raise AssertionError(f"{task} {impl}: {out}")
+    del clf
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_fused_ln(task: str) -> dict:
+    """The bf16 encoder forward (``embed_texts_device``) of one full chunk
+    of ``task`` with the fused LayerNorm off / on / on / off, the timing
+    that sets ``_FUSED_LN_ON_CUDA``: with it on B10 twice per layer, with it
+    off never, every embedding within cosine 0.999 of the plain
+    LayerNorm's.  (Phase 4 serves the classifiers with B10 on and gates its
+    launches per chunk.)"""
+    import adaptive_classifier_tpu_torch as port
+    from adaptive_classifier_tpu_torch.models.encoder import embed_texts_device
+
+    texts, _ = task_rows(task)
+    clf = port.AdaptiveClassifier.load(REPO / "checkpoints" / "zoo" / task, device="cuda")
+    enc = clf.encoder
+    cfg = enc.config
+    chunk = max(clf.config.embed_chunk_size, 64)
+    layers = cfg.pool_layer if 0 < cfg.pool_layer < cfg.num_layers else cfg.num_layers
+    ids, mask = enc.tokenizer(texts[:chunk] + [""] * max(0, chunk - len(texts)),
+                              max_length=clf.config.max_length,
+                              pad_to_buckets=enc.SEQ_BUCKETS)
+    impl = enc._attn_impl(ids.shape[1])
+    ids, mask = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+
+    def forward(flag):
+        with torch.inference_mode():
+            return embed_texts_device(enc.params, ids, mask, cfg, enc.compute_dtype,
+                                      attn_impl=impl, use_fused_ln=flag)
+
+    embs = {}
+    for flag in (False, True):
+        port.reset_launch_counts()
+        embs[flag] = forward(flag)
+        torch.cuda.synchronize()
+        want = 2 * layers if flag else 0
+        if port.launch_counts["add_layer_norm"] != want:
+            raise AssertionError(f"{task} use_fused_ln={flag}: add_layer_norm launched "
+                                 f"{port.launch_counts['add_layer_norm']} times, "
+                                 f"expected {want}")
+    order = [(flag, cuda_ms(lambda: forward(flag), iters=10))
+             for flag in (False, True, True, False)]
+    on = [ms for f, ms in order if f]
+    off = [ms for f, ms in order if not f]
+    out = {"task": task, "chunk_rows": int(ids.shape[0] * ids.shape[1]),
+           "attn_impl": impl,
+           "min_embedding_cosine": row_cosines(embs[True], embs[False]).min().item(),
+           "encoder_forward_ms_fused_ln": on, "encoder_forward_ms_plain_ln": off,
+           "fused_faster": max(on) < min(off)}
+    log(f"  fused LN {json.dumps(out)}")
+    if not out["min_embedding_cosine"] >= 0.999:
+        raise AssertionError(f"{task} fused LN: {out}")
+    del clf
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the attention A/B at bert-base width, offline weights
+# ---------------------------------------------------------------------------
+
+BERT_BASE = "bert-base-uncased"
+
+
+def run_bert_base(manifest: dict, launches: Launches, gpu: str) -> dict:
+    """``Encoder("bert-base-uncased")``: the JAX package's offline numpy-RNG
+    weights, 12 layers, hidden 768, 12 heads of 64.  B = 32 random token
+    rows, all valid (as scripts/ab_attention.py), S in {64, 128, 512}, bf16
+    and int8, through each attention path: the path's kernel 12 times per
+    forward, and B2 and B3 (int8) or B10 twice (bf16) 12 times; ms per
+    batch (CUDA events), embedding cosine >= 0.999 against ``fusedqkv``.  Then ``AdaptiveClassifier("bert-base-uncased")`` on the
+    production config: add_examples on intents' train rows, predict_batch on
+    its test rows (random weights: no accuracy gate)."""
+    import adaptive_classifier_tpu_torch as port
+    from adaptive_classifier_tpu_torch.models.encoder import Encoder
+
+    t0 = time.perf_counter()
+    encoders = {"bf16": Encoder(BERT_BASE, device="cuda"),
+                "int8": Encoder(BERT_BASE, device="cuda", quantization="int8")}
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = encoders["bf16"].config
+    r = np.random.default_rng(0)
+    rows = []
+    for S in (64, 128, 512):
+        ids = r.integers(0, cfg.vocab_size, (32, S)).astype(np.int32)
+        mask = np.ones((32, S), np.int32)
+        for path, enc in encoders.items():
+            ref = None
+            for impl, kernel in ATTN_KERNELS.items():
+                enc.attn_impl = impl
+                with torch.inference_mode():
+                    emb, counts = launches.run(lambda: enc.embed_ids(ids, mask))
+                L = cfg.num_layers
+                want = {k: L if name == impl else 0
+                        for name, k in ATTN_KERNELS.items() if k is not None}
+                want.update({"matmul_int8": L, "ffn_int8": L, "add_layer_norm": 0}
+                            if path == "int8" else
+                            {"matmul_int8": 0, "ffn_int8": 0, "add_layer_norm": 2 * L})
+                got = {k: counts[k] for k in want}
+                if got != want:
+                    raise AssertionError(f"bert-base {path} S={S} {impl}: launches {got}, "
+                                         f"expected {want}")
+                ref = emb if ref is None else ref
+                row = {"S": S, "B": 32, "path": path, "impl": impl,
+                       "ms_per_batch": cuda_ms(lambda: enc.embed_ids(ids, mask), iters=10,
+                                               warmup=2),
+                       "min_cosine_vs_fusedqkv": row_cosines(emb, ref).min().item(),
+                       "launches": got}
+                log(f"  bert-base {json.dumps(row)}")
+                if not row["min_cosine_vs_fusedqkv"] >= 0.999:
+                    raise AssertionError(f"bert-base {path} S={S} {impl}: {row}")
+                rows.append(row)
+            enc.attn_impl = None
+    del encoders
+    torch.cuda.empty_cache()
+
+    clf = port.AdaptiveClassifier(BERT_BASE, config=dict(PRODUCTION), device="cuda")
+    texts, labels = intents_rows("train")
+    t0 = time.perf_counter()
+    _, add_counts = launches.run(lambda: clf.add_examples(texts, labels))
+    add_s = time.perf_counter() - t0
+    test_t, test_l = intents_rows("test_base")
+    n_chunks = math.ceil(len(test_t) / max(clf.config.embed_chunk_size, 64))
+    preds, pred_counts = launches.run(lambda: clf.predict_batch(test_t, k=1))
+    if add_counts["attention_qkv"] == 0 or \
+            pred_counts["attention_qkv"] != cfg.num_layers * n_chunks:
+        raise AssertionError(f"bert-base classifier: B1 launched {add_counts} / "
+                             f"{pred_counts}")
+    if len(preds) != len(test_t) or not all(preds):
+        raise AssertionError("bert-base classifier: predict_batch left rows unanswered")
+    out = {"encoder_build_s": build_s, "rows": rows,
+           "classifier": {"pretrained": clf.encoder.pretrained,
+                          "vocab_size": clf.encoder.config.vocab_size,
+                          "train_rows": len(texts), "add_examples_s": add_s,
+                          "test_rows": len(test_t),
+                          "top1_accuracy_random_weights": accuracy(preds, test_l),
+                          "launches": {"add_examples": add_counts,
+                                       "predict_batch": pred_counts}},
+           "gpu": gpu}
+    log(f"  bert-base classifier {json.dumps(out['classifier'])}")
     del clf
     torch.cuda.empty_cache()
     return out
@@ -1066,6 +1504,8 @@ def main() -> int:
     checks = check_attention()
     knn_checks = check_knn()
     int8_checks = check_int8()
+    flash_checks = check_flash()
+    ln_checks = check_layernorm()
     phase_done("3", t0)
 
     launches = Launches()
@@ -1089,6 +1529,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("4i", t0)
 
+    log("phase 4a: AC_ATTN_IMPL=flash|oneshot (B6, B7) and the fused LayerNorm (B10)")
+    t0 = time.perf_counter()
+    attn_runs = [run_attn_path(task, impl, manifest, runs[task]["top1"], launches)
+                 for impl in ("flash", "oneshot") for task in TASKS]
+    attn_runs += [run_attn_path(TASKS[0], impl, manifest, runs_int8[TASKS[0]]["top1"],
+                                launches, int8=True) for impl in ("flash", "oneshot")]
+    fused_ln = {task: run_fused_ln(task) for task in TASKS}
+    log(f"  attention paths " + json.dumps([
+        {k: r[k] for k in ("task", "impl", "quantization", "top1_accuracy",
+                           "top1_agreement_with_phase_4", "min_embedding_cosine")}
+        for r in attn_runs]))
+    phase_done("4a", t0)
+
     log("phase 6: build banking-intents from data on the production config")
     t0 = time.perf_counter()
     build = run_build(manifest, launches)
@@ -1110,6 +1563,11 @@ def main() -> int:
     p8 = run_many(8, launches)
     phase_done("8", t0)
 
+    log("phase 9: attention A/B at bert-base width (offline weights), and its classifier")
+    t0 = time.perf_counter()
+    bert = run_bert_base(manifest, launches, gpu)
+    phase_done("9", t0)
+
     log("phase 3b: kernel timing at the main path's shapes")
     t0 = time.perf_counter()
     timings = time_attention({t: r["shape"] for t, r in runs.items()})
@@ -1125,9 +1583,13 @@ def main() -> int:
                                             s8["bias"], s8["k"]),
         },
     })
-    int8_mats, int8_lns = int8_weights(1)
-    int8_times = time_int8({t: r["chunk_rows"] for t, r in runs_int8.items()},
-                           int8_mats, int8_lns)
+    int8_times = time_int8({**{t: (r["chunk_rows"], 512, 2048)
+                                for t, r in runs_int8.items()},
+                            "bert-base B=32 S=128": (4096, 768, 3072)})
+    flash_times = time_flash({
+        **{f"{t} chunk": r["shape"] for t, r in runs.items()},
+        "bert-base B=32 S=512": (np.ones((32, 512), np.int32), 12, 64, torch.bfloat16)})
+    ln_times = time_layernorm({f"{t} chunk": r["chunk_rows"] for t, r in fused_ln.items()})
     phase_done("3b", t0)
     del p7, p8
     torch.cuda.empty_cache()
@@ -1186,10 +1648,39 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library_call": row["library_call"],
-            "shape": [row["M"], 512], "tolerance": INT8_TOLERANCE[name],
+            "shape": [row["M"], row["D"]], "tolerance": INT8_TOLERANCE[name],
             "checked_launches": int8_checks["launches"][name],
             "per_shape": int8_times[name],
         })
+    for name, replaces in (("flash_attention",
+                            "adaptive_classifier_tpu/ops/flash_attention.py:69"),
+                           ("oneshot_attention",
+                            "adaptive_classifier_tpu/ops/flash_attention.py:136")):
+        row = flash_times[name][0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "adaptive_classifier_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces,
+            "launches": launches.total[name],
+            "max_abs_err": max(c["max_abs_err"] for c in flash_checks[name]
+                               + flash_times[name]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library_call": row["library_call"], "shape": row["shape"],
+            "tolerance": FLASH_TOLERANCE, "per_shape": flash_times[name],
+        })
+    row = ln_times[0]
+    kernels.append({
+        "name": "add_layer_norm", "route": "cuda",
+        "source": "adaptive_classifier_tpu_torch/csrc/add_layernorm.cu",
+        "replaces": "adaptive_classifier_tpu/ops/layernorm.py:52",
+        "launches": launches.total["add_layer_norm"],
+        "max_abs_err": max(c["max_abs_err"] for c in ln_checks + ln_times),
+        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "library_call": row["library_call"], "shape": [row["M"], row["D"]],
+        "tolerance": LN_TOLERANCE, "per_shape": ln_times,
+    })
     # B9 has no caller on any path (in the JAX package only its test calls
     # it): its main-path count is 0 by design, and phase 3 held it to its
     # plain version ("checked_launches")
@@ -1203,6 +1694,12 @@ def main() -> int:
     log(f"  int8 vs bf16 encoder forward per chunk (ms) " + json.dumps(
         {t: {"int8": r["encoder_forward_ms_int8"], "bf16": r["encoder_forward_ms_bf16"],
              "int8_faster": r["int8_faster"]} for t, r in runs_int8.items()}))
+    log(f"  fused LayerNorm vs plain, bf16 encoder forward per chunk (ms) " + json.dumps(
+        {t: {"fused": r["encoder_forward_ms_fused_ln"],
+             "plain": r["encoder_forward_ms_plain_ln"],
+             "fused_faster": r["fused_faster"]} for t, r in fused_ln.items()}))
+    log(f"  bert-base A/B ms per batch " + json.dumps(
+        {f"{r['path']} S={r['S']} {r['impl']}": r["ms_per_batch"] for r in bert["rows"]}))
     log(f"  phase 6i resolved {json.dumps(build_int8['resolved'])} zoo "
         f"{json.dumps(build_int8['zoo'])} top-1 {build_int8['top1_accuracy']}")
     log(gpu)

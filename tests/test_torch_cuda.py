@@ -90,13 +90,18 @@ def test_attention_counts_launches(cuda):
     assert port.launch_counts["attention_qkv"] == 2
 
 
-def test_unported_kernels_raise_on_the_gpu(cuda):
+def test_unported_kernels_raise_on_the_gpu(cuda, monkeypatch):
+    """Every kernel is ported: S >= 1024 takes the flash kernel (B6), and
+    what no kernel takes still raises."""
+    monkeypatch.delenv("AC_ATTN_IMPL", raising=False)
     clf = port.AdaptiveClassifier.load(REPO / "checkpoints/zoo/banking-intents")
-    with pytest.raises(NotImplementedError, match="B6"):
-        clf.encoder._attn_impl(1024)
+    assert clf.encoder._attn_impl(1024) == "flash"
+    with pytest.raises(NotImplementedError, match="envelope"):
+        clf.encoder._attn_impl(60)
 
 
-def test_zoo_predict_batch_on_the_gpu(cuda):
+def test_zoo_predict_batch_on_the_gpu(cuda, monkeypatch):
+    monkeypatch.delenv("AC_ATTN_IMPL", raising=False)
     clf = port.AdaptiveClassifier.load(REPO / "checkpoints/zoo/banking-intents")
     data = json.loads((REPO / "data/intents.json").read_text())
     rows = [(t, lbl) for lbl in data["train"] for t in data["test"][lbl]]
@@ -105,8 +110,7 @@ def test_zoo_predict_batch_on_the_gpu(cuda):
     assert port.launch_counts["attention_qkv"] == clf.encoder.config.num_layers
     acc = np.mean([p[0][0] == lbl for p, (_, lbl) in zip(preds, rows)])
     assert acc >= 0.92 - 0.03
-    with pytest.raises(NotImplementedError, match="B6"):
-        clf.encoder._attn_impl(1024)
+    assert clf.encoder._attn_impl(1024) == "flash"
 
 
 def _knn_inputs(dev, seed, B, C, D, n_valid=None, dup=False):
@@ -339,11 +343,35 @@ def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         ffn_int8.ffn_block_int8(x, m["w1"][0].float(), *m["w1"][1:], *m["w2"], *lns[0],
                                 1e-12)
     with pytest.raises(ValueError, match="shared memory"):
-        # F = 4096 needs more shared memory than a block has
+        # F = 16,384 needs more shared memory than a block has, even with
+        # the GELU tile held as int8 (two passes)
         r = np.random.default_rng(0)
-        w1 = _int8_weight(r, (512, 4096), cuda)
-        w2 = _int8_weight(r, (4096, 512), cuda)
+        w1 = _int8_weight(r, (512, 16384), cuda)
+        w2 = _int8_weight(r, (16384, 512), cuda)
         ffn_int8.ffn_block_int8(x, *w1, *w2, *lns[0], 1e-12)
+
+
+@pytest.mark.parametrize("fuse_o", [False, True])
+@pytest.mark.parametrize("dtype,M", [(torch.float32, 1000), (torch.bfloat16, 4096)])
+def test_ffn_blocks_two_pass_at_bert_base_width(cuda, fuse_o, dtype, M):
+    """At D 768, F 3,072 the f32 GELU tile does not fit a block: B3 and B8
+    take their two-pass route and still match their plain versions."""
+    (x, y), m, lns = _int8_layer(cuda, 5, M, dtype, D=768, F=3072)
+    props = torch.cuda.get_device_properties(cuda)
+    assert (ffn_int8._build.library().ac_ffn_int8_smem_bytes(768, 3072, 0)
+            > props.shared_memory_per_block_optin)
+    port.reset_launch_counts()
+    if fuse_o:
+        args = (x, y, *m["o"], *lns[0], *m["w1"], *m["w2"], *lns[1], 1e-12)
+        got = ffn_int8.attn_ffn_block_int8(*args)
+        want = ffn_int8.attn_ffn_block_int8_ref(*args)
+    else:
+        args = (x, *m["w1"], *m["w2"], *lns[0], 1e-12)
+        got = ffn_int8.ffn_block_int8(*args)
+        want = ffn_int8.ffn_block_int8_ref(*args)
+    torch.cuda.synchronize()
+    assert port.launch_counts["attn_ffn_int8" if fuse_o else "ffn_int8"] == 1
+    _assert_int8_close(got, want, dtype)
 
 
 def _int8_zoo(tmp_path, task="banking-intents"):
@@ -404,3 +432,185 @@ def test_int8_forward_fuse_o_proj_on_the_gpu(cuda, tmp_path):
         b = pool_and_normalize(fused, mask, enc.config.pooling)
         cos = ((a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1))).min()
         assert cos >= (0.999 if dtype == torch.float32 else 0.99)
+
+
+# ---------------------------------------------------------------------------
+# flash (B6) and one-shot (B7) attention, the fused add + LayerNorm (B10)
+# ---------------------------------------------------------------------------
+
+def _heads(dev, seed, dtype, B, S, H, Dh, masked_row=None):
+    """q, k, v as ``[B, S, H, Dh]`` views of one packed ``[B, S, 3D]``
+    tensor (the encoder's layout) and a ragged mask."""
+    qkv, mask = _inputs(dev, seed, dtype, B, S, H, Dh, masked_row)
+    D = H * Dh
+    return [qkv[..., j * D:(j + 1) * D].unflatten(-1, (H, Dh)) for j in range(3)], mask
+
+
+def _assert_attention_close(got, want, dtype):
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+    else:
+        assert (g * w).sum() / (g.norm() * w.norm()) > 0.999
+        torch.testing.assert_close(g, w, atol=0.05, rtol=0)
+
+
+_FLASH_CASES = [(torch.float32, 4, 128, 8, 64), (torch.bfloat16, 256, 32, 8, 64),
+                (torch.bfloat16, 4, 512, 12, 64), (torch.float32, 2, 1024, 12, 64),
+                (torch.bfloat16, 2, 2048, 8, 64), (torch.float32, 3, 131, 3, 24),
+                (torch.bfloat16, 2, 200, 2, 128)]
+
+
+@pytest.mark.parametrize("dtype,B,S,H,Dh", _FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, dtype, B, S, H, Dh):
+    from adaptive_classifier_tpu_torch.ops import flash_attention as fa
+
+    (q, k, v), mask = _heads(cuda, 5, dtype, B, S, H, Dh)
+    port.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, mask)
+    want = fa.flash_attention_ref(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert port.launch_counts["flash_attention"] == 1
+    assert got.shape == (B, S, H, Dh) and got.dtype == dtype
+    _assert_attention_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype,B,S,H,Dh", [c for c in _FLASH_CASES if c[2] <= 512]
+                         + [(torch.float32, 2, 1000, 4, 64), (torch.bfloat16, 1, 2048, 2, 64)])
+def test_oneshot_kernel_matches_plain(cuda, dtype, B, S, H, Dh):
+    from adaptive_classifier_tpu_torch.ops import flash_attention as fa
+
+    (q, k, v), mask = _heads(cuda, 6, dtype, B, S, H, Dh)
+    port.reset_launch_counts()
+    got = fa.oneshot_attention(q, k, v, mask)
+    want = fa.oneshot_attention_ref(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert port.launch_counts["oneshot_attention"] == 1
+    _assert_attention_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "oneshot_attention"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_fully_masked_row(cuda, kernel, dtype):
+    from adaptive_classifier_tpu_torch.ops import flash_attention as fa
+
+    (q, k, v), mask = _heads(cuda, 7, dtype, 3, 100, 2, 64, masked_row=1)
+    got = getattr(fa, kernel)(q, k, v, mask).float()
+    uniform = v[1].float().mean(dim=0)
+    atol = 1e-4 if dtype == torch.float32 else 0.05
+    torch.testing.assert_close(got[1], uniform.expand(100, -1, -1), atol=atol, rtol=0)
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(cuda):
+    from adaptive_classifier_tpu_torch.ops import flash_attention as fa
+
+    (q, k, v), mask = _heads(cuda, 8, torch.float32, 2, 64, 2, 32)
+    with pytest.raises(ValueError, match="share strides"):
+        fa.flash_attention(q.contiguous(), k, v, mask)
+    with pytest.raises(ValueError, match="one device"):
+        fa.oneshot_attention(q, k, v, mask.cpu())
+    big = torch.zeros(1, 2056, 1, 8, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        fa.oneshot_attention(big, big, big, torch.ones(1, 2056, device=cuda))
+
+
+_LN_CASES = [(torch.float32, 8192, 512), (torch.bfloat16, 32768, 512),
+             (torch.bfloat16, 1000, 512), (torch.float32, 333, 768),
+             (torch.bfloat16, 64, 128)]
+
+
+def _bf16_step(w):
+    """One bf16 step at |w|, taken at 2^-7 below it, where the f32 results'
+    ~1e-6 absolute difference exceeds a step."""
+    return 2.0 ** (torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -7))) - 7)
+
+
+@pytest.mark.parametrize("dtype,M,D", _LN_CASES)
+def test_add_layer_norm_kernel_matches_plain(cuda, dtype, M, D):
+    from adaptive_classifier_tpu_torch.ops import layernorm as ln
+
+    g = torch.Generator(device="cpu").manual_seed(M + D)
+    x, r = ((2.0 * torch.randn((M, D), generator=g) + 0.3).to(cuda, dtype)
+            for _ in range(2))
+    scale = (1.0 + 0.1 * torch.randn(D, generator=g)).to(cuda)
+    bias = (0.1 * torch.randn(D, generator=g)).to(cuda)
+    port.reset_launch_counts()
+    got = ln.add_layer_norm(x, r, scale, bias, 1e-12)
+    want = ln.add_layer_norm_ref(x, r, scale, bias, 1e-12)
+    torch.cuda.synchronize()
+    assert port.launch_counts["add_layer_norm"] == 1
+    assert got.dtype == dtype and got.shape == (M, D)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    else:
+        w = want.float()
+        assert ((got.float() - w).abs() <= _bf16_step(w)).all()
+
+
+def test_add_layer_norm_refuses_what_it_does_not_take(cuda):
+    from adaptive_classifier_tpu_torch.ops import layernorm as ln
+
+    x = torch.zeros(16, 512, device=cuda)
+    s, b = torch.ones(512, device=cuda), torch.zeros(512, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ln.add_layer_norm(x.t().contiguous().t(), x, s, b, 1e-12)
+    with pytest.raises(ValueError, match="aligned"):
+        y = torch.zeros(16 * 512 + 1, device=cuda)[1:].view(16, 512)
+        ln.add_layer_norm(y, x, s, b, 1e-12)
+    with pytest.raises(ValueError, match="one device"):
+        ln.add_layer_norm(x, x, s.cpu(), b, 1e-12)
+
+
+@pytest.mark.parametrize("impl,kernel", [("flash", "flash_attention"),
+                                         ("oneshot", "oneshot_attention")])
+def test_zoo_predict_batch_through_flash_kernels(cuda, monkeypatch, impl, kernel):
+    """AC_ATTN_IMPL sends every layer through B6 or B7, as in the JAX
+    package; the answers stay those of the packed-QKV kernel."""
+    monkeypatch.delenv("AC_ATTN_IMPL", raising=False)
+    clf = port.AdaptiveClassifier.load(REPO / "checkpoints/zoo/banking-intents")
+    data = json.loads((REPO / "data/intents.json").read_text())
+    texts = [t for lbl in data["train"] for t in data["test"][lbl]]
+    base = [p[0][0] for p in clf.predict_batch(texts, k=1)]
+    monkeypatch.setenv("AC_ATTN_IMPL", impl)
+    port.reset_launch_counts()
+    preds = [p[0][0] for p in clf.predict_batch(texts, k=1)]
+    assert port.launch_counts[kernel] == clf.encoder.config.num_layers
+    assert port.launch_counts["attention_qkv"] == 0
+    assert np.mean([a == b for a, b in zip(preds, base)]) >= 0.99
+
+
+def test_bf16_forward_through_fused_layer_norm(cuda, monkeypatch):
+    from adaptive_classifier_tpu_torch.models import encoder as tenc
+
+    monkeypatch.delenv("AC_ATTN_IMPL", raising=False)
+    enc = tenc.Encoder(str(REPO / "checkpoints/ac-base-v2"), device=cuda)
+    data = json.loads((REPO / "data/intents.json").read_text())
+    texts = [t for ts in data["test"].values() for t in ts][:256]
+    ids, mask = enc.tokenizer(texts, max_length=512, pad_to_buckets=enc.SEQ_BUCKETS)
+    ids, mask = torch.from_numpy(ids).to(cuda), torch.from_numpy(mask).to(cuda)
+
+    def embed(flag):
+        with torch.inference_mode():
+            return tenc.embed_texts_device(enc.params, ids, mask, enc.config,
+                                           enc.compute_dtype, attn_impl="fusedqkv",
+                                           use_fused_ln=flag)
+
+    base = embed(False)
+    port.reset_launch_counts()
+    fused = embed(True)
+    torch.cuda.synchronize()
+    assert port.launch_counts["add_layer_norm"] == 2 * enc.config.num_layers
+    assert ((fused * base).sum(-1)).min() >= 0.999
+
+
+def test_offline_encoder_on_the_gpu(cuda, monkeypatch):
+    """The offline bert-tiny on the card against the same weights on the
+    CPU (float32; the card's kernels against the CPU's plain versions)."""
+    from adaptive_classifier_tpu_torch.models import encoder as tenc
+
+    monkeypatch.delenv("AC_ATTN_IMPL", raising=False)
+    texts = ["where is my card?", "I was charged twice for a top-up", ""]
+    gpu = tenc.Encoder("prajjwal1/bert-tiny", compute_dtype="float32", device=cuda)
+    cpu = tenc.Encoder("prajjwal1/bert-tiny", compute_dtype="float32", device="cpu")
+    torch.testing.assert_close(gpu.embed(texts).cpu(), cpu.embed(texts), atol=1e-4, rtol=0)

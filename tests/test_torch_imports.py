@@ -40,7 +40,8 @@ def test_port_imports_without_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "adaptive_classifier_tpu_torch.models.encoder" in out["imported"]
     for mod in ("ops.attention_qkv", "ops.knn", "ops.knn_topk", "ops.fusion",
-                "ops.matmul_int8", "ops.ffn_int8", "models.encoder_int8",
+                "ops.matmul_int8", "ops.ffn_int8", "ops.flash_attention",
+                "ops.layernorm", "models.encoder_int8", "models.tokenizer",
                 "quantization", "memory", "training", "lexical", "convert"):
         assert f"adaptive_classifier_tpu_torch.{mod}" in out["imported"]
     leaked = [m for m in out["loaded"]
@@ -95,9 +96,10 @@ def test_cuda_sources_are_packaged_and_bound():
         text += body
     for fn in _build.SIGNATURES:
         assert re.search(rf'extern "C" [^(]*\b{fn}\(', text), fn
-    assert set(launch_counts) == {"attention_qkv", "knn_sims", "knn_topk",
-                                  "matmul_int8", "ffn_int8", "proj_residual_ln_int8",
-                                  "attn_ffn_int8"}
+    assert set(launch_counts) == {"attention_qkv", "flash_attention",
+                                  "oneshot_attention", "add_layer_norm", "knn_sims",
+                                  "knn_topk", "matmul_int8", "ffn_int8",
+                                  "proj_residual_ln_int8", "attn_ffn_int8"}
     # the kernels call no library (cuBLAS, CUTLASS) and no float tensor-core
     # path (TF32 would move exp(-d²) by ~1e-3); the int8 kernels' tensor-core
     # product (mma ... s8.s8.s32) is exact, and the only mma they issue
