@@ -20,50 +20,71 @@
 // elements; the head's Dh values contiguous), so the encoder passes slices of
 // its packed [B, S, 3D] QKV tensor with no copy.  Output [B, S, H*Dh].
 //
-// What bounds them on an H100: memory at the serving shapes (S <= 128), the
-// products from S ~ 256 on: 2 * 2 * B * H * S^2 * Dh operations against
-// 4 * B * S * H * Dh elements moved.  The design keeps the scores and the
-// probabilities in shared memory and registers, never in device memory, and
-// reads each K/V element once per (batch, head, query tile).  Like B1
-// (attention_qkv.cu) this first version multiplies on the CUDA cores in f32
-// (no wgmma, no TMA), which leaves it compute-bound well above the bound.
+// What bounds them on an H100 (bf16, Dh 64; 4 B H S^2 Dh operations against
+// 4 B S H Dh elements and the mask moved): memory at the zoo's chunks, 0.0100
+// ms of bytes against 0.0005 ms of products at [256, 32] x 8 heads, 0.0401
+// against 0.0087 at [256, 128]; about balanced at bert-base [32, 512] x 12
+// heads, 0.0301 ms of bytes against 0.0261 of products at 989 TFLOP/s.
 //
-// B6 layout: one block of 4 warps per (query tile of 4 * ROWS rows, head,
-// batch row); the Q tile sits in shared memory and 64-key tiles of K and V
-// stream through it (the TPU kernel keeps a head's whole K/V resident in
-// VMEM, which at S = 2,048 in bf16 is 256 KB each, more than a block's 227 KB).
-// Warp w owns ROWS query rows; lane l scores keys l and l + 32 of a tile and
-// accumulates output columns l, l + 32, ... of its rows.
+// bf16 (the card's path; attention_tile.cuh): both products on the tensor
+// cores (mma.sync m16n8k16, f32 accumulation), softmax on the accumulator
+// fragments, K/V tiles staged as bf16 by 16-byte cp.async into a two-slot
+// ring, so the bytes are read once per (batch, head, query tile) with the
+// next tile in flight while the current one is multiplied, and no score or
+// probability reaches shared or device memory.  A block is 4 warps of 16
+// query rows and 64-key tiles (2 warps and 32-key tiles at S <= 32, so no
+// half of a tile is padding): 45.5 KB of shared memory and at most 128
+// registers a thread at Dh 64, so 4 blocks share an SM.  Rows that are not
+// 16-byte aligned (Dh % 8 != 0, or an odd base or stride) are staged
+// element by element by the same kernel.  exp is taken as 2^x on scores
+// scaled by log2(e), and each division by max(l, 1e-30) as a product with
+// the row's reciprocal: both within a few f32 ulps of the plain version's
+// values before the bf16 rounding.
+// - B6 rounds exp(s - m) to bf16 straight from the score accumulators into
+//   the A operand of the PV product; l is summed from the f32 values.  Its
+//   recurrence steps over the plain version's 64-key tiles.
+// - B7 needs each row's exact max before it normalizes.  It keeps no score
+//   block: pass 1 streams K for the running max and the rescaled sum l,
+//   pass 2 streams K and V, recomputes the same scores, forms p = exp(s -
+//   m) / max(l, 1e-30) rounded to bf16 in registers and multiplies it by V.
+//   That is 1.5x B6's products and twice its exps, and one design at every
+//   S up to 2,048 (a one-pass variant with the whole [16, S] row in
+//   registers would fit only to S = 128).  l is B6's rescaled sum, so it may
+//   differ from the plain version's sum in the last f32 bits.
 //
-// B7 layout: the same blocks, but each keeps its rows' whole [TQ, S] f32
-// score block in shared memory (the TPU kernel keeps a head's whole [S, S]
-// block, 1 MB at S = 512, which no block can hold): pass 1 writes the scores
-// tile by tile, pass 2 takes each row's exact max, sum and normalized,
-// rounded probabilities, pass 3 streams V tiles for the PV product.  The
-// query tile shrinks as S grows so the score block stays at <= 128 KB
-// (TQ 64 up to S = 512, 32 up to 1,024, 16 up to 2,048); longer rows are
-// refused.
+// f32 keeps the first port's CUDA-core loop below: TF32 is off in this
+// port, and a bf16 mma would not compute the f32 function.  B6 layout: one
+// block of 4 warps per (query tile of 4 * ROWS rows, head, batch row), 64-key
+// tiles of K and V staged as f32; lane l scores keys l and l + 32 of a tile
+// and accumulates output columns l, l + 32, ... of its rows.  B7 keeps its
+// rows' whole [TQ, S] f32 score block in shared memory (TQ 64 up to S = 512,
+// 32 up to 1,024, 16 up to 2,048); longer rows are refused.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include "attention_tile.cuh"
+
 namespace {
+
+// ---------------------------------------------------------------------------
+// f32: the CUDA-core loop (TF32 is off in this port, and a bf16 mma would
+// not compute the f32 function)
+// ---------------------------------------------------------------------------
 
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int TK = 64;               // keys per staged K/V tile
-constexpr float MASK_BIAS = -1e9f;
 constexpr int MAX_ONESHOT_S = 2048;
 
+using ac_attn::key_bias;
+
+// the loop is written for an element type T; only T = float is instantiated
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // x rounded to T and back (the TPU kernels' p.astype(v.dtype))
 template <typename T> __device__ __forceinline__ float round_to(float x) {
@@ -92,11 +113,6 @@ __device__ __forceinline__ void stage(const T* __restrict__ base, long long ss, 
     const int s = r0 + r;
     dst[r * ld + d] = (s < S && d < Dh) ? to_f32(base[(long long)s * ss + d]) : 0.f;
   }
-}
-
-// additive bias of key s: 0 valid, -1e9 masked, -inf past S (no key there)
-__device__ __forceinline__ float key_bias(const int* __restrict__ mrow, int s, int S) {
-  return s < S ? (mrow[s] > 0 ? 0.f : MASK_BIAS) : -INFINITY;
 }
 
 // Raw dot products of a warp's ROWS query rows (qw, leading dimension DHP)
@@ -160,9 +176,7 @@ __device__ __forceinline__ void write_rows(T* __restrict__ out, int b, int q0, i
   }
 }
 
-// ---------------------------------------------------------------------------
-// B6: online softmax over 64-key tiles
-// ---------------------------------------------------------------------------
+// B6, f32: online softmax over 64-key tiles
 
 template <int DHP, int ROWS>
 constexpr size_t flash_smem_bytes() {
@@ -245,9 +259,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   write_rows<T, DHP, ROWS>(out, b, q0, S, H, h, Dh, warp, lane, o);
 }
 
-// ---------------------------------------------------------------------------
-// B7: exact row softmax over the block's whole [TQ, S] score block
-// ---------------------------------------------------------------------------
+// B7, f32: exact row softmax over the block's whole [TQ, S] score block
 
 template <int DHP, int ROWS>
 size_t oneshot_smem_bytes(int SP) {
@@ -333,6 +345,122 @@ oneshot_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 }
 
 // ---------------------------------------------------------------------------
+// bf16: the tensor-core tile loop of attention_tile.cuh
+// ---------------------------------------------------------------------------
+
+using ac_attn::bf16;
+
+// blocks per SM the register budget is set for: 512 threads at Dh <= 64
+// (128 registers a thread), 256 at Dh 128
+template <class Tl>
+constexpr int kMinBlocks = (Tl::DHP <= 64 ? 512 : 256) / Tl::THREADS;
+
+// B6, bf16
+template <class Tl, bool ALIGNED>
+__global__ void __launch_bounds__(Tl::THREADS, kMinBlocks<Tl>)
+flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const int* __restrict__ mask,
+                bf16* __restrict__ out, int S, int H, int Dh, long long sb, long long ss,
+                long long sh, float scale2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const ac_attn::Smem<Tl> sm(smem_raw);
+  const int q0 = blockIdx.x * Tl::TQ, h = blockIdx.y, b = blockIdx.z;
+  const long long off = (long long)b * sb + (long long)h * sh;
+  const int* mrow = mask + (long long)b * S;
+
+  auto stage = [&](int j, int slot) {
+    ac_attn::stage_rows<Tl, ALIGNED>(sm.k(slot), k + off, ss, j * Tl::TK, Tl::TK, S, Dh);
+    ac_attn::stage_rows<Tl, ALIGNED>(sm.v(slot), v + off, ss, j * Tl::TK, Tl::TK, S, Dh);
+    ac_attn::stage_bias<Tl>(sm.b(slot), mrow, j * Tl::TK, S);
+  };
+  ac_attn::zero_pad_cols<Tl>(sm.q, Tl::SMEM_ROWS, Dh);
+  ac_attn::stage_rows<Tl, ALIGNED>(sm.q, q + off, ss, q0, Tl::TQ, S, Dh);
+  stage(0, 0);
+  ac_attn::cp_async_commit();
+
+  uint32_t qf[Tl::DHP / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[Tl::NDT][4];
+  #pragma unroll
+  for (int n = 0; n < Tl::NDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  ac_attn::ring_loop((S + Tl::TK - 1) / Tl::TK, stage, [&](int j, int slot) {
+    if (j == 0) ac_attn::load_q<Tl>(sm.q, qf);
+    float sc[Tl::NKT][4], corr[2];
+    ac_attn::tile_scores<Tl>(qf, sm.k(slot), sm.b(slot), scale2, sc);
+    ac_attn::online_softmax<Tl>(sc, m, l, corr);
+    #pragma unroll
+    for (int n = 0; n < Tl::NDT; ++n)
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
+    ac_attn::tile_pv<Tl>(sc, sm.v(slot), o);
+  });
+
+  // acc / max(l, 1e-30), as the row's reciprocal times acc (within an f32
+  // ulp of the division, before the bf16 rounding)
+  const float inv_l[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
+  #pragma unroll
+  for (int n = 0; n < Tl::NDT; ++n)
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] *= inv_l[e >> 1];
+  ac_attn::store_rows<Tl, ALIGNED>(sm.q, o, out, b, q0, S, H, h, Dh);
+}
+
+// B7, bf16: steps 0 .. nt-1 stage K tile j (pass 1), steps nt .. 2nt-1 K
+// and V tile j - nt (pass 2), through the same ring.
+template <class Tl, bool ALIGNED>
+__global__ void __launch_bounds__(Tl::THREADS, kMinBlocks<Tl>)
+oneshot_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const int* __restrict__ mask,
+                  bf16* __restrict__ out, int S, int H, int Dh, long long sb, long long ss,
+                  long long sh, float scale2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const ac_attn::Smem<Tl> sm(smem_raw);
+  const int q0 = blockIdx.x * Tl::TQ, h = blockIdx.y, b = blockIdx.z;
+  const long long off = (long long)b * sb + (long long)h * sh;
+  const int* mrow = mask + (long long)b * S;
+  const int nt = (S + Tl::TK - 1) / Tl::TK;
+
+  auto stage = [&](int i, int slot) {
+    const int k0 = (i < nt ? i : i - nt) * Tl::TK;
+    ac_attn::stage_rows<Tl, ALIGNED>(sm.k(slot), k + off, ss, k0, Tl::TK, S, Dh);
+    if (i >= nt)
+      ac_attn::stage_rows<Tl, ALIGNED>(sm.v(slot), v + off, ss, k0, Tl::TK, S, Dh);
+    ac_attn::stage_bias<Tl>(sm.b(slot), mrow, k0, S);
+  };
+  ac_attn::zero_pad_cols<Tl>(sm.q, Tl::SMEM_ROWS, Dh);
+  ac_attn::stage_rows<Tl, ALIGNED>(sm.q, q + off, ss, q0, Tl::TQ, S, Dh);
+  stage(0, 0);
+  ac_attn::cp_async_commit();
+
+  uint32_t qf[Tl::DHP / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2] = {1.f, 1.f};
+  float o[Tl::NDT][4];
+  #pragma unroll
+  for (int n = 0; n < Tl::NDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  ac_attn::ring_loop(2 * nt, stage, [&](int i, int slot) {
+    if (i == 0) ac_attn::load_q<Tl>(sm.q, qf);
+    float sc[Tl::NKT][4];
+    ac_attn::tile_scores<Tl>(qf, sm.k(slot), sm.b(slot), scale2, sc);
+    if (i < nt) {
+      float corr[2];
+      ac_attn::online_softmax<Tl>(sc, m, l, corr);
+      return;
+    }
+    // p = 2^(s - m) / max(l, 1e-30), as the row's reciprocal times
+    // 2^(s - m), rounded to bf16 in tile_pv
+    if (i == nt) inv_l[0] = 1.f / fmaxf(l[0], 1e-30f), inv_l[1] = 1.f / fmaxf(l[1], 1e-30f);
+    #pragma unroll
+    for (int n = 0; n < Tl::NKT; ++n)
+      #pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[n][e] = ac_attn::exp2_approx(sc[n][e] - m[e >> 1]) * inv_l[e >> 1];
+    ac_attn::tile_pv<Tl>(sc, sm.v(slot), o);
+  });
+  ac_attn::store_rows<Tl, ALIGNED>(sm.q, o, out, b, q0, S, H, h, Dh);
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -343,11 +471,32 @@ struct Args {
   int B, S, H, Dh;
   long long sb, ss, sh;
   cudaStream_t stream;
+  int* info;        // set: report the instantiation instead of launching
 };
+
+// info: registers per thread, shared bytes per block (dynamic + static),
+// threads per block, blocks resident per SM, local (spill) bytes per thread
+template <typename Kernel>
+cudaError_t kernel_info(Kernel* kernel, size_t smem, int threads, int* info) {
+  cudaFuncAttributes at;
+  cudaError_t err = cudaFuncGetAttributes(&at, kernel);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  info[0] = at.numRegs;
+  info[1] = (int)(smem + at.sharedSizeBytes);
+  info[2] = threads;
+  info[3] = blocks;
+  info[4] = (int)at.localSizeBytes;
+  return err;
+}
 
 template <typename T, int DHP, int ROWS>
 cudaError_t launch_flash(const Args& a) {
   const size_t smem = flash_smem_bytes<DHP, ROWS>();
+  if (a.info) return kernel_info(flash_kernel<T, DHP, ROWS>, smem, THREADS, a.info);
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, DHP, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -364,6 +513,7 @@ template <typename T, int DHP, int ROWS>
 cudaError_t launch_oneshot(const Args& a) {
   const int SP = (a.S + TK - 1) / TK * TK;
   const size_t smem = oneshot_smem_bytes<DHP, ROWS>(SP);
+  if (a.info) return kernel_info(oneshot_kernel<T, DHP, ROWS>, smem, THREADS, a.info);
   cudaError_t err = cudaFuncSetAttribute(
       oneshot_kernel<T, DHP, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -396,13 +546,52 @@ cudaError_t dispatch_dh(const Args& a, bool oneshot) {
   return dispatch_rows<T, 128>(a, oneshot);
 }
 
+template <class Tl, bool ALIGNED>
+cudaError_t launch_tc(const Args& a, bool oneshot) {
+  auto* kernel = oneshot ? oneshot_tc_kernel<Tl, ALIGNED> : flash_tc_kernel<Tl, ALIGNED>;
+  const size_t smem = Tl::smem_bytes();
+  if (a.info) return kernel_info(kernel, smem, Tl::THREADS, a.info);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S + Tl::TQ - 1) / Tl::TQ, a.H, a.B);
+  kernel<<<grid, Tl::THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), a.mask, static_cast<bf16*>(a.out), a.S, a.H, a.Dh,
+      a.sb, a.ss, a.sh, ac_attn::LOG2E / sqrtf((float)a.Dh));
+  return cudaGetLastError();
+}
+
+// 4 warps, 64-key tiles; at S <= 32 2 warps and 32-key tiles (one tile,
+// the same recurrence as 64 keys), so no half of a tile is padding
+template <int DHP, bool ALIGNED>
+cudaError_t dispatch_tc_tiles(const Args& a, bool oneshot) {
+  if (a.S <= 32) return launch_tc<ac_attn::Tile<DHP, 2, 32>, ALIGNED>(a, oneshot);
+  return launch_tc<ac_attn::Tile<DHP, 4, 64>, ALIGNED>(a, oneshot);
+}
+
+template <bool ALIGNED>
+cudaError_t dispatch_tc(const Args& a, bool oneshot) {
+  if (a.Dh <= 32) return dispatch_tc_tiles<32, ALIGNED>(a, oneshot);
+  if (a.Dh <= 64) return dispatch_tc_tiles<64, ALIGNED>(a, oneshot);
+  return dispatch_tc_tiles<128, ALIGNED>(a, oneshot);
+}
+
+// every q, k, v and out row starts on 16 bytes and holds whole 16-byte chunks
+bool rows_aligned(const Args& a) {
+  auto al = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  return a.Dh % 8 == 0 && a.sb % 8 == 0 && a.ss % 8 == 0 && a.sh % 8 == 0 && al(a.q)
+         && al(a.k) && al(a.v) && al(a.out);
+}
+
 int run(const Args& a, int dtype, bool oneshot) {
   if (a.B <= 0 || a.S <= 0 || a.H <= 0 || a.Dh <= 0 || a.Dh > 128 || a.H > 65535
       || a.B > 65535 || (oneshot && a.S > MAX_ONESHOT_S))
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0: return (int)dispatch_dh<float>(a, oneshot);
-    case 1: return (int)dispatch_dh<__nv_bfloat16>(a, oneshot);
+    case 1: return (int)(rows_aligned(a) ? dispatch_tc<true>(a, oneshot)
+                                         : dispatch_tc<false>(a, oneshot));
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -418,7 +607,7 @@ extern "C" int ac_flash_attention(const void* q, const void* k, const void* v,
                                   int Dh, long long sb, long long ss, long long sh,
                                   int dtype, void* stream) {
   const Args a{q, k, v, mask, out, B, S, H, Dh, sb, ss, sh,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<cudaStream_t>(stream), nullptr};
   return run(a, dtype, false);
 }
 
@@ -428,6 +617,17 @@ extern "C" int ac_oneshot_attention(const void* q, const void* k, const void* v,
                                     int Dh, long long sb, long long ss, long long sh,
                                     int dtype, void* stream) {
   const Args a{q, k, v, mask, out, B, S, H, Dh, sb, ss, sh,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<cudaStream_t>(stream), nullptr};
   return run(a, dtype, true);
+}
+
+// The kernel ac_flash_attention (oneshot 0) or ac_oneshot_attention (1)
+// would launch on these arguments (the output taken as 16-byte aligned):
+// info[5] = registers per thread, shared bytes per block, threads per block,
+// blocks resident per SM, local (spill) bytes per thread.  Launches nothing.
+extern "C" int ac_flash_attention_info(const void* q, const void* k, const void* v, int B,
+                                       int S, int H, int Dh, long long sb, long long ss,
+                                       long long sh, int dtype, int oneshot, int* info) {
+  const Args a{q, k, v, nullptr, nullptr, B, S, H, Dh, sb, ss, sh, nullptr, info};
+  return run(a, dtype, oneshot != 0);
 }

@@ -14,6 +14,10 @@ additive −1e9 bias on padded keys.  They round differently:
   ``max(l, 1e-30)`` and then rounded to the input type, then the PV product
   in f32.  Rows of at most ``MAX_ONESHOT_S`` keys.
 
+In bf16 both kernels multiply on the tensor cores (``csrc/attention_tile.cuh``:
+bf16 products are exact in f32, so only the order of the sums differs from
+the plain versions); in f32 they multiply on the CUDA cores.
+
 Each ``*_ref`` is the plain torch version in its kernel's order of rounding:
 the CPU path, and the yardstick the kernel is held to on the GPU.  The
 wrappers take it for a CPU tensor, and launch ``csrc/flash_attention.cu`` for
@@ -24,6 +28,7 @@ the uniform average of V over its S keys.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -31,10 +36,12 @@ import torch
 from . import _build, launch_counts
 
 NEG = -1e9
-#: keys per step of the flash recurrence (``TK`` in csrc/flash_attention.cu)
+#: keys per step of the flash recurrence (``TK`` in csrc/flash_attention.cu
+#: and the 64-key tiles of csrc/attention_tile.cuh; rows of S <= 32 take one
+#: 32-key tile, the same single step)
 K_TILE = 64
-#: longest row the one-shot kernel takes: its query tile keeps every score
-#: of its rows in shared memory
+#: longest row the one-shot kernel takes: in f32 its query tile keeps every
+#: score of its rows in shared memory (the bf16 kernel keeps none)
 MAX_ONESHOT_S = 2048
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -126,6 +133,26 @@ def _launch(entry: str, count: str, q, k, v, attention_mask) -> torch.Tensor:
     _build.check(err, f"{count} launch")
     launch_counts[count] += 1
     return out
+
+
+def kernel_info(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                oneshot: bool) -> dict:
+    """What B6 (or B7, with ``oneshot``) would launch on these CUDA inputs,
+    as the CUDA runtime reports the instantiation: registers per thread,
+    shared bytes per block, threads per block, blocks resident per SM and
+    local (spill) bytes per thread.  Launches nothing."""
+    if q.device.type != "cuda":
+        raise ValueError(f"kernel_info needs CUDA tensors, got {q.device}")
+    B, S, H, Dh = q.shape
+    sb, ss, sh, _ = q.stride()
+    info = (ctypes.c_int * 5)()
+    with torch.cuda.device(q.device):
+        err = _build.library().ac_flash_attention_info(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), B, S, H, Dh, sb, ss, sh,
+            _DTYPE_CODES[q.dtype], int(oneshot), info)
+    _build.check(err, "flash_attention_info")
+    return dict(zip(("registers", "shared_bytes", "threads", "blocks_per_sm",
+                     "local_bytes"), info))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -19,9 +19,10 @@ Phases, each of which must pass:
    (B3) and the post-attention body (B8) to per-row cosine >= 0.9999 and
    max abs error <= 0.05 in f32, all to cosine > 0.999 in bf16; flash
    attention (B6) at S 32 to 2,048 and one-shot attention (B7) at S 32 to
-   512, H 8 and 12, with ragged masks and a fully masked row, to B1's
-   tolerances; the fused add + LayerNorm (B10) at M 8,192, 32,768 and
-   1,000, D 512, to 1e-5 in f32 and one bf16 step in bf16;
+   512, H 8 and 12, and both in bf16 at S 17 and at Dh 128, with ragged
+   masks and a fully masked row, to B1's tolerances; the fused add +
+   LayerNorm (B10) at M 8,192, 32,768 and 1,000, D 512, to 1e-5 in f32
+   and one bf16 step in bf16;
 4. serves saved zoo classifiers on the full-width encoder
    (checkpoints/ac-base-v2: BERT, 8 layers, hidden 512, 8 heads):
    ``predict_batch`` on each task's test rows, with launch counts (B1 once
@@ -62,7 +63,11 @@ Phases, each of which must pass:
    takes add_examples and answers predict_batch (random weights: launch
    counts and answers gated, accuracy reported);
 3b. times every kernel, its plain version and the nearest single PyTorch
-   call at the shapes the main path gave it, on the main path's inputs;
+   call at the shapes the main path gave it, on the main path's inputs, as
+   device time (the stream held until the host has queued every timed
+   call); B6 and B7 also at bert-base [32, 512], with their achieved
+   TFLOP/s, the bound's share of their time and the registers, shared
+   bytes and blocks per SM of the instantiation that ran;
 5. prints the ``kernels`` JSON line, then as its last line
    ``{"ok": true, "device": {...}}``.
 
@@ -140,9 +145,21 @@ def compare(got: torch.Tensor, want: torch.Tensor, dtype) -> dict:
     return {"max_abs_err": err, "cosine": cos, "finite": finite, "ok": ok}
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, queue_ahead: bool = False) -> float:
+    """Milliseconds per call of ``fn`` between two CUDA events.  With
+    ``queue_ahead`` the stream is first held by a GPU sleep long enough for
+    the host to enqueue all ``iters`` calls, so the interval is the device's
+    time for them and not the host's launch pace (a kernel wrapper's Python
+    costs tens of microseconds a call, more than a short kernel runs)."""
     for _ in range(warmup):
         fn()
+    if queue_ahead:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2e9 * (0.002 + 2 * iters * host_s)))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -151,6 +168,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, iters: int = 20) -> float:
+    """Device time per call of one kernel (or of the plain version or library
+    call beside it), the queue filled ahead: phase 3b's timer."""
+    return cuda_ms(fn, iters=iters, queue_ahead=True)
 
 
 def attention_bound(B, S, H, Dh, dtype):
@@ -225,10 +248,10 @@ def time_attention(shapes) -> list:
                    for j in range(3))
         bias = torch.where(mask > 0, 0.0, -1e9).to(dtype)[:, None, None, :]
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        ms = cuda_ms(lambda: attention_from_qkv(qkv, mask, H, Dh))
-        plain_ms = cuda_ms(lambda: attention_from_qkv_ref(qkv, mask, H, Dh), iters=5)
-        library_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=bias))
-        ms_again = cuda_ms(lambda: attention_from_qkv(qkv, mask, H, Dh))
+        ms = kernel_ms(lambda: attention_from_qkv(qkv, mask, H, Dh))
+        plain_ms = kernel_ms(lambda: attention_from_qkv_ref(qkv, mask, H, Dh), iters=5)
+        library_ms = kernel_ms(lambda: sdpa(q, k, v, attn_mask=bias))
+        ms_again = kernel_ms(lambda: attention_from_qkv(qkv, mask, H, Dh))
         bound_ms, bound_by = attention_bound(B, S, H, Dh, dtype)
         row = {"task": task, "shape": [B, S, 3 * D], "dtype": str(dtype),
                "valid_keys": int(mask.sum().item()),
@@ -254,23 +277,26 @@ FLASH_TOLERANCE = ("f32: max abs err <= 1e-4 (TF32 off); bf16: max abs err <= 0.
 
 def check_flash() -> dict:
     """B6 at S in {32, 128, 512, 1024, 2048} and B7 at S in {32, 128, 512},
-    H 8 and 12, Dh 64, f32 and bf16, ragged masks with batch row 1 fully
-    masked, against their plain versions; raises on any disagreement."""
+    H 8 and 12, Dh 64, f32 and bf16; then both in bf16 at S 17 (a row that
+    is no multiple of the tensor-core tiles) and at Dh 128; ragged masks
+    with batch row 1 fully masked, against their plain versions; raises on
+    any disagreement."""
     from adaptive_classifier_tpu_torch.ops import flash_attention as fa
 
     out = {"flash_attention": [], "oneshot_attention": []}
     batch = {32: 16, 128: 8, 512: 4, 1024: 2, 2048: 2}
-    cases = [(name, S, H, dtype) for name in out for S in batch for H in (8, 12)
-             for dtype in (torch.float32, torch.bfloat16)
+    cases = [(name, batch[S], S, H, 64, dtype) for name in out for S in batch
+             for H in (8, 12) for dtype in (torch.float32, torch.bfloat16)
              if name == "flash_attention" or S <= 512]
-    for i, (name, S, H, dtype) in enumerate(cases):
-        B, Dh = batch[S], 64
+    cases += [(name, B, S, H, Dh, torch.bfloat16) for name in out
+              for B, S, H, Dh in ((16, 17, 8, 64), (4, 200, 4, 128))]
+    for i, (name, B, S, H, Dh, dtype) in enumerate(cases):
         qkv, mask = qkv_inputs(200 + i, dtype, B, S, H, Dh, masked_rows=(1,))
         q, k, v = head_views(qkv, H, Dh)
         got = getattr(fa, name)(q, k, v, mask)
         want = getattr(fa, name + "_ref")(q, k, v, mask)
         torch.cuda.synchronize()
-        res = {"case": f"{str(dtype).split('.')[-1]} B={B} S={S} H={H}",
+        res = {"case": f"{str(dtype).split('.')[-1]} B={B} S={S} H={H} Dh={Dh}",
                **compare(got, want, dtype)}
         uni = v[1].float().mean(dim=0)
         res["uniform_err"] = (got[1].float() - uni).abs().max().item()
@@ -359,7 +385,12 @@ def sdpa_backend(q, k, v, bias) -> str:
 
 def time_flash(shapes: dict) -> dict:
     """B6 and B7, their plain versions and SDPA with the additive mask, at
-    the main path's shapes (random q, k, v on the run's token masks)."""
+    the main path's shapes (random q, k, v on the run's token masks).  Each
+    row adds the achieved rate (the function's 4·B·H·S²·Dh operations over
+    the kernel's time), the bound's share of the time, and the launched
+    instantiation's registers per thread, shared bytes per block and blocks
+    per SM, as the CUDA runtime reports them (the registers are ptxas'
+    figure in phase 2's report)."""
     from adaptive_classifier_tpu_torch.ops import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -372,7 +403,7 @@ def time_flash(shapes: dict) -> dict:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         bias = torch.where(mask > 0, 0.0, -1e9).to(dtype)[:, None, None, :]
         backend = sdpa_backend(qt, kt, vt, bias)
-        library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=bias))
+        library_ms = kernel_ms(lambda: sdpa(qt, kt, vt, attn_mask=bias))
         bound_ms, bound_by = attention_bound(B, S, H, Dh, dtype)
         for name in rows:
             kernel = getattr(fa, name)
@@ -383,13 +414,16 @@ def time_flash(shapes: dict) -> dict:
             row = {"where": where, "shape": [B, S, H, Dh], "dtype": str(dtype),
                    "valid_keys": int(mask.sum().item()),
                    "max_abs_err": res["max_abs_err"], "cosine": res["cosine"],
-                   "ms": cuda_ms(lambda: kernel(q, k, v, mask)),
-                   "plain_ms": cuda_ms(lambda: plain(q, k, v, mask), iters=5),
+                   "ms": kernel_ms(lambda: kernel(q, k, v, mask)),
+                   "plain_ms": kernel_ms(lambda: plain(q, k, v, mask), iters=5),
                    "library_ms": library_ms,
                    "library_call": f"F.scaled_dot_product_attention, additive mask "
                                    f"({backend})",
                    "bound_ms": bound_ms, "bound_by": bound_by}
-            row["ms_repeat"] = cuda_ms(lambda: kernel(q, k, v, mask))
+            row["ms_repeat"] = kernel_ms(lambda: kernel(q, k, v, mask))
+            row["tflops"] = 4 * B * H * S * S * Dh / (row["ms"] * 1e-3) / 1e12
+            row["bound_share"] = bound_ms / row["ms"]
+            row["instantiation"] = fa.kernel_info(q, k, v, name == "oneshot_attention")
             log(f"  time {name} {json.dumps(row)}")
             rows[name].append(row)
     return rows
@@ -419,14 +453,14 @@ def time_layernorm(chunks: dict) -> list:
             raise AssertionError(f"add_layer_norm disagrees at {where}'s shape: {res}")
         row = {"where": where, "M": M, "D": 512, "dtype": "bfloat16",
                "max_abs_err": res["max_abs_err"],
-               "ms": cuda_ms(lambda: ln.add_layer_norm(x, r, scale, bias, 1e-12)),
-               "plain_ms": cuda_ms(lambda: ln.add_layer_norm_ref(x, r, scale, bias,
+               "ms": kernel_ms(lambda: ln.add_layer_norm(x, r, scale, bias, 1e-12)),
+               "plain_ms": kernel_ms(lambda: ln.add_layer_norm_ref(x, r, scale, bias,
                                                                  1e-12)),
-               "library_ms": cuda_ms(lambda: torch.nn.functional.layer_norm(
+               "library_ms": kernel_ms(lambda: torch.nn.functional.layer_norm(
                    x + r, (512,), scale.to(x.dtype), bias.to(x.dtype), 1e-12)),
                "library_call": "F.layer_norm(x + r): two calls (the add, then the "
                                "norm; bf16 scale and bias)"}
-        row["ms_repeat"] = cuda_ms(lambda: ln.add_layer_norm(x, r, scale, bias, 1e-12))
+        row["ms_repeat"] = kernel_ms(lambda: ln.add_layer_norm(x, r, scale, bias, 1e-12))
         row["bound_ms"], row["bound_by"] = ln_bound(M, 512, torch.bfloat16)
         log(f"  time add_layer_norm {json.dumps(row)}")
         rows.append(row)
@@ -572,10 +606,10 @@ def time_knn(shapes: dict) -> dict:
         C = p.shape[0]
         err = (knn.masked_sims_cuda(q, p, v) - knn.masked_sims_ref(q, p, v)).abs().max().item()
         row = {"shape": name, "B": B, "C": C, "D": D, "max_abs_err": err,
-               "ms": cuda_ms(lambda: knn.masked_sims_cuda(q, p, v)),
-               "plain_ms": cuda_ms(lambda: knn.masked_sims_ref(q, p, v)),
+               "ms": kernel_ms(lambda: knn.masked_sims_cuda(q, p, v)),
+               "plain_ms": kernel_ms(lambda: knn.masked_sims_ref(q, p, v)),
                # nearest single call: returns d, not exp(-d²)
-               "library_ms": cuda_ms(lambda: torch.cdist(q, p)),
+               "library_ms": kernel_ms(lambda: torch.cdist(q, p)),
                "library_call": "torch.cdist"}
         row["bound_ms"], row["bound_by"] = knn_bound(B, C, D)
         log(f"  time knn_sims {json.dumps(row)}")
@@ -588,8 +622,8 @@ def time_knn(shapes: dict) -> dict:
         row = {"shape": name, "B": B, "C": C, "D": D, "k": k,
                "max_abs_err": (vals - want_v).abs().max().item(),
                "same_idx_share": (idx == want_i).float().mean().item(),
-               "ms": cuda_ms(lambda: knn_topk.topk_sims_cuda(q, p, v, k, bias=b)),
-               "plain_ms": cuda_ms(lambda: knn_topk.topk_sims_ref(q, p, v, k, bias=b)),
+               "ms": kernel_ms(lambda: knn_topk.topk_sims_cuda(q, p, v, k, bias=b)),
+               "plain_ms": kernel_ms(lambda: knn_topk.topk_sims_ref(q, p, v, k, bias=b)),
                "library_ms": None}
         row["bound_ms"], row["bound_by"] = knn_bound(B, C, D, k)
         log(f"  time knn_topk {json.dumps(row)}")
@@ -757,11 +791,11 @@ def time_int8(chunks: dict) -> dict:
                 raise AssertionError(f"{name} disagrees at {task}'s shape: {res}")
             row = {"task": task, "M": M, "D": D, "F": F, "dtype": "bfloat16",
                    "max_abs_err": res["max_abs_err"], "cosine": res["cosine"],
-                   "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain, iters=5),
-                   "library_ms": cuda_ms(library),
+                   "ms": kernel_ms(kernel), "plain_ms": kernel_ms(plain, iters=5),
+                   "library_ms": kernel_ms(library),
                    "library_call": "torch._int_mm on the quantized operands "
                                    "(the int8 products alone)"}
-            row["ms_repeat"] = cuda_ms(kernel)
+            row["ms_repeat"] = kernel_ms(kernel)
             row["bound_ms"], row["bound_by"] = int8_bound(name, M, torch.bfloat16, D, F)
             log(f"  time {name} {json.dumps(row)}")
             rows[name].append(row)
@@ -1667,6 +1701,8 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library_call": row["library_call"], "shape": row["shape"],
+            "tflops": row["tflops"], "bound_share": row["bound_share"],
+            "instantiation": row["instantiation"],
             "tolerance": FLASH_TOLERANCE, "per_shape": flash_times[name],
         })
     row = ln_times[0]
@@ -1698,6 +1734,11 @@ def main() -> int:
         {t: {"fused": r["encoder_forward_ms_fused_ln"],
              "plain": r["encoder_forward_ms_plain_ln"],
              "fused_faster": r["fused_faster"]} for t, r in fused_ln.items()}))
+    log(f"  B6/B7 ms, TFLOP/s, bound share, registers, blocks/SM " + json.dumps(
+        {f"{name} {r['where']}": [r["ms"], r["tflops"], r["bound_share"],
+                                  r["instantiation"]["registers"],
+                                  r["instantiation"]["blocks_per_sm"]]
+         for name, rows in flash_times.items() for r in rows}))
     log(f"  bert-base A/B ms per batch " + json.dumps(
         {f"{r['path']} S={r['S']} {r['impl']}": r["ms_per_batch"] for r in bert["rows"]}))
     log(f"  phase 6i resolved {json.dumps(build_int8['resolved'])} zoo "

@@ -502,6 +502,84 @@ def test_flash_kernels_fully_masked_row(cuda, kernel, dtype):
     torch.testing.assert_close(got[1], uniform.expand(100, -1, -1), atol=atol, rtol=0)
 
 
+def _padded_heads(dev, seed, B, S, H, Dh, extra):
+    """As ``_heads`` in bf16, with ``extra`` unused columns after each packed
+    row, so an odd ``extra`` leaves the rows off 16 bytes."""
+    qkv, mask = _inputs(dev, seed, torch.bfloat16, B, S, H, Dh)
+    D = H * Dh
+    if extra:
+        wide = torch.zeros((B, S, 3 * D + extra), dtype=qkv.dtype, device=dev)
+        wide[..., :3 * D] = qkv
+        qkv = wide[..., :3 * D]
+    return [qkv[..., j * D:(j + 1) * D].unflatten(-1, (H, Dh)) for j in range(3)], mask
+
+
+# the bf16 tensor-core tile loop at its edges: rows that are not a multiple
+# of 16 or 64 keys, Dh 20 (rows off 16 bytes: staged element by element),
+# 24 and 32 (the 32-wide tiles), 40 (zero-padded to 64), 100 (off 16 bytes,
+# 128-wide) and 128 at short and long rows, an odd row stride at Dh 64 at
+# short and long rows, B7 at its longest row
+_TILE_EDGES = [(3, 1, 4, 64, 0), (3, 17, 4, 64, 0), (3, 33, 4, 64, 0), (3, 65, 4, 64, 0),
+               (2, 100, 3, 20, 0), (3, 20, 4, 32, 0), (2, 50, 2, 24, 0),
+               (2, 100, 3, 40, 0), (2, 70, 2, 100, 0), (2, 30, 2, 128, 0),
+               (2, 300, 2, 128, 0), (3, 25, 4, 64, 1), (2, 100, 4, 64, 1),
+               (1, 2048, 4, 64, 0)]
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "oneshot_attention"])
+@pytest.mark.parametrize("B,S,H,Dh,extra", _TILE_EDGES)
+def test_tensor_core_tile_edges(cuda, kernel, B, S, H, Dh, extra):
+    from adaptive_classifier_tpu_torch.ops import flash_attention as fa
+
+    (q, k, v), mask = _padded_heads(cuda, 9, B, S, H, Dh, extra)
+    port.reset_launch_counts()
+    got = getattr(fa, kernel)(q, k, v, mask)
+    want = getattr(fa, kernel + "_ref")(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert port.launch_counts[kernel] == 1
+    assert got.shape == (B, S, H, Dh) and got.dtype == torch.bfloat16
+    _assert_attention_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "oneshot_attention"])
+def test_flash_kernels_fully_masked_short_row(cuda, kernel):
+    from adaptive_classifier_tpu_torch.ops import flash_attention as fa
+
+    (q, k, v), mask = _heads(cuda, 10, torch.bfloat16, 3, 17, 4, 64, masked_row=2)
+    got = getattr(fa, kernel)(q, k, v, mask).float()
+    uniform = v[2].float().mean(dim=0)
+    torch.testing.assert_close(got[2], uniform.expand(17, -1, -1), atol=0.05, rtol=0)
+    _assert_attention_close(got, getattr(fa, kernel + "_ref")(q, k, v, mask),
+                            torch.bfloat16)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "oneshot_attention"])
+def test_flash_kernels_are_deterministic(cuda, kernel):
+    """No atomics and a fixed order of sums: two launches agree bit for bit."""
+    from adaptive_classifier_tpu_torch.ops import flash_attention as fa
+
+    (q, k, v), mask = _heads(cuda, 11, torch.bfloat16, 4, 512, 12, 64)
+    first = getattr(fa, kernel)(q, k, v, mask)
+    second = getattr(fa, kernel)(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("oneshot", [False, True])
+def test_tensor_core_instantiation_fits_four_blocks(cuda, oneshot):
+    """At the main path's shape (bf16, Dh 64) a block is 4 warps with 45.5 KB
+    of shared memory (Q, a two-slot K/V ring, the key biases) and at most
+    128 registers a thread, unspilled: four blocks share an SM."""
+    from adaptive_classifier_tpu_torch.ops import flash_attention as fa
+
+    (q, k, v), _ = _heads(cuda, 12, torch.bfloat16, 2, 128, 8, 64)
+    info = fa.kernel_info(q, k, v, oneshot)
+    assert info["threads"] == 128
+    assert info["shared_bytes"] == 2 * (64 * 72 + 2 * 2 * 64 * 72) + 4 * 2 * 64
+    assert info["registers"] <= 128 and info["local_bytes"] == 0
+    assert info["blocks_per_sm"] >= 4
+
+
 def test_flash_kernels_refuse_what_they_do_not_take(cuda):
     from adaptive_classifier_tpu_torch.ops import flash_attention as fa
 

@@ -1,6 +1,7 @@
-"""The port and chip_smoke.py stand alone: they import torch, numpy and the
-standard library, nothing of JAX, of the JAX package, or of the packages a
-GPU machine may lack; and chip_smoke.py fails cleanly without a GPU."""
+"""The port, chip_smoke.py and scripts/torch_time_attention.py stand alone:
+they import torch, numpy and the standard library, nothing of JAX, of the
+JAX package, or of the packages a GPU machine may lack; and chip_smoke.py
+fails cleanly without a GPU."""
 
 import ast
 import json
@@ -50,7 +51,8 @@ def test_port_imports_without_jax():
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "scripts" / "torch_time_attention.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
@@ -100,17 +102,23 @@ def test_cuda_sources_are_packaged_and_bound():
                                   "oneshot_attention", "add_layer_norm", "knn_sims",
                                   "knn_topk", "matmul_int8", "ffn_int8",
                                   "proj_residual_ln_int8", "attn_ffn_int8"}
-    # the kernels call no library (cuBLAS, CUTLASS) and no float tensor-core
-    # path (TF32 would move exp(-d²) by ~1e-3); the int8 kernels' tensor-core
-    # product (mma ... s8.s8.s32) is exact, and the only mma they issue
+    # the kernels call no library (cuBLAS, CUTLASS) and no f32 tensor-core
+    # path (TF32 would move exp(-d²) by ~1e-3).  They issue two exact
+    # tensor-core products: int8 x int8 -> int32 in the int8 kernels, and
+    # bf16 x bf16 with f32 accumulation in the bf16 attention tile loop
     code = re.sub(r"//[^\n]*", "", text).lower()
     for word in ("cublas", "cutlass", "tf32", "wmma"):
         assert word not in code, word
-    mmas = re.findall(r"mma\.sync\.[a-z0-9.]+", code)
-    assert mmas and set(mmas) == {"mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32"}
+    int8_mma = "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32"
+    bf16_mma = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
+    assert set(re.findall(r"mma\.sync\.[a-z0-9.]+", code)) == {int8_mma, bf16_mma}
     for src in sources:
-        if "int8" not in src.name:
-            assert "mma" not in re.sub(r"//[^\n]*", "", src.read_text()).lower(), src.name
+        body = re.sub(r"//[^\n]*", "", src.read_text()).lower()
+        allowed = ({int8_mma} if "int8" in src.name else
+                   {bf16_mma} if src.name == "attention_tile.cuh" else set())
+        assert set(re.findall(r"mma\.sync\.[a-z0-9.]+", body)) <= allowed, src.name
+        if not allowed:
+            assert "mma" not in body, src.name
 
 
 def _run_smoke(cwd, block_jax=True, timeout=300):
