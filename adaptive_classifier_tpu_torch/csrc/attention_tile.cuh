@@ -1,7 +1,7 @@
-// The bf16 tensor-core tile loop of the attention kernels (B6 and B7 in
-// flash_attention.cu), written so the packed-QKV kernel (B1) can take it
-// over: each warp owns 16 query rows, and a block of NW warps streams
-// TK-key tiles of K and V past its 16 * NW query rows.
+// The bf16 tensor-core tile loop of the attention kernels: B6 and B7 in
+// flash_attention.cu, B1 in attention_qkv.cu.  Each warp owns 16 query rows,
+// and a block of NW warps streams TK-key tiles of K and V past its 16 * NW
+// query rows.
 //
 // - Products: mma.sync.m16n8k16 bf16 x bf16 -> f32 for Q K^T and for P V.
 //   A bf16 product is exact in f32, so the only differences from a plain
@@ -34,6 +34,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace ac_attn {
 
@@ -71,6 +73,11 @@ struct Tile {
   }
 };
 
+// Blocks per SM a kernel's register budget is set for: 512 threads at
+// Dh <= 64 (128 registers a thread), 256 at Dh 128.
+template <class Tl>
+constexpr int kMinBlocks = (Tl::DHP <= 64 ? 512 : 256) / Tl::THREADS;
+
 // Pointers into a block's dynamic shared memory, laid out as smem_bytes counts.
 template <class Tl>
 struct Smem {
@@ -89,28 +96,12 @@ struct Smem {
 // PTX wrappers
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes 0 writes 16 zero bytes
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
+using ac_common::cp_async16;
+using ac_common::cp_async_commit;
+using ac_common::cp_async_wait_all;
+using ac_common::cp_async_wait_pending;
+using ac_common::ldsm_x4;
+using ac_common::smem_addr;
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -355,6 +346,67 @@ __device__ __forceinline__ void store_rows(bf16* Qs, const float o[Tl::NDT][4],
       for (int d = lane; d < Dh; d += 32) orow[d] = rows[r * Tl::LDS + d];
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// the exact row softmax in two passes (B7, and B1 above its one-pass rows)
+// ---------------------------------------------------------------------------
+
+// softmax(s) v for the block's query tile, p = exp(s - m) / max(l, 1e-30)
+// rounded to bf16 before the PV product, with no score block: steps 0 ..
+// nt-1 stage K tile j (pass 1: running max m and rescaled sum l), steps nt
+// .. 2nt-1 K and V tile j - nt (pass 2: the same scores again, normalized,
+// rounded, multiplied by V), through one ring.  q, k, v at their head's
+// offset, rows ss elements apart; out [B, S, H, Dh].
+template <class Tl, bool ALIGNED>
+__device__ __forceinline__ void two_pass_rows(const bf16* __restrict__ q,
+                                              const bf16* __restrict__ k,
+                                              const bf16* __restrict__ v,
+                                              const int* __restrict__ mrow,
+                                              bf16* __restrict__ out, int b, int h, int S,
+                                              int H, int Dh, long long ss, float scale2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Smem<Tl> sm(smem_raw);
+  const int q0 = blockIdx.x * Tl::TQ;
+  const int nt = (S + Tl::TK - 1) / Tl::TK;
+
+  auto stage = [&](int i, int slot) {
+    const int k0 = (i < nt ? i : i - nt) * Tl::TK;
+    stage_rows<Tl, ALIGNED>(sm.k(slot), k, ss, k0, Tl::TK, S, Dh);
+    if (i >= nt) stage_rows<Tl, ALIGNED>(sm.v(slot), v, ss, k0, Tl::TK, S, Dh);
+    stage_bias<Tl>(sm.b(slot), mrow, k0, S);
+  };
+  zero_pad_cols<Tl>(sm.q, Tl::SMEM_ROWS, Dh);
+  stage_rows<Tl, ALIGNED>(sm.q, q, ss, q0, Tl::TQ, S, Dh);
+  stage(0, 0);
+  cp_async_commit();
+
+  uint32_t qf[Tl::DHP / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2] = {1.f, 1.f};
+  float o[Tl::NDT][4];
+  #pragma unroll
+  for (int n = 0; n < Tl::NDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  ring_loop(2 * nt, stage, [&](int i, int slot) {
+    if (i == 0) load_q<Tl>(sm.q, qf);
+    float sc[Tl::NKT][4];
+    tile_scores<Tl>(qf, sm.k(slot), sm.b(slot), scale2, sc);
+    if (i < nt) {
+      float corr[2];
+      online_softmax<Tl>(sc, m, l, corr);
+      return;
+    }
+    // p = 2^(s - m) / max(l, 1e-30), as the row's reciprocal times
+    // 2^(s - m), rounded to bf16 in tile_pv
+    if (i == nt) inv_l[0] = 1.f / fmaxf(l[0], 1e-30f), inv_l[1] = 1.f / fmaxf(l[1], 1e-30f);
+    #pragma unroll
+    for (int n = 0; n < Tl::NKT; ++n)
+      #pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[n][e] = exp2_approx(sc[n][e] - m[e >> 1]) * inv_l[e >> 1];
+    tile_pv<Tl>(sc, sm.v(slot), o);
+  });
+  store_rows<Tl, ALIGNED>(sm.q, o, out, b, q0, S, H, h, Dh);
 }
 
 }  // namespace ac_attn

@@ -1,22 +1,19 @@
-// Kernels B3 and B8: the int8 FFN block, and the whole post-attention body
-// of an encoder layer, each as one kernel.
+// Kernel B8: the whole post-attention body of an encoder layer as one
+// kernel (B3, the FFN block alone, is ffn_block_int8.cu).
 //
-// B3 replaces the TPU kernel adaptive_classifier_tpu/ops/ffn_int8.py:95
-// `ffn_block_int8` (pallas_call at :124, body `_ffn_kernel` :56):
-//     f   = gelu_tanh(q(h) @ W1 * s_h * s1 + b1)               [M, F] f32
-//     out = LayerNorm(q(f) @ W2 * s_f * s2 + b2 + h)           [M, D], h's type
-// B8 replaces ops/ffn_int8.py:202 `attn_ffn_block_int8` (pallas_call at
-// :245, body `_attn_ffn_kernel` :157): first
+// Replaces the TPU kernel adaptive_classifier_tpu/ops/ffn_int8.py:202
+// `attn_ffn_block_int8` (pallas_call at :245, body `_attn_ffn_kernel` :157):
 //     h   = LayerNorm1(q(ctx) @ Wo * s_c * so + bo + x)        [M, D] f32
-// then B3's body on h and LayerNorm2.  q() is the per-row symmetric int8
-// quantization with scale absmax / 127 (floor 1e-8), every product int8 x
-// int8 -> int32, every epilogue and both LayerNorms in f32.  GELU is the
-// tanh form (ffn_int8.py:46), not the float path's erf.
+//     f   = gelu_tanh(q(h) @ W1 * s_h * s1 + b1)               [M, F] f32
+//     out = LayerNorm2(q(f) @ W2 * s_f * s2 + b2 + h)          [M, D], ctx's type
+// q() is the per-row symmetric int8 quantization with scale absmax / 127
+// (floor 1e-8), every product int8 x int8 -> int32, every epilogue and both
+// LayerNorms in f32.  GELU is the tanh form (ffn_int8.py:46), not the float
+// path's erf.
 //
-// What bounds them on an H100: operations.  At the banking chunk
-// (M = 8,192, D = 512, F = 2,048) B3 does 4*M*D*F = 34.4 GOP, 17.4 us at
-// the 1,979 TOP/s int8 tensor-core peak, against ~18.9 MB of bytes (5.6
-// us); B8 does 2*M*D*(D + 2F) = 38.7 GOP, 19.5 us.
+// What bounds it on an H100: operations.  At the banking chunk (M = 8,192,
+// D = 512, F = 2,048) it does 2*M*D*(D + 2F) = 38.7 GOP, 19.5 us at the
+// 1,979 TOP/s int8 tensor-core peak.
 //
 // The trap: the GELU output's per-row scale needs the row's absolute
 // maximum over all F = 2,048 columns before the second product can start.
@@ -26,23 +23,24 @@
 // so the [M, F] intermediate never reaches device memory, as in the Pallas
 // kernel.  (Design (b), two kernels, would write and read it back: 2*M*F
 // bytes, 33.6 MB at this M, twice the bytes of the whole function.)  The
-// residual rows h live beside it as a [16, D] f32 tile; both products run
-// on mma.sync.m16n8k32 (int8_tile.cuh) with the 8 warps side by side over
-// 64-column tiles, and the second product's epilogue adds the residual in
-// place before one warp per row normalizes.  The 16-row tile is what the
-// f32 GELU tile leaves room for (206 KB of shared memory in all at the
-// zoo's widths, so one block per SM): every block reads both weight
-// matrices (2 MB) from L2, M/16 times in all, and that L2 traffic, with no
-// wgmma or TMA yet, keeps the kernel well above its operation bound.
-// Ragged M is masked in the kernel: no padding to a tile multiple.
+// first LayerNorm's rows h live beside it as a [16, D] f32 tile; every
+// product runs on mma.sync.m16n8k32 (int8_tile.cuh gemm_rows) with the 8
+// warps side by side over 64-column tiles, and the last product's epilogue
+// adds the residual in place before one warp per row normalizes.  The
+// 16-row tile is what the f32 GELU tile leaves room for (206 KB of shared
+// memory in all at the zoo's widths, so one block per SM): every block
+// reads all three weight matrices from L2, M/16 times in all, and that L2
+// traffic, with no wgmma or TMA yet, keeps the kernel well above its
+// operation bound.  Ragged M is masked in the kernel: no padding to a tile
+// multiple.
 //
 // Where the f32 GELU tile does not fit a block (bert-base: D = 768,
-// F = 3,072 needs 293 KB), the kernel runs the first product twice
+// F = 3,072 needs 293 KB), the kernel runs the first FFN product twice
 // instead (TWO_PASS): the first pass keeps only each row's |GELU| maximum,
 // the second recomputes the same values, bit for bit, and quantizes them
 // straight into a [16, F] int8 tile (49 KB at F = 3,072; 145 KB in all).
 // The result is the one-pass kernel's exactly; the cost is the first
-// product's operations and weight reads once more, 1.5x the operations.
+// product's operations and weight reads once more.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -56,16 +54,6 @@ namespace {
 using namespace ac_int8;
 
 constexpr int ROWS = 16;
-
-// 0.5 * x * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3))), in the order
-// of ffn_int8.py:46-53, each step rounded on its own
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float g0 = 0.7978845608028654f;   // float32(sqrt(2 / pi))
-  const float g1 = 0.044715f;
-  const float cube = __fmul_rn(__fmul_rn(__fmul_rn(g1, x), x), x);
-  const float inner = __fmul_rn(g0, __fadd_rn(x, cube));
-  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, tanhf(inner)));
-}
 
 struct Layout {
   int ldh, lda;               // f32 row stride of h, byte stride of xq
@@ -91,9 +79,9 @@ __host__ __device__ inline Layout layout(int D, int F, bool two_pass) {
   return l;
 }
 
-// FUSE_O = false: B3 on h = in0.  FUSE_O = true: B8 on ctx = in0, x = in1.
-// TWO_PASS: the first product twice, no f32 GELU tile (see the top).
-template <typename T, bool FUSE_O, bool TWO_PASS>
+// B8 on ctx = in0, x = in1.  TWO_PASS: the first FFN product twice, no f32
+// GELU tile (see the top).
+template <typename T, bool TWO_PASS>
 __global__ void __launch_bounds__(THREADS)
 ffn_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
            const int8_t* __restrict__ wo, const float* __restrict__ so,
@@ -115,26 +103,19 @@ ffn_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
   int8_t* bs = reinterpret_cast<int8_t*>(smem + l.bs);
   const int m0 = blockIdx.x * ROWS;
 
-  if (FUSE_O) {
-    // h = LN1(q(ctx) @ Wo * s_c * so + bo + x)
-    quant_rows_global<false>(in0, M, D, m0, ROWS, xq, l.lda, xs);
-    gemm_rows<1, 1, 8>(xq, l.lda, wo, D, D, bs,
-        [&](int n0, int row0, int col0, int (&acc)[1][1][4]) {
-          #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = row0 + acc_row(i), c = n0 + col0 + acc_col(i);
-            const float xv = m0 + r < M ? to_f32(in1[(size_t)(m0 + r) * D + c]) : 0.f;
-            hs[r * l.ldh + c] = __fadd_rn(dequant(acc[0][0][i], xs[r], so[c], bo[c]), xv);
-          }
-        });
-    __syncthreads();
-    layer_norm_rows<false, T>(hs, l.ldh, D, ROWS, g1, be1, eps, nullptr, m0, M);
-  } else {
-    for (int e = threadIdx.x; e < ROWS * D; e += THREADS) {
-      const int r = e / D, c = e % D;
-      hs[r * l.ldh + c] = m0 + r < M ? to_f32(in0[(size_t)(m0 + r) * D + c]) : 0.f;
-    }
-  }
+  // h = LN1(q(ctx) @ Wo * s_c * so + bo + x)
+  quant_rows_global<false>(in0, M, D, m0, ROWS, xq, l.lda, xs);
+  gemm_rows<1, 1, 8>(xq, l.lda, wo, D, D, bs,
+      [&](int n0, int row0, int col0, int (&acc)[1][1][4]) {
+        #pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = row0 + acc_row(i), c = n0 + col0 + acc_col(i);
+          const float xv = m0 + r < M ? to_f32(in1[(size_t)(m0 + r) * D + c]) : 0.f;
+          hs[r * l.ldh + c] = __fadd_rn(dequant(acc[0][0][i], xs[r], so[c], bo[c]), xv);
+        }
+      });
+  __syncthreads();
+  layer_norm_rows<false, T>(hs, l.ldh, D, ROWS, g1, be1, eps, nullptr, m0, M);
   __syncthreads();
 
   // f = gelu_tanh(q(h) @ W1 * s_h * s1 + b1), then q(f) in shared memory
@@ -194,7 +175,7 @@ ffn_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
   layer_norm_rows<true>(hs, l.ldh, D, ROWS, g2, be2, eps, out, m0, M);
 }
 
-template <typename T, bool FUSE_O, bool TWO_PASS>
+template <typename T, bool TWO_PASS>
 cudaError_t launch_pass(const void* in0, const void* in1, const int8_t* wo,
                         const float* so, const float* bo, const float* g1,
                         const float* be1, const int8_t* w1, const float* s1,
@@ -202,12 +183,12 @@ cudaError_t launch_pass(const void* in0, const void* in1, const int8_t* wo,
                         const float* b2, const float* g2, const float* be2, float eps,
                         void* out, int M, int D, int F, cudaStream_t stream) {
   const size_t smem = layout(D, F, TWO_PASS).total;
-  cudaError_t err = cudaFuncSetAttribute(ffn_kernel<T, FUSE_O, TWO_PASS>,
+  cudaError_t err = cudaFuncSetAttribute(ffn_kernel<T, TWO_PASS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const int blocks = (M + ROWS - 1) / ROWS;
-  ffn_kernel<T, FUSE_O, TWO_PASS><<<blocks, THREADS, smem, stream>>>(
+  ffn_kernel<T, TWO_PASS><<<blocks, THREADS, smem, stream>>>(
       static_cast<const T*>(in0), static_cast<const T*>(in1), wo, so, bo, g1, be1,
       w1, s1, b1, w2, s2, b2, g2, be2, eps, static_cast<T*>(out), M, D, F);
   return cudaGetLastError();
@@ -215,7 +196,7 @@ cudaError_t launch_pass(const void* in0, const void* in1, const int8_t* wo,
 
 // One pass where its f32 GELU tile fits a block of the current device, else
 // two passes.
-template <typename T, bool FUSE_O>
+template <typename T>
 cudaError_t launch(const void* in0, const void* in1, const int8_t* wo, const float* so,
                    const float* bo, const float* g1, const float* be1,
                    const int8_t* w1, const float* s1, const float* b1,
@@ -228,13 +209,12 @@ cudaError_t launch(const void* in0, const void* in1, const int8_t* wo, const flo
     err = cudaDeviceGetAttribute(&have, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   if (layout(D, F, false).total <= (size_t)have)
-    return launch_pass<T, FUSE_O, false>(in0, in1, wo, so, bo, g1, be1, w1, s1, b1, w2,
+    return launch_pass<T, false>(in0, in1, wo, so, bo, g1, be1, w1, s1, b1, w2,
                                          s2, b2, g2, be2, eps, out, M, D, F, stream);
-  return launch_pass<T, FUSE_O, true>(in0, in1, wo, so, bo, g1, be1, w1, s1, b1, w2,
+  return launch_pass<T, true>(in0, in1, wo, so, bo, g1, be1, w1, s1, b1, w2,
                                       s2, b2, g2, be2, eps, out, M, D, F, stream);
 }
 
-template <bool FUSE_O>
 int dispatch(const void* in0, const void* in1, const void* wo, const void* so,
              const void* bo, const void* g1, const void* be1, const void* w1,
              const void* s1, const void* b1, const void* w2, const void* s2,
@@ -247,12 +227,12 @@ int dispatch(const void* in0, const void* in1, const void* wo, const void* so,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return (int)launch<float, FUSE_O>(in0, in1, i8(wo), f32(so), f32(bo), f32(g1),
+      return (int)launch<float>(in0, in1, i8(wo), f32(so), f32(bo), f32(g1),
                                         f32(be1), i8(w1), f32(s1), f32(b1), i8(w2),
                                         f32(s2), f32(b2), f32(g2), f32(be2), eps, out,
                                         M, D, F, st);
     case 1:
-      return (int)launch<__nv_bfloat16, FUSE_O>(
+      return (int)launch<__nv_bfloat16>(
           in0, in1, i8(wo), f32(so), f32(bo), f32(g1), f32(be1), i8(w1), f32(s1),
           f32(b1), i8(w2), f32(s2), f32(b2), f32(g2), f32(be2), eps, out, M, D, F, st);
     default:
@@ -262,29 +242,18 @@ int dispatch(const void* in0, const void* in1, const void* wo, const void* so,
 
 }  // namespace
 
-// Shared memory a block of either kernel needs at widths D, F, in one pass
-// (two_pass = 0) or two (a launch takes one pass where it fits the card's
-// 227 KB, else two, and fails past that).
+// Shared memory a block needs at widths D, F, in one pass (two_pass = 0)
+// or two (a launch takes one pass where it fits the card's 227 KB, else
+// two, and fails past that).
 extern "C" long long ac_ffn_int8_smem_bytes(int D, int F, int two_pass) {
   return (long long)layout(D, F, two_pass != 0).total;
 }
 
-// B3.  dtype: 0 = float32, 1 = bfloat16 (of h and out).  h, out [M, D];
-// w1 [D, F], w2 [F, D] int8; s1, b1 [F], s2, b2, g, beta [D] f32; all
-// contiguous on the current device; D % 128 == 0, F % 128 == 0.  Returns
-// the launch's cudaError_t.
-extern "C" int ac_ffn_block_int8(const void* h, const void* w1, const void* s1,
-                                 const void* b1, const void* w2, const void* s2,
-                                 const void* b2, const void* g, const void* beta,
-                                 float eps, void* out, int M, int D, int F, int dtype,
-                                 void* stream) {
-  return dispatch<false>(h, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, w1,
-                         s1, b1, w2, s2, b2, g, beta, eps, out, M, D, F, dtype, stream);
-}
-
 // B8.  ctx, x, out [M, D] of dtype; wo [D, D] int8 with so, bo [D]; g1, be1
-// [D] (LayerNorm after attention); w1, s1, b1, w2, s2, b2 as B3; g2, be2
-// [D] (LayerNorm after the FFN).  Returns the launch's cudaError_t.
+// [D] (LayerNorm after attention); w1 [D, F], w2 [F, D] int8 with s1, b1
+// [F] and s2, b2 [D]; g2, be2 [D] (LayerNorm after the FFN); all contiguous
+// on the current device; D % 128 == 0, F % 128 == 0.  Returns the launch's
+// cudaError_t.
 extern "C" int ac_attn_ffn_block_int8(const void* ctx, const void* x, const void* wo,
                                       const void* so, const void* bo, const void* g1,
                                       const void* be1, const void* w1, const void* s1,
@@ -292,6 +261,6 @@ extern "C" int ac_attn_ffn_block_int8(const void* ctx, const void* x, const void
                                       const void* b2, const void* g2, const void* be2,
                                       float eps, void* out, int M, int D, int F,
                                       int dtype, void* stream) {
-  return dispatch<true>(ctx, x, wo, so, bo, g1, be1, w1, s1, b1, w2, s2, b2, g2, be2,
+  return dispatch(ctx, x, wo, so, bo, g1, be1, w1, s1, b1, w2, s2, b2, g2, be2,
                         eps, out, M, D, F, dtype, stream);
 }

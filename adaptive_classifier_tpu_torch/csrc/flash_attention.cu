@@ -349,11 +349,7 @@ oneshot_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 // ---------------------------------------------------------------------------
 
 using ac_attn::bf16;
-
-// blocks per SM the register budget is set for: 512 threads at Dh <= 64
-// (128 registers a thread), 256 at Dh 128
-template <class Tl>
-constexpr int kMinBlocks = (Tl::DHP <= 64 ? 512 : 256) / Tl::THREADS;
+using ac_attn::kMinBlocks;
 
 // B6, bf16
 template <class Tl, bool ALIGNED>
@@ -405,59 +401,17 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   ac_attn::store_rows<Tl, ALIGNED>(sm.q, o, out, b, q0, S, H, h, Dh);
 }
 
-// B7, bf16: steps 0 .. nt-1 stage K tile j (pass 1), steps nt .. 2nt-1 K
-// and V tile j - nt (pass 2), through the same ring.
+// B7, bf16: the two-pass body of attention_tile.cuh
 template <class Tl, bool ALIGNED>
 __global__ void __launch_bounds__(Tl::THREADS, kMinBlocks<Tl>)
 oneshot_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const int* __restrict__ mask,
                   bf16* __restrict__ out, int S, int H, int Dh, long long sb, long long ss,
                   long long sh, float scale2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const ac_attn::Smem<Tl> sm(smem_raw);
-  const int q0 = blockIdx.x * Tl::TQ, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y, b = blockIdx.z;
   const long long off = (long long)b * sb + (long long)h * sh;
-  const int* mrow = mask + (long long)b * S;
-  const int nt = (S + Tl::TK - 1) / Tl::TK;
-
-  auto stage = [&](int i, int slot) {
-    const int k0 = (i < nt ? i : i - nt) * Tl::TK;
-    ac_attn::stage_rows<Tl, ALIGNED>(sm.k(slot), k + off, ss, k0, Tl::TK, S, Dh);
-    if (i >= nt)
-      ac_attn::stage_rows<Tl, ALIGNED>(sm.v(slot), v + off, ss, k0, Tl::TK, S, Dh);
-    ac_attn::stage_bias<Tl>(sm.b(slot), mrow, k0, S);
-  };
-  ac_attn::zero_pad_cols<Tl>(sm.q, Tl::SMEM_ROWS, Dh);
-  ac_attn::stage_rows<Tl, ALIGNED>(sm.q, q + off, ss, q0, Tl::TQ, S, Dh);
-  stage(0, 0);
-  ac_attn::cp_async_commit();
-
-  uint32_t qf[Tl::DHP / 16][4];
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2] = {1.f, 1.f};
-  float o[Tl::NDT][4];
-  #pragma unroll
-  for (int n = 0; n < Tl::NDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  ac_attn::ring_loop(2 * nt, stage, [&](int i, int slot) {
-    if (i == 0) ac_attn::load_q<Tl>(sm.q, qf);
-    float sc[Tl::NKT][4];
-    ac_attn::tile_scores<Tl>(qf, sm.k(slot), sm.b(slot), scale2, sc);
-    if (i < nt) {
-      float corr[2];
-      ac_attn::online_softmax<Tl>(sc, m, l, corr);
-      return;
-    }
-    // p = 2^(s - m) / max(l, 1e-30), as the row's reciprocal times
-    // 2^(s - m), rounded to bf16 in tile_pv
-    if (i == nt) inv_l[0] = 1.f / fmaxf(l[0], 1e-30f), inv_l[1] = 1.f / fmaxf(l[1], 1e-30f);
-    #pragma unroll
-    for (int n = 0; n < Tl::NKT; ++n)
-      #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sc[n][e] = ac_attn::exp2_approx(sc[n][e] - m[e >> 1]) * inv_l[e >> 1];
-    ac_attn::tile_pv<Tl>(sc, sm.v(slot), o);
-  });
-  ac_attn::store_rows<Tl, ALIGNED>(sm.q, o, out, b, q0, S, H, h, Dh);
+  ac_attn::two_pass_rows<Tl, ALIGNED>(q + off, k + off, v + off, mask + (long long)b * S,
+                                      out, b, h, S, H, Dh, ss, scale2);
 }
 
 // ---------------------------------------------------------------------------
@@ -474,24 +428,7 @@ struct Args {
   int* info;        // set: report the instantiation instead of launching
 };
 
-// info: registers per thread, shared bytes per block (dynamic + static),
-// threads per block, blocks resident per SM, local (spill) bytes per thread
-template <typename Kernel>
-cudaError_t kernel_info(Kernel* kernel, size_t smem, int threads, int* info) {
-  cudaFuncAttributes at;
-  cudaError_t err = cudaFuncGetAttributes(&at, kernel);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
-  info[0] = at.numRegs;
-  info[1] = (int)(smem + at.sharedSizeBytes);
-  info[2] = threads;
-  info[3] = blocks;
-  info[4] = (int)at.localSizeBytes;
-  return err;
-}
+using ac_common::kernel_info;
 
 template <typename T, int DHP, int ROWS>
 cudaError_t launch_flash(const Args& a) {

@@ -23,12 +23,22 @@
 // The 16-byte row pad makes the fragment reads conflict-free, and rotating
 // which of its four words a lane stores first makes the staging stores
 // conflict-free too.  The next slice is loaded into registers while the
-// current one is multiplied.
+// current one is multiplied (gemm_rows: B2, B8, B9).
+//
+// B3 reads its weights K-contiguous instead: [N, K] copies made once when
+// the int8 weights reach the device (ops/ffn_int8.py k_contiguous), so a
+// slice is a block of whole 16-byte rows.  ring_gemm copies [NC, KS] slices
+// by 16-byte cp.async into a ring of RING slots, one barrier a slice, and
+// reads both operands by ldmatrix: no register staging, no byte permutes.
+// A slice keeps no row pad: its 16-byte chunks are XOR-swizzled by row, so
+// the eight rows an ldmatrix phase reads fall in eight distinct bank groups.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace ac_int8 {
 
@@ -82,14 +92,24 @@ __device__ __forceinline__ float dequant(int acc, float rs, float cs, float b) {
   return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), rs), cs), b);
 }
 
+// 0.5 * x * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3))), in the order
+// of ffn_int8.py:46-53, each step rounded on its own
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float g0 = 0.7978845608028654f;   // float32(sqrt(2 / pi))
+  const float g1 = 0.044715f;
+  const float cube = __fmul_rn(__fmul_rn(__fmul_rn(g1, x), x), x);
+  const float inner = __fmul_rn(g0, __fadd_rn(x, cube));
+  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, tanhf(inner)));
+}
+
 // Quantize rows [m0, m0 + rows) of a [M, K] row-major global array (rows at
 // or past M become zeros) into q (row stride ldq bytes), scales into sc.
-// One warp per row; K % 128 == 0.
-template <bool MUL_INV, typename T>
+// One warp per row, NW warps; K % 128 == 0.
+template <bool MUL_INV, typename T, int NW = WARPS>
 __device__ void quant_rows_global(const T* __restrict__ x, int M, int K, int m0,
                                   int rows, int8_t* q, int ldq, float* sc) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < rows; r += WARPS) {
+  for (int r = warp; r < rows; r += NW) {
     const int gr = m0 + r;
     const T* row = x + (size_t)gr * K;
     float amax = 0.f;
@@ -312,5 +332,123 @@ __device__ void gemm_rows(const int8_t* a, int lda, const int8_t* __restrict__ w
 // tile's corner.
 __device__ __forceinline__ int acc_row(int i) { return ((threadIdx.x & 31) >> 2) + 8 * (i >> 1); }
 __device__ __forceinline__ int acc_col(int i) { return 2 * (threadIdx.x & 3) + (i & 1); }
+
+// ---------------------------------------------------------------------------
+// ring_gemm: K-contiguous weights through a cp.async ring (B3)
+// ---------------------------------------------------------------------------
+
+// Geometry of one ring_gemm: WM x WN warps, each MT m16 x NT n8 tiles, so a
+// block's product covers ROWS rows and NC columns (a chunk) and steps over
+// KS bytes of the contraction a slice.  A slice [NC][KS] is SLOT bytes.
+template <int WM_, int WN_, int MT_, int NT_, int KS_>
+struct Ring {
+  static constexpr int WM = WM_, WN = WN_, MT = MT_, NT = NT_, KS = KS_;
+  static constexpr int THREADS = 32 * WM * WN;
+  static constexpr int ROWS = 16 * MT * WM;
+  static constexpr int NC = 8 * NT * WN;
+  static constexpr int CPR = KS / 16;          // 16-byte chunks a staged row
+  static constexpr int SLOT = NC * KS;
+  static_assert(KS % 32 == 0 && KS <= 128, "slices are whole m16n8k32 steps");
+};
+
+// Byte offset of chunk c of row r of a swizzled slice: chunk c ^ (the row's
+// group), so the eight rows an ldmatrix phase reads (any eight consecutive
+// rows, one chunk column) fall in eight distinct 16-byte bank groups.
+template <int CPR>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * CPR * 16 + 16 * (c ^ ((r * CPR / 8) % CPR));
+}
+
+// Rows n0 .. n0 + NC of wt [N][K], bytes k0 .. k0 + KS of each, into a
+// ring slot; rows at or past N become zeros.  The caller commits.
+template <class G>
+__device__ __forceinline__ void stage_slice(int8_t* slot, const int8_t* __restrict__ wt,
+                                            int K, int N, int n0, int k0) {
+  for (int i = threadIdx.x; i < G::NC * G::CPR; i += G::THREADS) {
+    const int r = i / G::CPR, c = i % G::CPR, n = n0 + r;
+    ac_common::cp_async16(slot + swz<G::CPR>(r, c),
+                          wt + (size_t)(n < N ? n : 0) * K + k0 + 16 * c, n < N ? 16 : 0);
+  }
+}
+
+// C = A x W over all N columns, a chunk of NC columns at a time: A int8
+// [G::ROWS][lda] in shared memory (K contiguous; lda % 128 == 16, so its
+// ldmatrix rows are conflict-free), wt the weight's K-contiguous copy [N][K]
+// in device memory.  Slices [NC][KS] go through `ring` (RING * G::SLOT
+// bytes), RING - 1 of them in flight while one is multiplied; one barrier a
+// slice.  After the last slice of a chunk each warp calls epi(n0, row0,
+// col0, acc): acc[m][n][i] is the int32 sum at row row0 + 16m + acc_row(i),
+// column n0 + col0 + 8n + acc_col(i), columns at or past N summed over zero
+// weights.  Begins with a barrier, so a caller that has just written A or
+// finished with the ring need not; K % KS == 0.
+template <class G, int RING, typename Epi>
+__device__ void ring_gemm(const int8_t* a, int lda, const int8_t* __restrict__ wt, int K,
+                          int N, int8_t* ring, Epi epi) {
+  static_assert(RING >= 2 && RING <= 3, "cp_async_wait_pending takes 0 or 1");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = (warp / G::WN) * G::MT * 16;
+  const int col0 = (warp % G::WN) * G::NT * 8;
+  const int kst = K / G::KS;
+  const int steps = (N + G::NC - 1) / G::NC * kst;
+  auto stage = [&](int s) {
+    if (s < steps)
+      stage_slice<G>(ring + (s % RING) * G::SLOT, wt, K, N, s / kst * G::NC,
+                     s % kst * G::KS);
+    ac_common::cp_async_commit();
+  };
+  __syncthreads();
+  #pragma unroll
+  for (int s = 0; s < RING - 1; ++s) stage(s);
+
+  // lane's rows of the ldmatrix phases: A rows (lane & 7) + 8 ((lane >> 3) & 1)
+  // at chunk lane >> 4; B rows (lane & 7) + 8 (lane >> 4) at chunk (lane >> 3) & 1
+  const int8_t* a_lane = a + (row0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * lda
+                         + 16 * (lane >> 4);
+  const int b_row = col0 + (lane & 7) + 8 * (lane >> 4), b_chunk = (lane >> 3) & 1;
+  int acc[G::MT][G::NT][4];
+  for (int s = 0; s < steps; ++s) {
+    ac_common::cp_async_wait_pending(RING - 2);  // slice s has landed
+    __syncthreads();                              // for all; slot s - 1 is free
+    stage(s + RING - 1);
+    const int ks = s % kst;
+    if (ks == 0) {
+      #pragma unroll
+      for (int m = 0; m < G::MT; ++m)
+        #pragma unroll
+        for (int n = 0; n < G::NT; ++n)
+          #pragma unroll
+          for (int i = 0; i < 4; ++i) acc[m][n][i] = 0;
+    }
+    const int8_t* bs = ring + (s % RING) * G::SLOT;
+    #pragma unroll
+    for (int kk = 0; kk < G::CPR; kk += 2) {
+      uint32_t fa[G::MT][4], fb[G::NT][2];
+      #pragma unroll
+      for (int m = 0; m < G::MT; ++m)
+        ac_common::ldsm_x4(fa[m], a_lane + 16 * m * lda + ks * G::KS + 16 * kk);
+      #pragma unroll
+      for (int np = 0; np < G::NT / 2; ++np) {
+        uint32_t r[4];
+        ac_common::ldsm_x4(r, bs + swz<G::CPR>(b_row + 16 * np, kk + b_chunk));
+        fb[2 * np][0] = r[0];
+        fb[2 * np][1] = r[1];
+        fb[2 * np + 1][0] = r[2];
+        fb[2 * np + 1][1] = r[3];
+      }
+      if (G::NT % 2) {                          // the last n8 tile alone
+        uint32_t r[2];
+        ac_common::ldsm_x2(r, bs + swz<G::CPR>(col0 + 8 * (G::NT - 1) + (lane & 7),
+                                               kk + b_chunk));
+        fb[G::NT - 1][0] = r[0];
+        fb[G::NT - 1][1] = r[1];
+      }
+      #pragma unroll
+      for (int m = 0; m < G::MT; ++m)
+        #pragma unroll
+        for (int n = 0; n < G::NT; ++n) mma_s8(acc[m][n], fa[m], fb[n]);
+    }
+    if (ks == kst - 1) epi(s / kst * G::NC, row0, col0, acc);
+  }
+}
 
 }  // namespace ac_int8

@@ -528,7 +528,14 @@ class Encoder:
         self.attn_impl: Optional[str] = None
 
     def _on_device(self, params: Params) -> Params:
-        return {k: v.to(self.device) for k, v in params.items()}
+        """The int8 state on the encoder's device; on a CUDA device with the
+        K-contiguous FFN weights that kernel B3 reads, made once here."""
+        params = {k: v.to(self.device) for k, v in params.items()}
+        if self.device.type == "cuda":
+            from ..ops.ffn_int8 import prepare_ffn_weights
+
+            prepare_ffn_weights(params)
+        return params
 
     @classmethod
     def from_quantized_export(cls, directory: Union[str, Path], model_name: str,

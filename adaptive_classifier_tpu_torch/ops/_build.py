@@ -35,6 +35,7 @@ BUILD_TIMEOUT_S = 300
 _VP, _CI, _CF, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     "ac_attention_qkv": ([_VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _VP], _CI),
+    "ac_attention_qkv_info": ([_VP] + [_CI] * 5 + [_VP], _CI),
     "ac_flash_attention": ([_VP] * 5 + [_CI] * 4 + [_CL] * 3 + [_CI, _VP], _CI),
     "ac_oneshot_attention": ([_VP] * 5 + [_CI] * 4 + [_CL] * 3 + [_CI, _VP], _CI),
     "ac_flash_attention_info": ([_VP] * 3 + [_CI] * 4 + [_CL] * 3 + [_CI, _CI, _VP], _CI),
@@ -46,6 +47,8 @@ SIGNATURES = {
     "ac_ffn_block_int8": ([_VP] * 9 + [_CF, _VP] + [_CI] * 4 + [_VP], _CI),
     "ac_attn_ffn_block_int8": ([_VP] * 15 + [_CF, _VP] + [_CI] * 4 + [_VP], _CI),
     "ac_ffn_int8_smem_bytes": ([_CI, _CI, _CI], ctypes.c_longlong),
+    "ac_ffn_block_int8_smem_bytes": ([_CI, _CI, _CI], ctypes.c_longlong),
+    "ac_ffn_block_int8_info": ([_CI, _CI, _VP], _CI),
     "ac_cuda_error_string": ([_CI], ctypes.c_char_p),
 }
 

@@ -12,10 +12,15 @@ rounded to the input type before the PV product.
 - ``attention_from_qkv``: the wrapper.  A CPU tensor takes the plain
   version; a CUDA tensor launches the hand-written kernel in
   ``csrc/attention_qkv.cu`` or raises.  There is no fallback between them.
+  In bf16 the kernel multiplies on the tensor cores (the tile loop of
+  ``csrc/attention_tile.cuh``) in the plain version's order of rounding:
+  each row's exact softmax first, then the probabilities rounded to bf16.
+- ``kernel_info``: what the kernel would launch on given inputs.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -98,3 +103,20 @@ def attention_from_qkv(
     _build.check(err, "attention_qkv launch")
     launch_counts["attention_qkv"] += 1
     return out
+
+
+def kernel_info(qkv: torch.Tensor, num_heads: int, head_dim: int) -> dict:
+    """What ``attention_from_qkv`` would launch on this CUDA ``qkv``, as the
+    CUDA runtime reports the instantiation: registers per thread, shared
+    bytes per block, threads per block, blocks resident per SM and local
+    (spill) bytes per thread.  Launches nothing."""
+    if qkv.device.type != "cuda":
+        raise ValueError(f"kernel_info needs a CUDA tensor, got {qkv.device}")
+    B, S, _ = qkv.shape
+    info = (ctypes.c_int * 5)()
+    with torch.cuda.device(qkv.device):
+        err = _build.library().ac_attention_qkv_info(
+            qkv.data_ptr(), B, S, num_heads, head_dim, _DTYPE_CODES[qkv.dtype], info)
+    _build.check(err, "attention_qkv_info")
+    return dict(zip(("registers", "shared_bytes", "threads", "blocks_per_sm",
+                     "local_bytes"), info))

@@ -13,17 +13,25 @@ Counterpart of ``adaptive_classifier_tpu/ops/ffn_int8.py``.
 ``q()`` is the per-row symmetric int8 quantization with scale
 ``absmax / 127``; the GELU is the tanh form (``_gelu_tanh``), not the float
 path's erf.  Each wrapper takes its plain version (``*_ref``) for a CPU
-tensor and launches its CUDA kernel (``csrc/ffn_int8.cu``) for a CUDA
-tensor, or raises; there is no fallback between them.  Where the f32 GELU
-tile does not fit a block (bert-base's F = 3,072), the kernel computes the
-first product twice, once for each row's GELU maximum and once to quantize
-the same values, and returns what the one-pass kernel would.  The plain
-versions repeat the kernels' arithmetic step for step; a last-ulp
-difference of ``tanh`` can move one requantized GELU value by one int8
-step.
+tensor and launches its CUDA kernel for a CUDA tensor, or raises; there is
+no fallback between them.  The plain versions repeat the kernels'
+arithmetic step for step; a last-ulp difference of ``tanh`` can move one
+requantized GELU value by one int8 step.
+
+- B3 (``csrc/ffn_block_int8.cu``) computes the first product twice, once
+  for each row's GELU maximum and once to quantize the same values, and
+  reads both weights K-contiguous: ``k_contiguous`` makes the ``[N, K]``
+  copy once per weight and keeps it on the weight tensor
+  (``prepare_ffn_weights`` does so for a whole int8 encoder state when it
+  reaches the device).  The CPU path never reads the copy.
+- B8 (``csrc/ffn_int8.cu``) reads the ``[K, N]`` weights; where its f32
+  GELU tile does not fit a block (bert-base's F = 3,072) it takes B3's two
+  passes.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -82,14 +90,54 @@ def _check_ffn(name: str, D: int, w1_q, s1, b1, w2_q, s2, b2, ln_scale, ln_bias)
     return F
 
 
-def _check_smem(name: str, device: torch.device, D: int, F: int):
-    """Raise unless B3's and B8's two-pass row tile, the smaller, fits a
-    block of ``device`` (the kernel takes one pass where that fits)."""
-    need = _build.library().ac_ffn_int8_smem_bytes(D, F, 1)
+#: widest D B3 takes: its second product keeps every column of its rows in
+#: registers
+B3_MAX_D = 1024
+
+#: K-contiguous copies made so far by ``k_contiguous`` (for tests)
+k_contiguous_copies = 0
+
+
+def k_contiguous(w: torch.Tensor) -> torch.Tensor:
+    """The ``[N, K]`` copy of an int8 weight ``[K, N]`` that B3 reads, made
+    on the first call for this tensor and kept on it: a weight is copied
+    once, never per call."""
+    global k_contiguous_copies
+    kc = getattr(w, "_ac_k_contiguous", None)
+    if kc is None:
+        kc = w.t().contiguous()
+        w._ac_k_contiguous = kc
+        k_contiguous_copies += 1
+    return kc
+
+
+def prepare_ffn_weights(params) -> None:
+    """The int8 load path's step on a CUDA device: the K-contiguous copy of
+    every layer's FFN weights (``ffn_in_w.int8``, ``ffn_out_w.int8``) of an
+    int8 encoder state, so no forward makes one."""
+    for key, w in params.items():
+        if key.endswith(("ffn_in_w.int8", "ffn_out_w.int8")):
+            k_contiguous(w)
+
+
+def _check_smem(name: str, device: torch.device, D: int, F: int, need: int):
+    """Raise unless ``need`` bytes of shared memory, the kernel's smallest
+    row tile at widths D, F, fit a block of ``device``."""
     have = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
     if need > have:
         raise ValueError(f"{name}: D={D}, F={F} needs {need} bytes of shared "
                          f"memory per block, the device has {have}")
+
+
+def ffn_block_info(D: int, F: int) -> dict:
+    """What B3 would launch at widths D, F on the current CUDA device, as
+    the CUDA runtime reports the instantiation: registers per thread,
+    shared bytes per block, threads per block, blocks resident per SM,
+    local (spill) bytes per thread and rows per block.  Launches nothing."""
+    info = (ctypes.c_int * 6)()
+    _build.check(_build.library().ac_ffn_block_int8_info(D, F, info), "ffn_block_int8_info")
+    return dict(zip(("registers", "shared_bytes", "threads", "blocks_per_sm",
+                     "local_bytes", "rows"), info))
 
 
 def ffn_block_int8(h, w1_q, s1, b1, w2_q, s2, b2, ln_scale, ln_bias,
@@ -102,8 +150,14 @@ def ffn_block_int8(h, w1_q, s1, b1, w2_q, s2, b2, ln_scale, ln_bias,
     F = _check_ffn(name, D, w1_q, s1, b1, w2_q, s2, b2, ln_scale, ln_bias)
     if h.device.type == "cpu":
         return ffn_block_int8_ref(h, w1_q, s1, b1, w2_q, s2, b2, ln_scale, ln_bias, eps)
-    ptrs = cuda_args(name, h.device, h, w1_q, s1, b1, w2_q, s2, b2, ln_scale, ln_bias)
-    _check_smem(name, h.device, D, F)
+    if D > B3_MAX_D:
+        raise ValueError(f"{name}: D={D} > {B3_MAX_D}: the kernel keeps every "
+                         f"column of its rows in registers")
+    ptrs = cuda_args(name, h.device, h, k_contiguous(w1_q), s1, b1, k_contiguous(w2_q),
+                     s2, b2, ln_scale, ln_bias)
+    # its 32-row tile (64 rows where they fit)
+    _check_smem(name, h.device, D, F,
+                _build.library().ac_ffn_block_int8_smem_bytes(D, F, 32))
     out = torch.empty_like(h)
     launch(name, "ffn_int8", h.device, _build.library().ac_ffn_block_int8, *ptrs,
            float(eps), out.data_ptr(), M, D, F, _DTYPE_CODES[h.dtype])
@@ -126,7 +180,8 @@ def attn_ffn_block_int8(ctx, x, o_wq, o_s, o_b, ln1_scale, ln1_bias,
                                        ln2_bias, eps)
     ptrs = cuda_args(name, ctx.device, ctx, x, o_wq, o_s, o_b, ln1_scale, ln1_bias,
                      w1_q, s1, b1, w2_q, s2, b2, ln2_scale, ln2_bias)
-    _check_smem(name, ctx.device, D, F)
+    # its two-pass tile (one pass where that fits)
+    _check_smem(name, ctx.device, D, F, _build.library().ac_ffn_int8_smem_bytes(D, F, 1))
     out = torch.empty_like(ctx)
     launch(name, "attn_ffn_int8", ctx.device, _build.library().ac_attn_ffn_block_int8,
            *ptrs, float(eps), out.data_ptr(), M, D, F, _DTYPE_CODES[ctx.dtype])

@@ -9,12 +9,15 @@ Phases, each of which must pass:
    nvcc (timed, with ptxas' register and shared-memory report);
 3. holds every kernel against its plain torch version on the card, TF32
    off (asserted): attention (B1) in f32 to max abs error <= 1e-4 and in
-   bf16 to cosine > 0.999 and max abs error <= 0.05; the masked kNN
+   bf16 to cosine > 0.999 and max abs error <= 0.05 (at S 24 to 512,
+   across its one-pass and two-pass forms; the share of bf16 outputs
+   equal to the plain version's bit for bit is reported); the masked kNN
    similarities (B4) to max abs error <= 1e-5; the streaming top-k (B5) to
    identical indices on inputs with no near-ties, lower-index order on
    exact ties, and values within 1e-5; the int8 kernels at the zoo's
-   widths (M 8,192 and ragged) and at bert-base's (D 768, F 3,072, where
-   B3 and B8 take two passes; M 16,384 and ragged), f32 and bf16: the QKV projection (B2) to
+   widths (M 8,192, and ragged for B3's 64-row blocks) and at bert-base's
+   (D 768, F 3,072, where B8 takes two passes and B3 32-row blocks; M
+   16,384 and ragged), f32 and bf16: the QKV projection (B2) to
    1e-5 and the projection + LayerNorm (B9) to 1e-4 in f32, the FFN block
    (B3) and the post-attention body (B8) to per-row cosine >= 0.9999 and
    max abs error <= 0.05 in f32, all to cosine > 0.999 in bf16; flash
@@ -27,13 +30,17 @@ Phases, each of which must pass:
    (checkpoints/ac-base-v2: BERT, 8 layers, hidden 512, 8 heads):
    ``predict_batch`` on each task's test rows, with launch counts (B1 once
    and B10 twice per layer per chunk), accuracy against the zoo manifest,
-   and top-1 agreement with the plain attention;
+   and top-1 agreement with the plain attention; the ten kernels with the
+   most device time in one hallucination-detector chunk's forward
+   (``torch.profiler``);
 4i. serves the same classifiers with ``quantization: "int8"``: B2, B3 and
    B1 once per layer per chunk, every embedding within cosine 0.99 of the
    bf16 forward's, accuracy >= manifest - 0.03, top-1 agreement >= 0.95
    with phase 4 (the JAX package's own int8 forward agrees on 0.966 of
    hallucination-detector's rows); times the int8 and
-   bf16 encoder forwards per chunk in turns; on the first banking chunk,
+   bf16 encoder forwards per chunk in turns, and profiles one
+   hallucination-detector chunk's int8 forward as phase 4 does; on the
+   first banking chunk,
    ``fuse_o_proj=True`` sends every layer through B8 (cosine >= 0.999 with
    the default int8 forward);
 4a. serves both zoo tasks with ``AC_ATTN_IMPL=flash`` and then
@@ -65,9 +72,10 @@ Phases, each of which must pass:
 3b. times every kernel, its plain version and the nearest single PyTorch
    call at the shapes the main path gave it, on the main path's inputs, as
    device time (the stream held until the host has queued every timed
-   call); B6 and B7 also at bert-base [32, 512], with their achieved
-   TFLOP/s, the bound's share of their time and the registers, shared
-   bytes and blocks per SM of the instantiation that ran;
+   call); B1, B6 and B7 also at bert-base [32, 512], B6 and B7 with their
+   achieved TFLOP/s and the bound's share of their time; B1, B3, B6 and B7
+   with the registers, shared bytes, blocks per SM and spill bytes of the
+   instantiation that ran;
 5. prints the ``kernels`` JSON line, then as its last line
    ``{"ok": true, "device": {...}}``.
 
@@ -170,6 +178,36 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, queue_ahead: bool = False) -> 
     return start.elapsed_time(end) / iters
 
 
+def top_device_ops(fn, n: int = 10) -> dict:
+    """Where one call of ``fn`` spends device time, from ``torch.profiler``:
+    the ``n`` kernels with the most device time (ms, and launches), their
+    sum, and the device time of all kernels.  Names are the kernels' own
+    (the port's hand-written ones are mangled C++ names, cut to 120
+    characters)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            kernels.append((us / 1e3, e.count, e.key[:120]))
+    kernels.sort(reverse=True)
+    total = sum(ms for ms, _, _ in kernels)
+    if total <= 0:
+        return {"device_ms_total": None,
+                "note": "the profiler recorded no device time: not measured"}
+    return {"device_ms_total": total,
+            "top": [{"ms": ms, "launches": c, "kernel": k} for ms, c, k in kernels[:n]],
+            "top_share": sum(ms for ms, _, _ in kernels[:n]) / total}
+
+
 def kernel_ms(fn, iters: int = 20) -> float:
     """Device time per call of one kernel (or of the plain version or library
     call beside it), the queue filled ahead: phase 3b's timer."""
@@ -204,6 +242,17 @@ def check_attention() -> dict:
         ("f32 Dh=128 S=72", torch.float32, 3, 72, 4, 128, ()),
         ("bf16 Dh=32 S=40", torch.bfloat16, 5, 40, 6, 32, ()),
         ("f32 Dh=24 S=200", torch.float32, 2, 200, 3, 24, ()),
+        # the bf16 forms' edges: one pass over two 64-key tiles (S 128, the
+        # hallucination chunk), the 32-key tile with a partial second warp
+        # (S 24) and the 64-key tile just past it (S 40; S 17 and 33 are
+        # outside B1's S % 8 == 0 envelope), one pass just past one tile
+        # (S 72), two passes just past the one-pass rows (S 136), bert-base
+        ("bf16 B=64 S=128 one pass", torch.bfloat16, 64, 128, 8, 64, (1,)),
+        ("bf16 B=64 S=24", torch.bfloat16, 64, 24, 8, 64, (1,)),
+        ("bf16 B=64 S=40", torch.bfloat16, 64, 40, 8, 64, ()),
+        ("bf16 B=16 S=72", torch.bfloat16, 16, 72, 8, 64, ()),
+        ("bf16 B=8 S=136 two passes", torch.bfloat16, 8, 136, 8, 64, (1,)),
+        ("bf16 B=4 S=512 H=12", torch.bfloat16, 4, 512, 12, 64, ()),
     ]
     results = {}
     for i, (name, dtype, B, S, H, Dh, masked) in enumerate(cases):
@@ -212,6 +261,7 @@ def check_attention() -> dict:
         want = attention_from_qkv_ref(qkv, mask, H, Dh)
         torch.cuda.synchronize()
         res = compare(got, want, dtype)
+        res["bit_equal_share"] = (got == want).float().mean().item()
         if masked:
             # a fully masked row is the uniform average of V over all keys
             D = H * Dh
@@ -230,7 +280,7 @@ def time_attention(shapes) -> list:
     """Kernel, plain version and SDPA at the main path's shapes, on the real
     token masks of the run (random q, k, v)."""
     from adaptive_classifier_tpu_torch.ops.attention_qkv import (
-        attention_from_qkv, attention_from_qkv_ref)
+        attention_from_qkv, attention_from_qkv_ref, kernel_info)
 
     rows = []
     for task, (mask_np, H, Dh, dtype) in shapes.items():
@@ -256,9 +306,10 @@ def time_attention(shapes) -> list:
         row = {"task": task, "shape": [B, S, 3 * D], "dtype": str(dtype),
                "valid_keys": int(mask.sum().item()),
                "max_abs_err": res["max_abs_err"], "cosine": res["cosine"],
+               "bit_equal_share": (got == want).float().mean().item(),
                "ms": ms, "ms_repeat": ms_again, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+               "bound_by": bound_by, "instantiation": kernel_info(qkv, H, Dh)}
         log(f"  time {json.dumps(row)}")
         rows.append(row)
     return rows
@@ -735,8 +786,10 @@ def check_int8() -> dict:
     for D, F in INT8_WIDTHS:
         mats, lns = int8_weights(0, D, F)
         big = 8192 if D == 512 else 16384
+        # big + 37: ragged for B3's 64-row (D 512) and 32-row (D 768) blocks
         for dtype, M in ((torch.float32, big), (torch.float32, 1000),
-                         (torch.bfloat16, big), (torch.bfloat16, 200)):
+                         (torch.bfloat16, big), (torch.bfloat16, 200),
+                         (torch.bfloat16, big + 37), (torch.float32, big + 37)):
             calls = int8_calls(mats, lns, int8_rows(M, M, D, dtype))
             for name, (kernel, plain, _) in calls.items():
                 got, want = kernel(), plain()
@@ -797,6 +850,10 @@ def time_int8(chunks: dict) -> dict:
                                    "(the int8 products alone)"}
             row["ms_repeat"] = kernel_ms(kernel)
             row["bound_ms"], row["bound_by"] = int8_bound(name, M, torch.bfloat16, D, F)
+            if name == "ffn_int8":
+                from adaptive_classifier_tpu_torch.ops.ffn_int8 import ffn_block_info
+
+                row["instantiation"] = ffn_block_info(D, F)
             log(f"  time {name} {json.dumps(row)}")
             rows[name].append(row)
     return rows
@@ -877,6 +934,9 @@ def run_task(task: str, manifest: dict, gpu: str) -> dict:
         max_length=clf.config.max_length, pad_to_buckets=clf.encoder.SEQ_BUCKETS)
     # device share: the encoder forward alone on the first chunk
     encoder_ms = cuda_ms(lambda: clf.encoder.embed_ids(ids, mask), iters=10)
+    # and where its device time goes, on the longer chunk
+    ops = (top_device_ops(lambda: clf.encoder.embed_ids(ids, mask))
+           if task == TASKS[1] else None)
 
     # the same run through the plain attention
     clf.encoder.attn_impl = "einsum"
@@ -897,6 +957,8 @@ def run_task(task: str, manifest: dict, gpu: str) -> dict:
            "requests_per_s": len(texts) / batch_s,
            "host_tokenize_lexical_ms": host_s * 1e3,
            "encoder_forward_ms": encoder_ms, "gpu": gpu}
+    if ops is not None:
+        out["encoder_forward_top_device_ops"] = ops
     log(f"  task {json.dumps(out)}")
     shape = (mask, cfg.num_heads, cfg.head_dim, clf.encoder.compute_dtype)
     del clf
@@ -1026,6 +1088,7 @@ def run_task_int8(task: str, manifest: dict, gpu: str, bf16_top1, float_encoder,
                      ("bf16", float_encoder)):
         order.append((label, cuda_ms(lambda: e.embed_ids(ids, mask), iters=10)))
     fwd = {lbl: [ms for l, ms in order if l == lbl] for lbl in ("int8", "bf16")}
+    ops = top_device_ops(lambda: enc.embed_ids(ids, mask)) if task == TASKS[1] else None
 
     out = {"task": task, "rows": len(texts), "chunks": n_chunks, "layers": layers,
            "seq_len": int(ids.shape[1]), "chunk_rows": int(ids.shape[0] * ids.shape[1]),
@@ -1037,6 +1100,8 @@ def run_task_int8(task: str, manifest: dict, gpu: str, bf16_top1, float_encoder,
            "predict_batch_ms": min(steady) * 1e3,
            "encoder_forward_ms_int8": fwd["int8"], "encoder_forward_ms_bf16": fwd["bf16"],
            "int8_faster": max(fwd["int8"]) < min(fwd["bf16"]), "gpu": gpu}
+    if ops is not None:
+        out["encoder_forward_top_device_ops"] = ops
 
     if task == TASKS[0]:
         out["fuse_o_proj"] = run_fuse_o_proj(enc, ids, mask, layers, launches)
@@ -1604,7 +1669,9 @@ def main() -> int:
 
     log("phase 3b: kernel timing at the main path's shapes")
     t0 = time.perf_counter()
-    timings = time_attention({t: r["shape"] for t, r in runs.items()})
+    timings = time_attention({
+        **{t: r["shape"] for t, r in runs.items()},
+        "bert-base B=32 S=512": (np.ones((32, 512), np.int32), 12, 64, torch.bfloat16)})
     s7, s8 = p7["shapes"], p8["shapes"]
     knn_times = time_knn({
         "knn_sims": {
@@ -1642,6 +1709,7 @@ def main() -> int:
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shape": main_row["shape"],
+        "instantiation": main_row["instantiation"],
         "tolerance": "f32: max abs err <= 1e-4 (TF32 off); "
                      "bf16: max abs err <= 0.05 and cosine > 0.999",
         "checks_max_abs_err": max(c["max_abs_err"] for c in checks.values()),
@@ -1671,7 +1739,8 @@ def main() -> int:
                            ("proj_residual_ln_int8",
                             "adaptive_classifier_tpu/ops/matmul_int8.py:115")):
         row = int8_times[name][0]
-        source = "ffn_int8.cu" if "ffn" in name else "matmul_int8.cu"
+        source = {"ffn_int8": "ffn_block_int8.cu",
+                  "attn_ffn_int8": "ffn_int8.cu"}.get(name, "matmul_int8.cu")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"adaptive_classifier_tpu_torch/csrc/{source}",
@@ -1683,6 +1752,7 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library_call": row["library_call"],
             "shape": [row["M"], row["D"]], "tolerance": INT8_TOLERANCE[name],
+            **({"instantiation": row["instantiation"]} if "instantiation" in row else {}),
             "checked_launches": int8_checks["launches"][name],
             "per_shape": int8_times[name],
         })
@@ -1734,6 +1804,11 @@ def main() -> int:
         {t: {"fused": r["encoder_forward_ms_fused_ln"],
              "plain": r["encoder_forward_ms_plain_ln"],
              "fused_faster": r["fused_faster"]} for t, r in fused_ln.items()}))
+    log(f"  B1 ms by shape " + json.dumps({r["task"]: r["ms"] for r in timings}))
+    log(f"  B3 ms by shape " + json.dumps({r["task"]: r["ms"] for r in int8_times["ffn_int8"]}))
+    for label, r in (("bf16", runs[TASKS[1]]["summary"]), ("int8", runs_int8[TASKS[1]])):
+        log(f"  {TASKS[1]} {label} forward, top device kernels "
+            + json.dumps(r.get("encoder_forward_top_device_ops")))
     log(f"  B6/B7 ms, TFLOP/s, bound share, registers, blocks/SM " + json.dumps(
         {f"{name} {r['where']}": [r["ms"], r["tflops"], r["bound_share"],
                                   r["instantiation"]["registers"],

@@ -1,5 +1,6 @@
-"""Time the port's bf16 attention kernels B6 (flash) and B7 (one-shot) on one
-NVIDIA GPU, for an A/B of two versions of the package in one call.
+"""Time the port's bf16 attention kernels B1 (packed QKV), B6 (flash) and
+B7 (one-shot) on one NVIDIA GPU, for an A/B of two versions of the package
+in one call.
 
     python3 scripts/torch_time_attention.py [--root DIR]
 
@@ -13,7 +14,8 @@ process each.  Each kernel runs at the banking-intents chunk ``[256, 32]`` x
 ``[B, S, 3D]`` tensor) and ragged masks.  A time is the device's, in ms per
 call: the best of three runs of 50 calls, the stream held by a GPU sleep
 until the host has queued all 50.  Each line also gives the max abs error
-against the plain version and, where the package reports it, the launched
+against the plain version, the share of outputs equal to the plain
+version's bit for bit and, where the package reports it, the launched
 instantiation's registers, blocks per SM, spill bytes and shared bytes.
 Prints one JSON line; exits non-zero without a GPU.
 """
@@ -47,12 +49,24 @@ def device_ms(fn, iters: int = 50) -> float:
 
 
 def inputs(B, S, H, Dh, seed=0):
+    """A packed ``[B, S, 3D]`` bf16 tensor, its q, k, v views and a ragged
+    mask."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn((B, S, 3 * H * Dh), generator=g, device="cuda").to(torch.bfloat16)
     lengths = torch.randint(max(1, S // 4), S + 1, (B,), generator=g, device="cuda")
     mask = (torch.arange(S, device="cuda")[None, :] < lengths[:, None]).to(torch.int32)
     D = H * Dh
-    return [qkv[..., j * D:(j + 1) * D].unflatten(-1, (H, Dh)) for j in range(3)], mask
+    return qkv, [qkv[..., j * D:(j + 1) * D].unflatten(-1, (H, Dh)) for j in range(3)], mask
+
+
+def row(fn, ref, info=None) -> dict:
+    got, want = fn(), ref()
+    out = {"ms": min(device_ms(fn) for _ in range(3)),
+           "max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "bit_equal_share": (got.reshape(want.shape) == want).float().mean().item()}
+    if info is not None:
+        out.update(info())
+    return out
 
 
 def main() -> int:
@@ -64,23 +78,24 @@ def main() -> int:
         return 1
     root = str(Path(args.root).resolve())
     sys.path.insert(0, root)
-    from adaptive_classifier_tpu_torch.ops import flash_attention as fa
+    from adaptive_classifier_tpu_torch.ops import attention_qkv as aq, flash_attention as fa
 
     if not fa.__file__.startswith(root):
         raise RuntimeError(f"imported {fa.__file__}, not the package under {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
     for name, (B, S, H, Dh) in SHAPES.items():
-        (q, k, v), mask = inputs(B, S, H, Dh)
+        qkv, (q, k, v), mask = inputs(B, S, H, Dh)
+        out[f"attention_qkv {name}"] = row(
+            lambda: aq.attention_from_qkv(qkv, mask, H, Dh),
+            lambda: aq.attention_from_qkv_ref(qkv, mask, H, Dh),
+            (lambda: aq.kernel_info(qkv, H, Dh)) if hasattr(aq, "kernel_info") else None)
         for kern in ("flash_attention", "oneshot_attention"):
-            f = getattr(fa, kern)
-            err = (f(q, k, v, mask).float()
-                   - getattr(fa, kern + "_ref")(q, k, v, mask).float()).abs().max().item()
-            row = {"ms": min(device_ms(lambda: f(q, k, v, mask)) for _ in range(3)),
-                   "max_abs_err": err}
-            if hasattr(fa, "kernel_info"):
-                row.update(fa.kernel_info(q, k, v, kern == "oneshot_attention"))
-            out[f"{kern} {name}"] = row
+            f, ref = getattr(fa, kern), getattr(fa, kern + "_ref")
+            out[f"{kern} {name}"] = row(
+                lambda: f(q, k, v, mask), lambda: ref(q, k, v, mask),
+                (lambda: fa.kernel_info(q, k, v, kern == "oneshot_attention"))
+                if hasattr(fa, "kernel_info") else None)
     print(json.dumps({"root": root, "gpu": torch.cuda.get_device_name(0), "times": out}))
     return 0
 

@@ -90,6 +90,79 @@ def test_attention_counts_launches(cuda):
     assert port.launch_counts["attention_qkv"] == 2
 
 
+def _packed_views(qkv, H, Dh):
+    D = H * Dh
+    return [qkv[..., j * D:(j + 1) * D].unflatten(-1, (H, Dh)) for j in range(3)]
+
+
+@pytest.mark.parametrize("kernel", ["attention_qkv", "oneshot_attention"])
+@pytest.mark.parametrize("B,S", [(256, 32), (64, 128), (8, 512)])
+def test_attention_kernel_rounds_like_the_plain_version(cuda, kernel, B, S):
+    """B1 rounds p to bf16 after the softmax's division, as its TPU kernel
+    (adaptive_classifier_tpu/ops/attention_qkv.py:40-44) and its plain
+    version do: at least 95% of its bf16 outputs equal the plain version's
+    bit for bit.  B7, which rounds in the same order, calibrates the bound;
+    B6's order (p rounded before the division) leaves about half of them
+    one bf16 step off."""
+    from adaptive_classifier_tpu_torch.ops import flash_attention as fa
+
+    H, Dh = 8, 64
+    qkv, mask = _inputs(cuda, 20 + S, torch.bfloat16, B, S, H, Dh)
+    if kernel == "attention_qkv":
+        got = attention_from_qkv(qkv, mask, H, Dh)
+        want = attention_from_qkv_ref(qkv, mask, H, Dh)
+    else:
+        q, k, v = _packed_views(qkv, H, Dh)
+        got = fa.oneshot_attention(q, k, v, mask)
+        want = fa.oneshot_attention_ref(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert (got == want).float().mean().item() >= 0.95
+
+
+# B1 in bf16 at the edges of its forms: one 32-key tile and 2 warps (S 8,
+# 24), one 64-key tile (40), one pass over two tiles (72, 128), two passes
+# (136, 512); Dh 24 and 40 (zero-padded), 32 and 128; a base off 16 bytes
+# (rows staged element by element)
+_B1_EDGES = [(64, 8, 8, 64, 0), (64, 24, 8, 64, 0), (32, 40, 8, 64, 0),
+             (16, 72, 8, 64, 0), (16, 128, 8, 64, 0), (8, 136, 8, 64, 0),
+             (3, 48, 4, 24, 0), (5, 40, 6, 32, 0), (3, 96, 4, 128, 0),
+             (3, 200, 3, 128, 0), (3, 128, 4, 64, 1), (3, 24, 4, 64, 1),
+             (2, 512, 4, 40, 3)]
+
+
+@pytest.mark.parametrize("B,S,H,Dh,offset", _B1_EDGES)
+def test_attention_kernel_tile_edges(cuda, B, S, H, Dh, offset):
+    qkv, mask = _inputs(cuda, 30 + S, torch.bfloat16, B, S, H, Dh, masked_row=1)
+    if offset:
+        buf = torch.zeros(qkv.numel() + offset, dtype=qkv.dtype, device=cuda)
+        buf[offset:] = qkv.reshape(-1)
+        qkv = buf[offset:].view(qkv.shape)
+    port.reset_launch_counts()
+    got = attention_from_qkv(qkv, mask, H, Dh)
+    want = attention_from_qkv_ref(qkv, mask, H, Dh)
+    torch.cuda.synchronize()
+    assert port.launch_counts["attention_qkv"] == 1
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    assert (g * w).sum() / (g.norm() * w.norm()) > 0.999
+    torch.testing.assert_close(g, w, atol=0.05, rtol=0)
+
+
+def test_attention_kernel_one_pass_instantiation(cuda):
+    """At the hallucination chunk's S = 128 (bf16, Dh 64) B1 takes one pass:
+    4 warps, Q and two 64-key K/V tiles with their biases in 45.5 KB of
+    shared memory, every score of a warp's rows in at most 128 registers a
+    thread, unspilled: four blocks share an SM."""
+    from adaptive_classifier_tpu_torch.ops import attention_qkv as aq
+
+    qkv, _ = _inputs(cuda, 40, torch.bfloat16, 2, 128, 8, 64)
+    info = aq.kernel_info(qkv, 8, 64)
+    assert info["threads"] == 128
+    assert info["shared_bytes"] == 2 * (64 * 72 + 2 * 2 * 64 * 72) + 4 * 2 * 64
+    assert info["registers"] <= 128 and info["local_bytes"] == 0
+    assert info["blocks_per_sm"] >= 4
+
+
 def test_unported_kernels_raise_on_the_gpu(cuda, monkeypatch):
     """Every kernel is ported: S >= 1024 takes the flash kernel (B6), and
     what no kernel takes still raises."""
@@ -372,6 +445,57 @@ def test_ffn_blocks_two_pass_at_bert_base_width(cuda, fuse_o, dtype, M):
     torch.cuda.synchronize()
     assert port.launch_counts["attn_ffn_int8" if fuse_o else "ffn_int8"] == 1
     _assert_int8_close(got, want, dtype)
+
+
+# B3 at ragged M for its 64-row (D 512) and 32-row blocks, at the zoo's and
+# bert-base's widths, at widths whose second product has an odd number of n8
+# tiles a warp (D 128, 384) and at bert-large's (D 1,024, F 4,096: the
+# largest shared-memory layout)
+@pytest.mark.parametrize("dtype,M,D,F", [
+    (torch.bfloat16, 8192 + 37, 512, 2048), (torch.float32, 8192 + 37, 512, 2048),
+    (torch.bfloat16, 4096 + 37, 768, 3072), (torch.float32, 1000, 768, 3072),
+    (torch.bfloat16, 1000, 128, 512), (torch.float32, 333, 384, 1152),
+    (torch.bfloat16, 2048 + 5, 1024, 4096),
+])
+def test_ffn_block_kernel_ragged_rows_and_widths(cuda, dtype, M, D, F):
+    (h, _), m, lns = _int8_layer(cuda, 6, M, dtype, D=D, F=F)
+    args = (h, *m["w1"], *m["w2"], *lns[0], 1e-12)
+    port.reset_launch_counts()
+    got = ffn_int8.ffn_block_int8(*args)
+    want = ffn_int8.ffn_block_int8_ref(*args)
+    torch.cuda.synchronize()
+    assert port.launch_counts["ffn_int8"] == 1
+    assert got.shape == (M, D) and got.dtype == dtype
+    _assert_int8_close(got, want, dtype)
+
+
+def test_ffn_block_instantiation(cuda):
+    """B3 takes 64 rows a block at the zoo's widths and 32 at bert-base's,
+    one block of 16 warps per SM, within the card's shared memory."""
+    props = torch.cuda.get_device_properties(cuda)
+    for (D, F), rows in (((512, 2048), 64), ((768, 3072), 32), ((1024, 4096), 32)):
+        info = ffn_int8.ffn_block_info(D, F)
+        assert info["rows"] == rows and info["threads"] == 512
+        assert info["blocks_per_sm"] == 1
+        assert info["shared_bytes"] <= props.shared_memory_per_block_optin
+
+
+def test_int8_load_makes_the_k_contiguous_copies_once(cuda, tmp_path):
+    """The int8 load path makes B3's K-contiguous weights once, two per
+    layer; serving makes none."""
+    before = ffn_int8.k_contiguous_copies
+    clf = port.AdaptiveClassifier.load(_int8_zoo(tmp_path))
+    layers = clf.encoder.config.num_layers
+    assert ffn_int8.k_contiguous_copies == before + 2 * layers
+    w = clf.encoder.params["layers.0.ffn_in_w.int8"]
+    assert torch.equal(w._ac_k_contiguous, w.t())
+    data = json.loads((REPO / "data/intents.json").read_text())
+    texts = [t for ts in data["test"].values() for t in ts]
+    for _ in range(2):
+        port.reset_launch_counts()
+        clf.predict_batch(texts, k=1)
+        assert port.launch_counts["ffn_int8"] == layers
+    assert ffn_int8.k_contiguous_copies == before + 2 * layers
 
 
 def _int8_zoo(tmp_path, task="banking-intents"):

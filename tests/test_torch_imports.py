@@ -1,4 +1,4 @@
-"""The port, chip_smoke.py and scripts/torch_time_attention.py stand alone:
+"""The port, chip_smoke.py and scripts/torch_time_*.py stand alone:
 they import torch, numpy and the standard library, nothing of JAX, of the
 JAX package, or of the packages a GPU machine may lack; and chip_smoke.py
 fails cleanly without a GPU."""
@@ -52,7 +52,8 @@ def test_port_imports_without_jax():
 
 def _sources():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                         REPO / "scripts" / "torch_time_attention.py"]
+                                         REPO / "scripts" / "torch_time_attention.py",
+                                         REPO / "scripts" / "torch_time_ffn_int8.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
