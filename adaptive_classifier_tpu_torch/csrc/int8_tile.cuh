@@ -1,6 +1,6 @@
 // Building blocks of the int8 kernels (B2, B9 in matmul_int8.cu; B3, B8 in
-// ffn_int8.cu), so every kernel quantizes, multiplies and normalizes with
-// the same arithmetic as the others and as their plain torch versions:
+// ffn_block_int8.cu), so every kernel quantizes, multiplies and normalizes
+// with the same arithmetic as the others and as their plain torch versions:
 //
 // - per-row symmetric int8 quantization: scale = max(absmax, 1e-8) times
 //   1/127 (B2, B9: adaptive_classifier_tpu/ops/matmul_int8.py:40-45) or
@@ -14,24 +14,22 @@
 //   compute it;
 // - a row LayerNorm with f32 statistics.
 //
-// The weights arrive as the JAX package stores them, [K, N] row-major
-// (contraction rows, output columns).  The mma's B operand wants K
-// contiguous for each output column, so the block stages a [tks, 64] slice
-// of the weights transposed into shared memory as [64][tks + 16]: each
-// thread loads 4x4 byte blocks (four 4-byte words from four K rows), turns
-// them with byte permutes, and stores four words of four K values each.
-// The 16-byte row pad makes the fragment reads conflict-free, and rotating
-// which of its four words a lane stores first makes the staging stores
-// conflict-free too.  The next slice is loaded into registers while the
-// current one is multiplied (gemm_rows: B2, B8, B9).
+// ring_gemm (B2, B3, B8) reads the weights K-contiguous: [N, K] copies made
+// once when the int8 weights reach the device (ops/ffn_int8.py
+// k_contiguous), so a slice is a block of whole 16-byte rows.  It copies
+// [NC, KS] slices by 16-byte cp.async into a ring of RING slots, one barrier
+// a slice, and reads both operands by ldmatrix: no register staging, no
+// byte permutes.  A slice keeps no row pad: its 16-byte chunks are
+// XOR-swizzled by row, so the eight rows an ldmatrix phase reads fall in
+// eight distinct bank groups.
 //
-// B3 reads its weights K-contiguous instead: [N, K] copies made once when
-// the int8 weights reach the device (ops/ffn_int8.py k_contiguous), so a
-// slice is a block of whole 16-byte rows.  ring_gemm copies [NC, KS] slices
-// by 16-byte cp.async into a ring of RING slots, one barrier a slice, and
-// reads both operands by ldmatrix: no register staging, no byte permutes.
-// A slice keeps no row pad: its 16-byte chunks are XOR-swizzled by row, so
-// the eight rows an ldmatrix phase reads fall in eight distinct bank groups.
+// gemm_rows (B9 alone, which no path calls) is the first port's loop: it
+// reads the weights as the JAX package stores them, [K, N] row-major, and
+// stages a [tks, 64] slice transposed into shared memory as [64][tks + 16]:
+// each thread loads 4x4 byte blocks (four 4-byte words from four K rows),
+// turns them with byte permutes, and stores four words of four K values
+// each.  The next slice is loaded into registers while the current one is
+// multiplied.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -127,44 +125,18 @@ __device__ void quant_rows_global(const T* __restrict__ x, int M, int K, int m0,
   }
 }
 
-// Quantize rows of an f32 array in shared memory (row stride ldv floats)
-// into q (row stride ldq bytes).  One warp per row; K % 128 == 0.  With
-// q aliasing v (ldq == 4 * ldv, same base) the row is quantized in place:
-// the warp reads 128 values, then writes their 128 bytes over values it has
-// already read (bytes [128j, 128j + 128) hold values of step j / 4 <= j).
-template <bool MUL_INV>
-__device__ void quant_rows_smem(const float* v, int ldv, int K, int rows,
-                                int8_t* q, int ldq, float* sc) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < rows; r += WARPS) {
-    const float* row = v + r * ldv;
-    float amax = 0.f;
-    for (int c = lane; c < K; c += 32) amax = fmaxf(amax, fabsf(row[c]));
-    const float s = row_scale<MUL_INV>(warp_max(amax));
-    __syncwarp();
-    for (int c = 4 * lane; c < K; c += 128) {
-      const float4 f = *reinterpret_cast<const float4*>(row + c);
-      const uint32_t w = pack4(quant(f.x, s), quant(f.y, s), quant(f.z, s), quant(f.w, s));
-      __syncwarp();
-      *reinterpret_cast<uint32_t*>(q + r * ldq + c) = w;
-      __syncwarp();
-    }
-    if (lane == 0) sc[r] = s;
-  }
-}
-
-// In-place LayerNorm of rows of an f32 shared-memory array: mean and
-// variance in f32 over D columns, (v - mean) * rsqrt(var + eps) * g + beta.
-// One warp per row.  OUT: also write the row to out (row stride D) in T,
-// for rows m0 + r < M.
-template <bool OUT, typename T>
-__device__ void layer_norm_rows(float* v, int ldv, int D, int rows,
+// LayerNorm of rows of an f32 shared-memory array: mean and
+// variance in f32 over D columns, (v - mean) * rsqrt(var + eps) * g + beta,
+// each row also written to out (row stride D) in T where m0 + r < M.  One
+// warp per row.
+template <typename T>
+__device__ void layer_norm_rows(const float* v, int ldv, int D, int rows,
                                 const float* __restrict__ g,
                                 const float* __restrict__ beta, float eps,
                                 T* __restrict__ out, int m0, int M) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < rows; r += WARPS) {
-    float* row = v + r * ldv;
+    const float* row = v + r * ldv;
     float sum = 0.f;
     for (int c = lane; c < D; c += 32) sum += row[c];
     const float mean = warp_sum(sum) / (float)D;
@@ -178,8 +150,7 @@ __device__ void layer_norm_rows(float* v, int ldv, int D, int rows,
     const bool live = m0 + r < M;
     for (int c = lane; c < D; c += 32) {
       const float y = (row[c] - mean) * inv * g[c] + beta[c];
-      row[c] = y;
-      if (OUT && live) out[(size_t)(m0 + r) * D + c] = from_f32<T>(y);
+      if (live) out[(size_t)(m0 + r) * D + c] = from_f32<T>(y);
     }
   }
 }
@@ -334,7 +305,7 @@ __device__ __forceinline__ int acc_row(int i) { return ((threadIdx.x & 31) >> 2)
 __device__ __forceinline__ int acc_col(int i) { return 2 * (threadIdx.x & 3) + (i & 1); }
 
 // ---------------------------------------------------------------------------
-// ring_gemm: K-contiguous weights through a cp.async ring (B3)
+// ring_gemm: K-contiguous weights through a cp.async ring (B2, B3, B8)
 // ---------------------------------------------------------------------------
 
 // Geometry of one ring_gemm: WM x WN warps, each MT m16 x NT n8 tiles, so a

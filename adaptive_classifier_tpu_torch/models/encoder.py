@@ -529,12 +529,13 @@ class Encoder:
 
     def _on_device(self, params: Params) -> Params:
         """The int8 state on the encoder's device; on a CUDA device with the
-        K-contiguous FFN weights that kernel B3 reads, made once here."""
+        K-contiguous QKV, O and FFN weights that kernels B2, B3 and B8 read,
+        made once here."""
         params = {k: v.to(self.device) for k, v in params.items()}
         if self.device.type == "cuda":
-            from ..ops.ffn_int8 import prepare_ffn_weights
+            from ..ops.ffn_int8 import prepare_int8_weights
 
-            prepare_ffn_weights(params)
+            prepare_int8_weights(params)
         return params
 
     @classmethod

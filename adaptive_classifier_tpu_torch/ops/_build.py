@@ -43,12 +43,12 @@ SIGNATURES = {
     "ac_masked_sims": ([_VP, _VP, _VP, _VP, _CI, _CI, _CI, _VP], _CI),
     "ac_topk_sims": ([_VP] * 8 + [_CI] * 6 + [_VP], _CI),
     "ac_quant_matmul_int8": ([_VP] * 5 + [_CI] * 4 + [_VP], _CI),
+    "ac_quant_matmul_int8_info": ([_CI] * 4 + [_VP], _CI),
     "ac_proj_residual_ln_int8": ([_VP] * 7 + [_CF, _VP] + [_CI] * 3 + [_VP], _CI),
     "ac_ffn_block_int8": ([_VP] * 9 + [_CF, _VP] + [_CI] * 4 + [_VP], _CI),
-    "ac_attn_ffn_block_int8": ([_VP] * 15 + [_CF, _VP] + [_CI] * 4 + [_VP], _CI),
-    "ac_ffn_int8_smem_bytes": ([_CI, _CI, _CI], ctypes.c_longlong),
-    "ac_ffn_block_int8_smem_bytes": ([_CI, _CI, _CI], ctypes.c_longlong),
-    "ac_ffn_block_int8_info": ([_CI, _CI, _VP], _CI),
+    "ac_attn_ffn_block_int8": ([_VP] * 15 + [_CF, _VP, _VP] + [_CI] * 4 + [_VP], _CI),
+    "ac_ffn_block_int8_smem_bytes": ([_CI] * 4, ctypes.c_longlong),
+    "ac_ffn_block_int8_info": ([_CI] * 3 + [_VP], _CI),
     "ac_cuda_error_string": ([_CI], ctypes.c_char_p),
 }
 

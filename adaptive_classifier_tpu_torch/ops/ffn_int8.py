@@ -18,15 +18,14 @@ no fallback between them.  The plain versions repeat the kernels'
 arithmetic step for step; a last-ulp difference of ``tanh`` can move one
 requantized GELU value by one int8 step.
 
-- B3 (``csrc/ffn_block_int8.cu``) computes the first product twice, once
-  for each row's GELU maximum and once to quantize the same values, and
-  reads both weights K-contiguous: ``k_contiguous`` makes the ``[N, K]``
-  copy once per weight and keeps it on the weight tensor
-  (``prepare_ffn_weights`` does so for a whole int8 encoder state when it
-  reaches the device).  The CPU path never reads the copy.
-- B8 (``csrc/ffn_int8.cu``) reads the ``[K, N]`` weights; where its f32
-  GELU tile does not fit a block (bert-base's F = 3,072) it takes B3's two
-  passes.
+Both run in one CUDA kernel (``csrc/ffn_block_int8.cu``; B8 puts an
+O-projection stage in front of B3's body) on K-contiguous weights:
+``k_contiguous`` makes the ``[N, K]`` copy once per weight and keeps it on
+the weight tensor, and ``prepare_int8_weights`` does so for a whole int8
+encoder state when it reaches the device (the QKV weight for B2 too).  The
+CPU path never reads a copy.  The first product runs twice, once for each
+row's GELU maximum and once to quantize the same values.  B8 keeps its
+first LayerNorm's f32 rows in a scratch ``[M, D]`` the wrapper allocates.
 """
 
 from __future__ import annotations
@@ -99,9 +98,9 @@ k_contiguous_copies = 0
 
 
 def k_contiguous(w: torch.Tensor) -> torch.Tensor:
-    """The ``[N, K]`` copy of an int8 weight ``[K, N]`` that B3 reads, made
-    on the first call for this tensor and kept on it: a weight is copied
-    once, never per call."""
+    """The ``[N, K]`` copy of an int8 weight ``[K, N]`` that B2, B3 and B8
+    read, made on the first call for this tensor and kept on it: a weight
+    is copied once, never per call."""
     global k_contiguous_copies
     kc = getattr(w, "_ac_k_contiguous", None)
     if kc is None:
@@ -111,12 +110,17 @@ def k_contiguous(w: torch.Tensor) -> torch.Tensor:
     return kc
 
 
-def prepare_ffn_weights(params) -> None:
+#: the int8 weights the kernels read K-contiguous: QKV (B2), O (B8), the
+#: FFN's two (B3, B8)
+_K_CONTIGUOUS_WEIGHTS = ("qkv_w.int8", "o_w.int8", "ffn_in_w.int8", "ffn_out_w.int8")
+
+
+def prepare_int8_weights(params) -> None:
     """The int8 load path's step on a CUDA device: the K-contiguous copy of
-    every layer's FFN weights (``ffn_in_w.int8``, ``ffn_out_w.int8``) of an
-    int8 encoder state, so no forward makes one."""
+    every layer's QKV, O and FFN weights of an int8 encoder state, so no
+    forward makes one."""
     for key, w in params.items():
-        if key.endswith(("ffn_in_w.int8", "ffn_out_w.int8")):
+        if key.endswith(_K_CONTIGUOUS_WEIGHTS):
             k_contiguous(w)
 
 
@@ -129,13 +133,15 @@ def _check_smem(name: str, device: torch.device, D: int, F: int, need: int):
                          f"memory per block, the device has {have}")
 
 
-def ffn_block_info(D: int, F: int) -> dict:
-    """What B3 would launch at widths D, F on the current CUDA device, as
-    the CUDA runtime reports the instantiation: registers per thread,
-    shared bytes per block, threads per block, blocks resident per SM,
-    local (spill) bytes per thread and rows per block.  Launches nothing."""
+def ffn_block_info(D: int, F: int, o_proj: bool = False) -> dict:
+    """What B3 (B8 with ``o_proj``) would launch at widths D, F on the
+    current CUDA device, as the CUDA runtime reports the instantiation:
+    registers per thread, shared bytes per block, threads per block, blocks
+    resident per SM, local (spill) bytes per thread and rows per block.
+    Launches nothing."""
     info = (ctypes.c_int * 6)()
-    _build.check(_build.library().ac_ffn_block_int8_info(D, F, info), "ffn_block_int8_info")
+    _build.check(_build.library().ac_ffn_block_int8_info(D, F, int(o_proj), info),
+                 "ffn_block_int8_info")
     return dict(zip(("registers", "shared_bytes", "threads", "blocks_per_sm",
                      "local_bytes", "rows"), info))
 
@@ -157,7 +163,7 @@ def ffn_block_int8(h, w1_q, s1, b1, w2_q, s2, b2, ln_scale, ln_bias,
                      s2, b2, ln_scale, ln_bias)
     # its 32-row tile (64 rows where they fit)
     _check_smem(name, h.device, D, F,
-                _build.library().ac_ffn_block_int8_smem_bytes(D, F, 32))
+                _build.library().ac_ffn_block_int8_smem_bytes(D, F, 32, 0))
     out = torch.empty_like(h)
     launch(name, "ffn_int8", h.device, _build.library().ac_ffn_block_int8, *ptrs,
            float(eps), out.data_ptr(), M, D, F, _DTYPE_CODES[h.dtype])
@@ -178,11 +184,18 @@ def attn_ffn_block_int8(ctx, x, o_wq, o_s, o_b, ln1_scale, ln1_bias,
         return attn_ffn_block_int8_ref(ctx, x, o_wq, o_s, o_b, ln1_scale, ln1_bias,
                                        w1_q, s1, b1, w2_q, s2, b2, ln2_scale,
                                        ln2_bias, eps)
-    ptrs = cuda_args(name, ctx.device, ctx, x, o_wq, o_s, o_b, ln1_scale, ln1_bias,
-                     w1_q, s1, b1, w2_q, s2, b2, ln2_scale, ln2_bias)
-    # its two-pass tile (one pass where that fits)
-    _check_smem(name, ctx.device, D, F, _build.library().ac_ffn_int8_smem_bytes(D, F, 1))
+    if D > B3_MAX_D:
+        raise ValueError(f"{name}: D={D} > {B3_MAX_D}: the kernel keeps every "
+                         f"column of its rows in registers")
+    ptrs = cuda_args(name, ctx.device, ctx, x, k_contiguous(o_wq), o_s, o_b, ln1_scale,
+                     ln1_bias, k_contiguous(w1_q), s1, b1, k_contiguous(w2_q), s2, b2,
+                     ln2_scale, ln2_bias)
+    # its 32-row tile (64 rows where they fit)
+    _check_smem(name, ctx.device, D, F,
+                _build.library().ac_ffn_block_int8_smem_bytes(D, F, 32, 1))
+    h = torch.empty((M, D), dtype=torch.float32, device=ctx.device)   # LN1's rows
     out = torch.empty_like(ctx)
     launch(name, "attn_ffn_int8", ctx.device, _build.library().ac_attn_ffn_block_int8,
-           *ptrs, float(eps), out.data_ptr(), M, D, F, _DTYPE_CODES[ctx.dtype])
+           *ptrs, float(eps), h.data_ptr(), out.data_ptr(), M, D, F,
+           _DTYPE_CODES[ctx.dtype])
     return out

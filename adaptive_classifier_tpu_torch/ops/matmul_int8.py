@@ -13,9 +13,11 @@ Counterpart of ``adaptive_classifier_tpu/ops/matmul_int8.py``.
 
 Each wrapper takes its plain version (``*_ref``) for a CPU tensor and
 launches its CUDA kernel (``csrc/matmul_int8.cu``) for a CUDA tensor, or
-raises; there is no fallback between them.  The plain versions repeat the
-kernels' arithmetic step for step: the int8 operands agree bit for bit and
-the int32 sums are exact, so only the LayerNorm's sum order differs.
+raises; there is no fallback between them.  B2's kernel reads the weight's
+K-contiguous copy (``ffn_int8.k_contiguous``, made once per weight; the CPU
+path never reads it).  The plain versions repeat the kernels' arithmetic
+step for step: the int8 operands agree bit for bit and the int32 sums are
+exact, so only the LayerNorm's sum order differs.
 
 The shared pieces, ``quant_rows``, ``int8_matmul`` and ``layer_norm``, are
 also the plain arithmetic of ``ops.ffn_int8`` and ``models.encoder_int8``.
@@ -23,6 +25,7 @@ also the plain arithmetic of ``ops.ffn_int8`` and ``models.encoder_int8``.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -135,6 +138,19 @@ def launch(name: str, counter: str, device: torch.device, fn, *args):
     launch_counts[counter] += 1
 
 
+def quant_matmul_info(M: int, K: int, N: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """What B2 would launch for ``[M, K]`` rows of ``dtype`` and N columns
+    on the current CUDA device, as the CUDA runtime reports the
+    instantiation: registers per thread, shared bytes per block, threads per
+    block, blocks resident per SM, local (spill) bytes per thread, rows and
+    columns a block, and blocks in the grid.  Launches nothing."""
+    info = (ctypes.c_int * 8)()
+    _build.check(_build.library().ac_quant_matmul_int8_info(M, K, N, _DTYPE_CODES[dtype],
+                                                            info), "quant_matmul_int8_info")
+    return dict(zip(("registers", "shared_bytes", "threads", "blocks_per_sm",
+                     "local_bytes", "rows", "columns", "blocks"), info))
+
+
 def quant_matmul_int8(x: torch.Tensor, w_q: torch.Tensor, s: torch.Tensor,
                       b: torch.Tensor) -> torch.Tensor:
     """B2: ``(q(x) @ w_q) · x_scale · s + b`` → ``[M, N]`` in x's type; the
@@ -144,8 +160,10 @@ def quant_matmul_int8(x: torch.Tensor, w_q: torch.Tensor, s: torch.Tensor,
     check_weight("quant_matmul_int8", w_q, K, w_q.shape[-1], s, b)
     if x.device.type == "cpu":
         return quant_matmul_int8_ref(x, w_q, s, b)
+    from .ffn_int8 import k_contiguous    # ffn_int8 imports this module
+
     N = w_q.shape[1]
-    ptrs = cuda_args("quant_matmul_int8", x.device, x, w_q, s, b)
+    ptrs = cuda_args("quant_matmul_int8", x.device, x, k_contiguous(w_q), s, b)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     launch("quant_matmul_int8", "matmul_int8", x.device,
            _build.library().ac_quant_matmul_int8, *ptrs, out.data_ptr(), M, K, N,

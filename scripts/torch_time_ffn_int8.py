@@ -1,5 +1,6 @@
-"""Time the port's int8 FFN kernel B3 (and B8 beside it) on one NVIDIA GPU,
-for an A/B of two versions of the package in one call.
+"""Time the port's int8 kernels B2 (QKV projection), B3 (FFN block) and B8
+(post-attention body) on one NVIDIA GPU, for an A/B of two versions of the
+package in one call.
 
     python3 scripts/torch_time_ffn_int8.py [--root DIR]
 
@@ -7,11 +8,11 @@ for an A/B of two versions of the package in one call.
 package (default: this checkout), so a copy of another commit's package,
 unpacked with ``git archive`` into a git-ignored directory, is timed by the
 same code; run the two roots in turns (parent, change, change, parent), one
-process each.  B3 runs at the banking-intents chunk (M = 8,192 rows of
-D 512, F 2,048), the hallucination-detector chunk (M = 32,768) and a
-bert-base batch of 32 x 128 (M = 4,096, D 768, F 3,072); B8 at the zoo
-chunks.  Seeded random bf16 rows and int8 weights quantized as the port
-quantizes a checkpoint.  A time is the device's, in ms per call: the best
+process each.  Each kernel runs at the banking-intents chunk (M = 8,192
+rows of D 512, F 2,048; B2's N = 3D = 1,536), the hallucination-detector
+chunk (M = 32,768) and a bert-base batch of 32 x 128 (M = 4,096, D 768,
+F 3,072, N 2,304).  Seeded random bf16 rows and int8 weights quantized as
+the port quantizes a checkpoint.  A time is the device's, in ms per call: the best
 of three runs of 20 calls, the stream held by a GPU sleep until the host
 has queued them.  Each line also gives the per-row cosine against the
 plain version, the share of outputs equal to it bit for bit and, where the
@@ -48,15 +49,15 @@ def device_ms(fn, iters: int = 20) -> float:
 
 
 def layer(M, D, F, quantize_weight, seed=0):
-    """Rows h and x [M, D] bf16; int8 O, W1, W2 with scales and biases; two
-    LayerNorms."""
+    """Rows h and x [M, D] bf16; int8 O, QKV, W1, W2 with scales and
+    biases; two LayerNorms."""
     r = np.random.default_rng(seed)
 
     def vec(n, loc=0.0, scale=0.01):
         return torch.from_numpy((loc + scale * r.standard_normal(n)).astype(np.float32)).cuda()
 
     mats = {}
-    for name, shape in (("o", (D, D)), ("w1", (D, F)), ("w2", (F, D))):
+    for name, shape in (("o", (D, D)), ("qkv", (D, 3 * D)), ("w1", (D, F)), ("w2", (F, D))):
         q, s = quantize_weight(torch.from_numpy(
             (0.05 * r.standard_normal(shape)).astype(np.float32)))
         mats[name] = (q.cuda(), s.cuda(), vec(shape[1]))
@@ -75,7 +76,7 @@ def main() -> int:
         return 1
     root = str(Path(args.root).resolve())
     sys.path.insert(0, root)
-    from adaptive_classifier_tpu_torch.ops import ffn_int8 as f8
+    from adaptive_classifier_tpu_torch.ops import ffn_int8 as f8, matmul_int8 as m8
     from adaptive_classifier_tpu_torch.quantization import quantize_weight
 
     if not f8.__file__.startswith(root):
@@ -83,20 +84,27 @@ def main() -> int:
     out = {}
     for name, (M, D, F) in SHAPES.items():
         h, x, m, lns = layer(M, D, F, quantize_weight)
-        calls = {"ffn_block_int8": (h, *m["w1"], *m["w2"], *lns[0], 1e-12)}
-        if D == 512:
-            calls["attn_ffn_block_int8"] = (h, x, *m["o"], *lns[0], *m["w1"], *m["w2"],
-                                            *lns[1], 1e-12)
-        for kern, a in calls.items():
-            f, ref = getattr(f8, kern), getattr(f8, kern + "_ref")
+        calls = {"quant_matmul_int8": (m8, (h, *m["qkv"])),
+                 "ffn_block_int8": (f8, (h, *m["w1"], *m["w2"], *lns[0], 1e-12)),
+                 "attn_ffn_block_int8": (f8, (h, x, *m["o"], *lns[0], *m["w1"], *m["w2"],
+                                              *lns[1], 1e-12))}
+        for kern, (mod, a) in calls.items():
+            f, ref = getattr(mod, kern), getattr(mod, kern + "_ref")
             got, want = f(*a), ref(*a)
             g, w = got.float(), want.float()
             row = {"ms": min(device_ms(lambda: f(*a)) for _ in range(3)),
                    "min_row_cosine": ((g * w).sum(1) / (g.norm(dim=1) * w.norm(dim=1)))
                    .min().item(),
-                   "bit_equal_share": (got == want).float().mean().item()}
-            if kern == "ffn_block_int8" and hasattr(f8, "ffn_block_info"):
-                row["instantiation"] = f8.ffn_block_info(D, F)
+                   "bit_equal_share": (got == want).double().mean().item()}
+            try:        # what each version of the package reports
+                if kern == "quant_matmul_int8":
+                    row["instantiation"] = m8.quant_matmul_info(M, D, 3 * D)
+                elif kern == "attn_ffn_block_int8":
+                    row["instantiation"] = f8.ffn_block_info(D, F, o_proj=True)
+                else:
+                    row["instantiation"] = f8.ffn_block_info(D, F)
+            except (AttributeError, TypeError):
+                pass
             out[f"{kern} {name}"] = row
         del h, x, m, lns, calls
         torch.cuda.empty_cache()

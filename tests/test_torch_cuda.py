@@ -365,6 +365,24 @@ def test_quant_matmul_kernel_matches_plain(cuda, dtype, M):
     _assert_int8_close(got, want, dtype, f32_atol=1e-5)
 
 
+# B2 at the zoo's N (1,536) and bert-base's (2,304), at a bert-base batch
+# (M 4,096), a ragged banking chunk and a short batch: the int8 operands and
+# int32 sums are exact and each epilogue step rounds as the plain version's,
+# so every output equals it bit for bit
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [4096, 8192 + 37, 200])
+@pytest.mark.parametrize("D", [512, 768])
+def test_quant_matmul_kernel_equals_plain_bit_for_bit(cuda, dtype, M, D):
+    (x, _), m, _ = _int8_layer(cuda, 7, M, dtype, D=D, F=4 * D)
+    port.reset_launch_counts()
+    got = matmul_int8.quant_matmul_int8(x, *m["qkv"])
+    want = matmul_int8.quant_matmul_int8_ref(x, *m["qkv"])
+    torch.cuda.synchronize()
+    assert port.launch_counts["matmul_int8"] == 1
+    assert got.shape == (M, 3 * D) and got.dtype == dtype
+    assert int((got != want).sum()) == 0
+
+
 @pytest.mark.parametrize("dtype,M", _INT8_CASES)
 def test_proj_residual_ln_kernel_matches_plain(cuda, dtype, M):
     (x, res), m, lns = _int8_layer(cuda, 1, M, dtype)
@@ -416,8 +434,8 @@ def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         ffn_int8.ffn_block_int8(x, m["w1"][0].float(), *m["w1"][1:], *m["w2"], *lns[0],
                                 1e-12)
     with pytest.raises(ValueError, match="shared memory"):
-        # F = 16,384 needs more shared memory than a block has, even with
-        # the GELU tile held as int8 (two passes)
+        # F = 16,384: its q(f) tile alone needs more shared memory than a
+        # block has
         r = np.random.default_rng(0)
         w1 = _int8_weight(r, (512, 16384), cuda)
         w2 = _int8_weight(r, (16384, 512), cuda)
@@ -427,12 +445,10 @@ def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 @pytest.mark.parametrize("fuse_o", [False, True])
 @pytest.mark.parametrize("dtype,M", [(torch.float32, 1000), (torch.bfloat16, 4096)])
 def test_ffn_blocks_two_pass_at_bert_base_width(cuda, fuse_o, dtype, M):
-    """At D 768, F 3,072 the f32 GELU tile does not fit a block: B3 and B8
-    take their two-pass route and still match their plain versions."""
+    """At D 768, F 3,072 B3 and B8 run their two passes over W1 in 32-row
+    blocks and match their plain versions."""
     (x, y), m, lns = _int8_layer(cuda, 5, M, dtype, D=768, F=3072)
-    props = torch.cuda.get_device_properties(cuda)
-    assert (ffn_int8._build.library().ac_ffn_int8_smem_bytes(768, 3072, 0)
-            > props.shared_memory_per_block_optin)
+    assert ffn_int8.ffn_block_info(768, 3072, o_proj=fuse_o)["rows"] == 32
     port.reset_launch_counts()
     if fuse_o:
         args = (x, y, *m["o"], *lns[0], *m["w1"], *m["w2"], *lns[1], 1e-12)
@@ -444,6 +460,25 @@ def test_ffn_blocks_two_pass_at_bert_base_width(cuda, fuse_o, dtype, M):
         want = ffn_int8.ffn_block_int8_ref(*args)
     torch.cuda.synchronize()
     assert port.launch_counts["attn_ffn_int8" if fuse_o else "ffn_int8"] == 1
+    _assert_int8_close(got, want, dtype)
+
+
+# B8 at the zoo's widths (64-row blocks) and bert-base's (32-row blocks), at
+# M a multiple of the block, ragged past it, and short
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,F,M", [(512, 2048, 8192), (512, 2048, 8192 + 37),
+                                   (512, 2048, 200), (768, 3072, 4096),
+                                   (768, 3072, 4096 + 37), (768, 3072, 200)])
+def test_attn_ffn_block_kernel_ragged_rows_and_widths(cuda, dtype, D, F, M):
+    (ctx, x), m, lns = _int8_layer(cuda, 8, M, dtype, D=D, F=F)
+    args = (ctx, x, *m["o"], *lns[0], *m["w1"], *m["w2"], *lns[1], 1e-12)
+    port.reset_launch_counts()
+    got = ffn_int8.attn_ffn_block_int8(*args)
+    want = ffn_int8.attn_ffn_block_int8_ref(*args)
+    torch.cuda.synchronize()
+    assert port.launch_counts["attn_ffn_int8"] == 1
+    assert port.launch_counts["ffn_int8"] == 0
+    assert got.shape == (M, D) and got.dtype == dtype
     _assert_int8_close(got, want, dtype)
 
 
@@ -480,22 +515,50 @@ def test_ffn_block_instantiation(cuda):
         assert info["shared_bytes"] <= props.shared_memory_per_block_optin
 
 
+#: B8's local memory per thread (bytes) as measured on an H100 at D 512,
+#: 768 and 1,024: B3's (160, 48, 168) plus the frame of its non-inlined
+#: O-projection stage; its spill stores (ptxas) are below B3's at D 512
+_B8_LOCAL_BYTES = {512: 168, 768: 56, 1024: 232}
+
+
+def test_post_attention_body_and_qkv_instantiation(cuda):
+    """B8 runs B3's blocks (64 rows at the zoo's widths, 32 at bert-base's
+    and bert-large's, 16 warps, one block per SM) with no more local memory
+    than measured for this design; B2 runs at least two blocks per SM, on a
+    grid of at least two blocks per SM at every main-path shape, with no
+    spills."""
+    props = torch.cuda.get_device_properties(cuda)
+    for (D, F), rows in (((512, 2048), 64), ((768, 3072), 32), ((1024, 4096), 32)):
+        b8 = ffn_int8.ffn_block_info(D, F, o_proj=True)
+        assert b8["rows"] == rows and b8["threads"] == 512
+        assert b8["blocks_per_sm"] == 1
+        assert b8["shared_bytes"] <= props.shared_memory_per_block_optin
+        assert b8["local_bytes"] <= _B8_LOCAL_BYTES[D]
+    for M, D in ((8192, 512), (32768, 512), (4096, 768)):
+        b2 = matmul_int8.quant_matmul_info(M, D, 3 * D)
+        assert b2["blocks_per_sm"] >= 2
+        assert b2["blocks"] >= 2 * props.multi_processor_count
+        assert b2["local_bytes"] == 0
+
+
 def test_int8_load_makes_the_k_contiguous_copies_once(cuda, tmp_path):
-    """The int8 load path makes B3's K-contiguous weights once, two per
-    layer; serving makes none."""
+    """The int8 load path makes the K-contiguous weights of B2, B3 and B8
+    once, four per layer (QKV, O and the FFN's two); serving makes none."""
     before = ffn_int8.k_contiguous_copies
     clf = port.AdaptiveClassifier.load(_int8_zoo(tmp_path))
     layers = clf.encoder.config.num_layers
-    assert ffn_int8.k_contiguous_copies == before + 2 * layers
-    w = clf.encoder.params["layers.0.ffn_in_w.int8"]
-    assert torch.equal(w._ac_k_contiguous, w.t())
+    assert ffn_int8.k_contiguous_copies == before + 4 * layers
+    for name in ("qkv_w", "o_w", "ffn_in_w", "ffn_out_w"):
+        w = clf.encoder.params[f"layers.0.{name}.int8"]
+        assert torch.equal(w._ac_k_contiguous, w.t())
     data = json.loads((REPO / "data/intents.json").read_text())
     texts = [t for ts in data["test"].values() for t in ts]
     for _ in range(2):
         port.reset_launch_counts()
         clf.predict_batch(texts, k=1)
         assert port.launch_counts["ffn_int8"] == layers
-    assert ffn_int8.k_contiguous_copies == before + 2 * layers
+        assert port.launch_counts["matmul_int8"] == layers
+    assert ffn_int8.k_contiguous_copies == before + 4 * layers
 
 
 def _int8_zoo(tmp_path, task="banking-intents"):
