@@ -27,11 +27,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// wait until at most n (0 or 1; a constant once the caller's loop is
+// wait until at most n (0, 1 or 2; a constant once the caller's loop is
 // unrolled) committed groups are in flight
 __device__ __forceinline__ void cp_async_wait_pending(int n) {
   if (n <= 0) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  else asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else if (n == 1) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else asm volatile("cp.async.wait_group 2;\n" ::: "memory");
 }
 
 // four 8 x 8 matrices of 16-bit elements (8 rows of 16 bytes each); lanes

@@ -114,98 +114,6 @@ __host__ __device__ inline Layout layout(int D, int F) {
   return l;
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// elements i, i + 1 of a float32 or bfloat16 array
-__device__ __forceinline__ float2 load2(const void* p, bool bf16, size_t i) {
-  if (bf16)
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-        static_cast<const __nv_bfloat16*>(p) + i));
-  return *reinterpret_cast<const float2*>(static_cast<const float*>(p) + i);
-}
-
-__device__ __forceinline__ void store2(void* p, bool bf16, size_t i, float a, float b) {
-  if (bf16)
-    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p) + i) =
-        __floats2bfloat162_rn(a, b);
-  else
-    *reinterpret_cast<float2*>(static_cast<float*>(p) + i) = make_float2(a, b);
-}
-
-// The totals of the thread's four rows (row0 + 16m + acc_row(2 hf)) over
-// the block's WN column warps: part(m, hf), the thread's own part of a row
-// (a sum, or a maximum of values >= 0), then the quad's, then the warps' in
-// order through red [R][WN].  Two barriers; red is free again on return.
-template <int WN_, bool MAX, typename Part>
-__device__ __forceinline__ void row_totals(float (&tot)[2][2], float* red, int row0,
-                                           Part part) {
-  const int lane = threadIdx.x & 31, wn = (threadIdx.x >> 5) % WN_;
-  #pragma unroll
-  for (int m = 0; m < 2; ++m)
-    #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const float p = part(m, hf);
-      const float v = MAX ? quad_max(p) : quad_sum(p);
-      if ((lane & 3) == 0) red[(row0 + 16 * m + acc_row(2 * hf)) * WN_ + wn] = v;
-    }
-  __syncthreads();
-  #pragma unroll
-  for (int m = 0; m < 2; ++m)
-    #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const float* rp = red + (row0 + 16 * m + acc_row(2 * hf)) * WN_;
-      float t = 0.f;
-      #pragma unroll
-      for (int w = 0; w < WN_; ++w) t = MAX ? fmaxf(t, rp[w]) : t + rp[w];
-      tot[m][hf] = t;
-    }
-  __syncthreads();                      // red is read before it is rewritten
-}
-
-// LayerNorm statistics of the thread's rows of y (a warp's 2 x NT tiles of
-// the second product's geometry, all D columns across the WN warps): the
-// row's sum, then its squared deviations, each over all D columns.
-template <int WN_, int NT>
-__device__ __forceinline__ void ln_stats(const float (&y)[2][NT][4], float* red, int row0,
-                                         int D, float eps, float (&mean)[2][2],
-                                         float (&inv)[2][2]) {
-  row_totals<WN_, false>(mean, red, row0, [&](int m, int hf) {
-    float p = 0.f;
-    #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      #pragma unroll
-      for (int e = 0; e < 2; ++e) p += y[m][n][2 * hf + e];
-    return p;
-  });
-  #pragma unroll
-  for (int m = 0; m < 2; ++m)
-    #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) mean[m][hf] = mean[m][hf] / (float)D;
-  row_totals<WN_, false>(inv, red, row0, [&](int m, int hf) {
-    float p = 0.f;
-    #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float d = y[m][n][2 * hf + e] - mean[m][hf];
-        p += d * d;
-      }
-    return p;
-  });
-  #pragma unroll
-  for (int m = 0; m < 2; ++m)
-    #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) inv[m][hf] = 1.0f / sqrtf(inv[m][hf] / (float)D + eps);
-}
-
 // B8's stage-0 arguments, in shared memory: the stage is not inlined (so
 // its registers are allocated apart from the FFN passes'), and it loads each
 // of these where it uses it instead of holding it in a register

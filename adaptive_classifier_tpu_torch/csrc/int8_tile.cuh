@@ -12,24 +12,16 @@
 // - the f32 scale/bias epilogue (acc * row_scale) * col_scale + bias, each
 //   step rounded on its own (no fused multiply-add), as the plain versions
 //   compute it;
-// - a row LayerNorm with f32 statistics.
+// - a row LayerNorm with f32 statistics, its sums reduced across the
+//   column warps of a block (ln_stats).
 //
-// ring_gemm (B2, B3, B8) reads the weights K-contiguous: [N, K] copies made
-// once when the int8 weights reach the device (ops/ffn_int8.py
-// k_contiguous), so a slice is a block of whole 16-byte rows.  It copies
-// [NC, KS] slices by 16-byte cp.async into a ring of RING slots, one barrier
-// a slice, and reads both operands by ldmatrix: no register staging, no
-// byte permutes.  A slice keeps no row pad: its 16-byte chunks are
-// XOR-swizzled by row, so the eight rows an ldmatrix phase reads fall in
-// eight distinct bank groups.
-//
-// gemm_rows (B9 alone, which no path calls) is the first port's loop: it
-// reads the weights as the JAX package stores them, [K, N] row-major, and
-// stages a [tks, 64] slice transposed into shared memory as [64][tks + 16]:
-// each thread loads 4x4 byte blocks (four 4-byte words from four K rows),
-// turns them with byte permutes, and stores four words of four K values
-// each.  The next slice is loaded into registers while the current one is
-// multiplied.
+// ring_gemm reads the weights K-contiguous: [N, K] copies made once per
+// weight (ops/ffn_int8.py k_contiguous), so a slice is a block of whole
+// 16-byte rows.  It copies [NC, KS] slices by 16-byte cp.async into a ring
+// of RING slots, one barrier a slice, and reads both operands by ldmatrix:
+// no register staging, no byte permutes.  A slice keeps no row pad: its
+// 16-byte chunks are XOR-swizzled by row, so the eight rows an ldmatrix
+// phase reads fall in eight distinct bank groups.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -42,28 +34,13 @@ namespace ac_int8 {
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int TN = 64;          // output columns per staged weight slice
-constexpr int MAX_TKS = 512;    // contraction rows per staged weight slice
-constexpr int MAX_PRE = MAX_TKS / 64;  // 4x4 byte blocks per thread per slice
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 __device__ __forceinline__ float warp_max(float v) {
   #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
@@ -125,36 +102,6 @@ __device__ void quant_rows_global(const T* __restrict__ x, int M, int K, int m0,
   }
 }
 
-// LayerNorm of rows of an f32 shared-memory array: mean and
-// variance in f32 over D columns, (v - mean) * rsqrt(var + eps) * g + beta,
-// each row also written to out (row stride D) in T where m0 + r < M.  One
-// warp per row.
-template <typename T>
-__device__ void layer_norm_rows(const float* v, int ldv, int D, int rows,
-                                const float* __restrict__ g,
-                                const float* __restrict__ beta, float eps,
-                                T* __restrict__ out, int m0, int M) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < rows; r += WARPS) {
-    const float* row = v + r * ldv;
-    float sum = 0.f;
-    for (int c = lane; c < D; c += 32) sum += row[c];
-    const float mean = warp_sum(sum) / (float)D;
-    float sq = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float d = row[c] - mean;
-      sq += d * d;
-    }
-    const float var = warp_sum(sq) / (float)D;
-    const float inv = 1.0f / sqrtf(var + eps);
-    const bool live = m0 + r < M;
-    for (int c = lane; c < D; c += 32) {
-      const float y = (row[c] - mean) * inv * g[c] + beta[c];
-      if (live) out[(size_t)(m0 + r) * D + c] = from_f32<T>(y);
-    }
-  }
-}
-
 __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], const uint32_t b[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
@@ -163,149 +110,13 @@ __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// A fragment of the m16n8k32 product: rows r0..r0+15, columns k..k+31 of
-// a row-major int8 array (row stride lda bytes) in shared memory.
-__device__ __forceinline__ void load_a(const int8_t* a, int lda, int r0, int k,
-                                       uint32_t f[4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int8_t* p0 = a + (r0 + g) * lda + k + 4 * t;
-  const int8_t* p1 = p0 + 8 * lda;
-  f[0] = *reinterpret_cast<const uint32_t*>(p0);
-  f[1] = *reinterpret_cast<const uint32_t*>(p1);
-  f[2] = *reinterpret_cast<const uint32_t*>(p0 + 16);
-  f[3] = *reinterpret_cast<const uint32_t*>(p1 + 16);
-}
-
-// B fragment: output columns n0..n0+7, contraction k..k+31 of the staged
-// slice bs [TN][ldb] (K contiguous for each column).
-__device__ __forceinline__ void load_b(const int8_t* bs, int ldb, int n0, int k,
-                                       uint32_t f[2]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int8_t* p = bs + (n0 + g) * ldb + k + 4 * t;
-  f[0] = *reinterpret_cast<const uint32_t*>(p);
-  f[1] = *reinterpret_cast<const uint32_t*>(p + 16);
-}
-
-// Slice (k0..k0+tks, n0..n0+TN) of w [K, N] into registers: 4x4 byte
-// blocks, block (kb, nb) = rows k0+4kb.., columns n0+4nb..  A warp's 32
-// lanes take 8 column blocks x 4 row blocks, so each K row is read as 32
-// contiguous bytes.  tks % 64 == 0, tks <= MAX_TKS.
-__device__ __forceinline__ void fetch_w(const int8_t* __restrict__ w, int N, int k0,
-                                        int n0, int tks, uint32_t pre[MAX_PRE][4]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int groups = tks / 64;       // per warp; 8 warps x groups x 32 blocks
-  #pragma unroll
-  for (int j = 0; j < MAX_PRE; ++j) {
-    if (j < groups) {
-      const int gid = warp + WARPS * j;
-      const int nb = (gid & 1) * 8 + (lane & 7);
-      const int kb = (gid >> 1) * 4 + (lane >> 3);
-      const int8_t* p = w + (size_t)(k0 + 4 * kb) * N + n0 + 4 * nb;
-      #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pre[j][i] = __ldg(reinterpret_cast<const uint32_t*>(p + (size_t)i * N));
-    }
-  }
-}
-
-// The registers of fetch_w, transposed into bs [TN][tks + 16].
-__device__ __forceinline__ void stash_w(int8_t* bs, int tks, const uint32_t pre[MAX_PRE][4]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ldb = tks + 16;
-  const int groups = tks / 64;
-  const int rot = (lane & 7) >> 1;
-  #pragma unroll
-  for (int j = 0; j < MAX_PRE; ++j) {
-    if (j < groups) {
-      const int gid = warp + WARPS * j;
-      const int nb = (gid & 1) * 8 + (lane & 7);
-      const int kb = (gid >> 1) * 4 + (lane >> 3);
-      const uint32_t r0 = pre[j][0], r1 = pre[j][1], r2 = pre[j][2], r3 = pre[j][3];
-      const uint32_t t0 = __byte_perm(r0, r1, 0x5140), t1 = __byte_perm(r2, r3, 0x5140);
-      const uint32_t t2 = __byte_perm(r0, r1, 0x7362), t3 = __byte_perm(r2, r3, 0x7362);
-      // c[i] = the four K values of column 4nb + i
-      const uint32_t c[4] = {__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
-                             __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632)};
-      #pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const int i = (s + rot) & 3;
-        const uint32_t v = i == 0 ? c[0] : i == 1 ? c[1] : i == 2 ? c[2] : c[3];
-        *reinterpret_cast<uint32_t*>(bs + (4 * nb + i) * ldb + 4 * kb) = v;
-      }
-    }
-  }
-}
-
-// Contraction depth of a staged slice: the largest of 512, 384, 256, 128
-// that divides K (K % 128 == 0).
-__host__ __device__ __forceinline__ int slice_depth(int K) {
-  for (int t = MAX_TKS; t > 128; t -= 128)
-    if (K % t == 0) return t;
-  return 128;
-}
-
-// C = A[rows of this block] x W over all N, in TN-column tiles.  The block's
-// 8 warps form a WARPS_M x WARPS_N grid; warp (wm, wn) owns rows
-// wm*MT*16.. (MT m16 tiles) and columns wn*NT*8.. (NT n8 tiles) of each
-// tile.  After the last slice of a column tile the warp calls
-// epi(n0, row0, col0, acc), where acc[m][n][i] is the int32 sum at row
-// row0 + 16m + g + 8*(i >= 2), column n0 + col0 + 8n + 2t + (i & 1).
-// a: int8 [rows][lda] in shared memory; bs: staging, TN * (MAX_TKS + 16)
-// bytes.  K % 128 == 0, N % TN == 0.  Begins with a barrier, so a caller
-// that has just written a need not.
-template <int MT, int NT, int WARPS_N, typename Epi>
-__device__ void gemm_rows(const int8_t* a, int lda, const int8_t* __restrict__ w,
-                          int K, int N, int8_t* bs, Epi epi) {
-  static_assert(WARPS_N * NT * 8 == TN, "warps must tile the column slice");
-  const int warp = threadIdx.x >> 5;
-  const int row0 = (warp / WARPS_N) * MT * 16;
-  const int col0 = (warp % WARPS_N) * NT * 8;
-  const int tks = slice_depth(K);
-  const int ldb = tks + 16;
-  const int kst = K / tks;
-  const int total = kst * (N / TN);
-  uint32_t pre[MAX_PRE][4];
-  int acc[MT][NT][4];
-  fetch_w(w, N, 0, 0, tks, pre);
-  for (int s = 0; s < total; ++s) {
-    const int n0 = (s / kst) * TN, k0 = (s % kst) * tks;
-    if (k0 == 0) {
-      #pragma unroll
-      for (int m = 0; m < MT; ++m)
-        #pragma unroll
-        for (int n = 0; n < NT; ++n)
-          #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[m][n][i] = 0;
-    }
-    __syncthreads();                 // the previous slice is consumed
-    stash_w(bs, tks, pre);
-    __syncthreads();
-    if (s + 1 < total) {
-      const int s1 = s + 1;
-      fetch_w(w, N, (s1 % kst) * tks, (s1 / kst) * TN, tks, pre);
-    }
-    for (int kk = 0; kk < tks; kk += 32) {
-      uint32_t fa[MT][4], fb[NT][2];
-      #pragma unroll
-      for (int m = 0; m < MT; ++m) load_a(a, lda, row0 + 16 * m, k0 + kk, fa[m]);
-      #pragma unroll
-      for (int n = 0; n < NT; ++n) load_b(bs, ldb, col0 + 8 * n, kk, fb[n]);
-      #pragma unroll
-      for (int m = 0; m < MT; ++m)
-        #pragma unroll
-        for (int n = 0; n < NT; ++n) mma_s8(acc[m][n], fa[m], fb[n]);
-    }
-    if (k0 + tks == K) epi(n0, row0, col0, acc);
-  }
-}
-
 // Coordinates of accumulator entry i of an m16n8 tile, relative to the
 // tile's corner.
 __device__ __forceinline__ int acc_row(int i) { return ((threadIdx.x & 31) >> 2) + 8 * (i >> 1); }
 __device__ __forceinline__ int acc_col(int i) { return 2 * (threadIdx.x & 3) + (i & 1); }
 
 // ---------------------------------------------------------------------------
-// ring_gemm: K-contiguous weights through a cp.async ring (B2, B3, B8)
+// ring_gemm: K-contiguous weights through a cp.async ring (B2, B3, B8, B9)
 // ---------------------------------------------------------------------------
 
 // Geometry of one ring_gemm: WM x WN warps, each MT m16 x NT n8 tiles, so a
@@ -420,6 +231,103 @@ __device__ void ring_gemm(const int8_t* a, int lda, const int8_t* __restrict__ w
     }
     if (ks == kst - 1) epi(s / kst * G::NC, row0, col0, acc);
   }
+}
+
+// ---------------------------------------------------------------------------
+// epilogues (B3, B8, B9): pairs of elements, and row statistics reduced
+// across the column warps of a block
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// elements i, i + 1 of a float32 or bfloat16 array
+__device__ __forceinline__ float2 load2(const void* p, bool bf16, size_t i) {
+  if (bf16)
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+        static_cast<const __nv_bfloat16*>(p) + i));
+  return *reinterpret_cast<const float2*>(static_cast<const float*>(p) + i);
+}
+
+__device__ __forceinline__ void store2(void* p, bool bf16, size_t i, float a, float b) {
+  if (bf16)
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p) + i) =
+        __floats2bfloat162_rn(a, b);
+  else
+    *reinterpret_cast<float2*>(static_cast<float*>(p) + i) = make_float2(a, b);
+}
+
+// The totals of the thread's 2 MT rows (row0 + 16m + acc_row(2 hf)) over
+// the block's WN column warps: part(m, hf), the thread's own part of a row
+// (a sum, or a maximum of values >= 0), then the quad's, then the warps' in
+// order through red [rows][WN].  Two barriers; red is free again on return.
+template <int WN_, bool MAX, int MT, typename Part>
+__device__ __forceinline__ void row_totals(float (&tot)[MT][2], float* red, int row0,
+                                           Part part) {
+  const int lane = threadIdx.x & 31, wn = (threadIdx.x >> 5) % WN_;
+  #pragma unroll
+  for (int m = 0; m < MT; ++m)
+    #pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float p = part(m, hf);
+      const float v = MAX ? quad_max(p) : quad_sum(p);
+      if ((lane & 3) == 0) red[(row0 + 16 * m + acc_row(2 * hf)) * WN_ + wn] = v;
+    }
+  __syncthreads();
+  #pragma unroll
+  for (int m = 0; m < MT; ++m)
+    #pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float* rp = red + (row0 + 16 * m + acc_row(2 * hf)) * WN_;
+      float t = 0.f;
+      #pragma unroll
+      for (int w = 0; w < WN_; ++w) t = MAX ? fmaxf(t, rp[w]) : t + rp[w];
+      tot[m][hf] = t;
+    }
+  __syncthreads();                      // red is read before it is rewritten
+}
+
+// LayerNorm statistics of the thread's rows of y (a warp's MT x NT tiles
+// of a ring_gemm chunk that covers all D columns across the WN warps): the
+// row's sum, then its squared deviations, each over all D columns.
+template <int WN_, int MT, int NT>
+__device__ __forceinline__ void ln_stats(const float (&y)[MT][NT][4], float* red, int row0,
+                                         int D, float eps, float (&mean)[MT][2],
+                                         float (&inv)[MT][2]) {
+  row_totals<WN_, false>(mean, red, row0, [&](int m, int hf) {
+    float p = 0.f;
+    #pragma unroll
+    for (int n = 0; n < NT; ++n)
+      #pragma unroll
+      for (int e = 0; e < 2; ++e) p += y[m][n][2 * hf + e];
+    return p;
+  });
+  #pragma unroll
+  for (int m = 0; m < MT; ++m)
+    #pragma unroll
+    for (int hf = 0; hf < 2; ++hf) mean[m][hf] = mean[m][hf] / (float)D;
+  row_totals<WN_, false>(inv, red, row0, [&](int m, int hf) {
+    float p = 0.f;
+    #pragma unroll
+    for (int n = 0; n < NT; ++n)
+      #pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float d = y[m][n][2 * hf + e] - mean[m][hf];
+        p += d * d;
+      }
+    return p;
+  });
+  #pragma unroll
+  for (int m = 0; m < MT; ++m)
+    #pragma unroll
+    for (int hf = 0; hf < 2; ++hf) inv[m][hf] = 1.0f / sqrtf(inv[m][hf] / (float)D + eps);
 }
 
 }  // namespace ac_int8

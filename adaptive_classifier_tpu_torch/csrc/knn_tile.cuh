@@ -1,21 +1,27 @@
 // One 64x64 tile of query-prototype dot products and row norms, in f32 on
-// the CUDA cores.  Shared by kernel B4 (knn_sims.cu) and kernel B5
-// (knn_topk.cu), so both score a pair with the same arithmetic:
+// the CUDA cores (kernel B4, knn_sims.cu), and the score of a pair, shared
+// by kernels B4 and B5 (knn_topk.cu):
 //     d2 = max(|q|^2 + |p|^2 - 2 q.p, 0)
 // the expansion the TPU kernels use (adaptive_classifier_tpu/ops/knn.py:62-74,
 // ops/knn_topk.py:75-85), not the sum of (q - p)^2.
 //
-// A block of 256 threads walks the contraction in steps of TK columns.  Each
-// step copies a [64, TK] slice of the queries and of the prototypes from
-// device memory into shared memory, stored k-major so that a thread reads
-// its four rows of a column as one 16-byte load.  Thread (ty, tx) of the
-// 16x16 thread grid accumulates the 4x4 outputs at rows 4ty..4ty+3 and
-// columns 4tx..4tx+3.  While the slices sit in shared memory, threads 0-63
-// add the squares of one query row's slice and threads 64-127 those of one
-// prototype row's, so the norms cost no second read of device memory.
-// Rows past B or C and columns past D load as zero: any B, C and D work and
-// the ragged edges need no padding by the caller.  No TF32: every product
-// and sum is an f32 FMA.
+// B4 and B5 now form q.p differently: B4 by f32 FMAs in dot_tile below, B5
+// on the tensor cores in three TF32 products a pair (knn_topk.cu).  Both
+// errors are at f32's level (~1e-7 on unit rows), so a pair's two scores
+// may differ in their last bits; each kernel is held to its plain version
+// to 1e-5.
+//
+// dot_tile: a block of 256 threads walks the contraction in steps of TK
+// columns.  Each step copies a [64, TK] slice of the queries and of the
+// prototypes from device memory into shared memory, stored k-major so that
+// a thread reads its four rows of a column as one 16-byte load.  Thread
+// (ty, tx) of the 16x16 thread grid accumulates the 4x4 outputs at rows
+// 4ty..4ty+3 and columns 4tx..4tx+3.  While the slices sit in shared
+// memory, threads 0-63 add the squares of one query row's slice and
+// threads 64-127 those of one prototype row's, so the norms cost no second
+// read of device memory.  Rows past B or C and columns past D load as zero:
+// any B, C and D work and the ragged edges need no padding by the caller.
+// No TF32: every product and sum is an f32 FMA.
 #pragma once
 
 #include <cuda_runtime.h>

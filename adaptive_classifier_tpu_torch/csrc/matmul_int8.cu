@@ -16,10 +16,11 @@
 // (the JAX package's only caller is its test); it is held against its
 // plain version.
 //
-// What bounds B2 on an H100: bytes.  At the banking chunk (M = 8,192) the
-// function reads M*K*2 + K*N + 8N bytes and writes M*N*2: 34.4 MB, 10.3 us
-// at 3.35 TB/s, against 2*M*K*N = 12.9 GOP, 6.5 us at the 1,979 TOP/s int8
-// tensor-core peak.  B9 at the same M: 6*M*D + D*D bytes, 25.4 MB, 7.6 us.
+// What bounds them on an H100: bytes.  At the banking chunk (M = 8,192) B2
+// reads M*K*2 + K*N + 8N bytes and writes M*N*2: 34.4 MB, 10.3 us at 3.35
+// TB/s, against 2*M*K*N = 12.9 GOP, 6.5 us at the 1,979 TOP/s int8
+// tensor-core peak.  B9 at the same M: 6*M*D + D*D bytes, 25.4 MB, 7.6 us,
+// against 4.3 GOP, 2.2 us.
 //
 // B2's design.  The Pallas kernel is weight-stationary: one grid step holds
 // the whole [K, N] weight in VMEM.  Here the weights stay in the 50 MB L2
@@ -40,15 +41,25 @@
 // ones in a three-slot ring by 10-20%, and the third block beat a third
 // slot at the hallucination-detector chunk's 2,048 blocks.
 //
-// B9 keeps the first port's gemm_rows: 16-row tiles, [K, N] weights staged
-// transposed through registers, the residual and the bias added in f32
-// into a [16, D] f32 tile in shared memory, then one warp normalizes each
-// row.
+// B9's design.  The LayerNorm needs whole rows, so a block owns rows by all
+// D columns: 32 rows at D <= 512 (16 above, where 32 rows' accumulators
+// would not fit the registers of two blocks an SM), 8 warps side by side
+// over the columns (D / 64 each), so M = 8,192 launches 256 blocks, two an
+// SM.  The product is B2's ring_gemm on the weight's K-contiguous copy, in
+// [D, 64] slices through a two-slot ring.  Its epilogue is the O-projection
+// stage of B8 (ffn_block_int8.cu) without the re-quantization: the
+// dequantized rows plus bias and residual stay in the accumulators'
+// registers, ln_stats reduces each row's sum and squared deviations across
+// the 8 column warps through shared memory, and each thread writes its
+// normalized values straight to out.  No f32 tile of the rows and no
+// scratch: 82 KB of shared memory at D 512 (q(x) 17 KB, the ring 64 KB).
+// Every block reads the whole weight from L2 (256 KB at D 512).
 // Ragged M is masked in the kernels: no padding to a tile multiple.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <type_traits>
 
 #include "int8_tile.cuh"
 
@@ -60,15 +71,14 @@ using namespace ac_int8;
 using B2Gemm = Ring<2, 4, 2, 4, 128>;
 constexpr int B2_RING = 2;
 constexpr int B2_GROUP = 3 * B2Gemm::NC;
-constexpr int B9_ROWS = 16;
 
-__device__ __forceinline__ void store_pair(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
+// B9: all D columns a block over 8 warps (NT = D / 64 n8 tiles each), MT
+// m16 tiles of rows: 32 rows (MT 2) up to D B9_WIDE_MAX_D, else 16
+template <int MT, int NT>
+using B9Gemm = Ring<1, 8, MT, NT, 64>;
+constexpr int B9_RING = 2;
+constexpr int B9_WIDE_MAX_D = 512;
+constexpr int B9_MAX_D = 1024;
 
 // Block b: rows (b / groups) * 64.., columns (b % groups) * B2_GROUP.. of
 // out, so the groups of one row tile run side by side.  wt [N][K] is w_q's
@@ -79,6 +89,7 @@ quant_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ wt,
                     const float* __restrict__ ws, const float* __restrict__ bias,
                     T* __restrict__ out, int M, int K, int N) {
   static_assert(B2Gemm::THREADS == THREADS, "quant_rows_global takes WARPS warps");
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
   extern __shared__ __align__(16) uint8_t smem[];
   const int lda = K + 16;
   int8_t* xq = reinterpret_cast<int8_t*>(smem);
@@ -103,43 +114,74 @@ quant_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ wt,
               const int c = n0 + col0 + 8 * n + acc_col(0);
               if (c >= nc) continue;
               const int col = c0 + c;
-              store_pair(out + (size_t)(m0 + r) * N + col,
-                         dequant(acc[m][n][2 * hf], xs[r], ws[col], bias[col]),
-                         dequant(acc[m][n][2 * hf + 1], xs[r], ws[col + 1], bias[col + 1]));
+              store2(out, BF16, (size_t)(m0 + r) * N + col,
+                     dequant(acc[m][n][2 * hf], xs[r], ws[col], bias[col]),
+                     dequant(acc[m][n][2 * hf + 1], xs[r], ws[col + 1], bias[col + 1]));
             }
           }
       });
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-proj_residual_ln_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
+// B9.  Block b: rows b * G::ROWS.., all D columns; wt [D][D] is w_q's
+// K-contiguous copy.
+template <typename T, int MT, int NT>
+__global__ void __launch_bounds__(THREADS, 2)
+proj_residual_ln_kernel(const T* __restrict__ x, const int8_t* __restrict__ wt,
                         const float* __restrict__ ws, const float* __restrict__ bias,
                         const T* __restrict__ res, const float* __restrict__ g,
                         const float* __restrict__ beta, float eps,
                         T* __restrict__ out, int M, int D) {
+  using G = B9Gemm<MT, NT>;
+  static_assert(G::THREADS == THREADS, "quant_rows_global takes WARPS warps");
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
   extern __shared__ __align__(16) uint8_t smem[];
-  const int ldy = D + 4;
   const int lda = D + 16;
-  float* ys = reinterpret_cast<float*>(smem);
-  int8_t* xq = reinterpret_cast<int8_t*>(ys + B9_ROWS * ldy);
-  float* xs = reinterpret_cast<float*>(xq + B9_ROWS * lda);
-  int8_t* bs = reinterpret_cast<int8_t*>(xs + B9_ROWS);
-  const int m0 = blockIdx.x * B9_ROWS;
+  int8_t* xq = reinterpret_cast<int8_t*>(smem);
+  float* xs = reinterpret_cast<float*>(smem + (size_t)G::ROWS * lda);
+  float* red = xs + G::ROWS;                                 // [ROWS][WN]
+  int8_t* ring = reinterpret_cast<int8_t*>(red + G::ROWS * G::WN);
+  const int m0 = blockIdx.x * G::ROWS;
 
-  quant_rows_global<true>(x, M, D, m0, B9_ROWS, xq, lda, xs);
-  gemm_rows<1, 1, 8>(xq, lda, w, D, D, bs,
-      [&](int n0, int row0, int col0, int (&acc)[1][1][4]) {
+  quant_rows_global<true>(x, M, D, m0, G::ROWS, xq, lda, xs);
+  ring_gemm<G, B9_RING>(xq, lda, wt, D, D, ring,
+      [&](int, int row0, int col0, int (&acc)[MT][NT][4]) {
+        // q(x) @ W * s_x * s_w + b + res, in the accumulators' own
+        // registers (each sum is read before its slot is rewritten)
+        float (&y)[MT][NT][4] = reinterpret_cast<float (&)[MT][NT][4]>(acc);
         #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = row0 + acc_row(i);
-          const int c = n0 + col0 + acc_col(i);
-          const float rv = m0 + r < M ? to_f32(res[(size_t)(m0 + r) * D + c]) : 0.f;
-          ys[r * ldy + c] = __fadd_rn(dequant(acc[0][0][i], xs[r], ws[c], bias[c]), rv);
-        }
+        for (int m = 0; m < MT; ++m)
+          #pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int r = row0 + 16 * m + acc_row(2 * hf);
+            const bool live = m0 + r < M;
+            #pragma unroll
+            for (int n = 0; n < NT; ++n) {
+              const int c = col0 + 8 * n + acc_col(0);
+              const float2 rv = live ? load2(res, BF16, (size_t)(m0 + r) * D + c)
+                                     : make_float2(0.f, 0.f);
+              const int a0 = acc[m][n][2 * hf], a1 = acc[m][n][2 * hf + 1];
+              y[m][n][2 * hf] = __fadd_rn(dequant(a0, xs[r], ws[c], bias[c]), rv.x);
+              y[m][n][2 * hf + 1] = __fadd_rn(dequant(a1, xs[r], ws[c + 1], bias[c + 1]), rv.y);
+            }
+          }
+        float mean[MT][2], inv[MT][2];
+        ln_stats<G::WN>(y, red, row0, D, eps, mean, inv);
+        #pragma unroll
+        for (int m = 0; m < MT; ++m)
+          #pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int r = row0 + 16 * m + acc_row(2 * hf);
+            if (m0 + r >= M) continue;
+            #pragma unroll
+            for (int n = 0; n < NT; ++n) {
+              const int c = col0 + 8 * n + acc_col(0);
+              const float a = (y[m][n][2 * hf] - mean[m][hf]) * inv[m][hf] * g[c] + beta[c];
+              const float b =
+                  (y[m][n][2 * hf + 1] - mean[m][hf]) * inv[m][hf] * g[c + 1] + beta[c + 1];
+              store2(out, BF16, (size_t)(m0 + r) * D + c, a, b);
+            }
+          }
       });
-  __syncthreads();
-  layer_norm_rows(ys, ldy, D, B9_ROWS, g, beta, eps, out, m0, M);
 }
 
 size_t quant_matmul_smem(int K) {
@@ -147,9 +189,19 @@ size_t quant_matmul_smem(int K) {
          B2_RING * (size_t)B2Gemm::SLOT;
 }
 
-size_t proj_ln_smem(int D) {
-  return (size_t)B9_ROWS * (D + 4) * sizeof(float) + (size_t)B9_ROWS * (D + 16) +
-         B9_ROWS * sizeof(float) + TN * (MAX_TKS + 16);
+size_t proj_ln_smem(int rows, int D) {
+  return (size_t)rows * (D + 16) + (size_t)rows * (1 + WARPS) * sizeof(float) +
+         B9_RING * (size_t)D * 64;
+}
+
+// the card's opt-in shared memory a block may hold
+cudaError_t smem_limit(size_t* have) {
+  int dev = 0, v = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *have = (size_t)v;
+  return err;
 }
 
 // info set: report the instantiation (int8_tile.cuh kernel_info; then rows
@@ -160,12 +212,10 @@ cudaError_t launch_matmul(const void* x, const int8_t* wt, const float* ws,
                           cudaStream_t stream, int* info) {
   auto* kernel = quant_matmul_kernel<T>;
   const size_t smem = quant_matmul_smem(K);
-  int dev = 0, have = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&have, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  size_t have = 0;
+  cudaError_t err = smem_limit(&have);
   if (err != cudaSuccess) return err;
-  if (smem > (size_t)have) return cudaErrorInvalidValue;
+  if (smem > have) return cudaErrorInvalidValue;
   const long long blocks = (long long)((M + B2Gemm::ROWS - 1) / B2Gemm::ROWS) *
                            ((N + B2_GROUP - 1) / B2_GROUP);
   if (info) {
@@ -181,24 +231,64 @@ cudaError_t launch_matmul(const void* x, const int8_t* wt, const float* ws,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_proj_ln(const void* x, const int8_t* w, const float* ws,
-                           const float* b, const void* res, const float* g,
-                           const float* beta, float eps, void* out, int M, int D,
-                           cudaStream_t stream) {
-  const size_t smem = proj_ln_smem(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      proj_residual_ln_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+struct ProjLnArgs {
+  const void *x, *res;
+  const int8_t* wt;
+  const float *ws, *b, *g, *beta;
+  float eps;
+  void* out;
+  int M, D;
+  cudaStream_t stream;
+  int* info;        // set: report the instantiation instead of launching
+};
+
+template <typename T, int NT>
+cudaError_t launch_proj_ln(const ProjLnArgs& a) {
+  constexpr int MT = NT * 64 <= B9_WIDE_MAX_D ? 2 : 1;
+  using G = B9Gemm<MT, NT>;
+  auto* kernel = proj_residual_ln_kernel<T, MT, NT>;
+  const size_t smem = proj_ln_smem(G::ROWS, a.D);
+  size_t have = 0;
+  cudaError_t err = smem_limit(&have);
   if (err != cudaSuccess) return err;
-  const int blocks = (M + B9_ROWS - 1) / B9_ROWS;
-  proj_residual_ln_kernel<T><<<blocks, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), w, ws, b, static_cast<const T*>(res), g, beta, eps,
-      static_cast<T*>(out), M, D);
+  if (smem > have) return cudaErrorInvalidValue;
+  const int blocks = (a.M + G::ROWS - 1) / G::ROWS;
+  if (a.info) {
+    a.info[5] = G::ROWS;
+    a.info[6] = blocks;
+    return ac_common::kernel_info(kernel, smem, G::THREADS, a.info);
+  }
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, G::THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.x), a.wt, a.ws, a.b, static_cast<const T*>(a.res), a.g,
+      a.beta, a.eps, static_cast<T*>(a.out), a.M, a.D);
   return cudaGetLastError();
 }
 
+// the instantiation for D = 64 NT (NT even: D % 128 == 0)
+template <typename T, int NT = 2>
+cudaError_t launch_proj_ln_width(const ProjLnArgs& a) {
+  if constexpr (NT * 64 > B9_MAX_D) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (a.D == NT * 64) return launch_proj_ln<T, NT>(a);
+    return launch_proj_ln_width<T, NT + 2>(a);
+  }
+}
+
+int proj_ln(const ProjLnArgs& a, int dtype) {
+  if (a.M <= 0 || a.D <= 0 || a.D % 128 != 0 || a.D > B9_MAX_D)
+    return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return (int)launch_proj_ln_width<float>(a);
+    case 1: return (int)launch_proj_ln_width<__nv_bfloat16>(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 bool bad_shape(int M, int K, int N) {
-  return M <= 0 || K <= 0 || N <= 0 || K % 128 != 0 || N % TN != 0;
+  return M <= 0 || K <= 0 || N <= 0 || K % 128 != 0 || N % 64 != 0;
 }
 
 int quant_matmul(const void* x, const void* wt, const void* ws, const void* b, void* out,
@@ -236,23 +326,24 @@ extern "C" int ac_quant_matmul_int8_info(int M, int K, int N, int dtype, int* in
                       info);
 }
 
-// dtype as above, of x, res and out.  x, res, out [M, D]; w [D, D] int8;
-// ws, b, g, beta [D] f32; D % 128 == 0.  Returns the launch's cudaError_t.
-extern "C" int ac_proj_residual_ln_int8(const void* x, const void* w, const void* ws,
+// B9.  dtype as above, of x, res and out.  x, res, out [M, D]; wt [D, D]
+// int8 (w_q transposed: K contiguous); ws, b, g, beta [D] f32; all
+// contiguous on the current device; D % 128 == 0, D <= 1,024.  Returns the
+// launch's cudaError_t.
+extern "C" int ac_proj_residual_ln_int8(const void* x, const void* wt, const void* ws,
                                         const void* b, const void* res, const void* g,
                                         const void* beta, float eps, void* out, int M,
                                         int D, int dtype, void* stream) {
-  if (bad_shape(M, D, D)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* wq = static_cast<const int8_t*>(w);
-  const float* s = static_cast<const float*>(ws);
-  const float* bb = static_cast<const float*>(b);
-  const float* gg = static_cast<const float*>(g);
-  const float* be = static_cast<const float*>(beta);
-  switch (dtype) {
-    case 0: return (int)launch_proj_ln<float>(x, wq, s, bb, res, gg, be, eps, out, M, D, st);
-    case 1:
-      return (int)launch_proj_ln<__nv_bfloat16>(x, wq, s, bb, res, gg, be, eps, out, M, D, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  return proj_ln({x, res, static_cast<const int8_t*>(wt), f(ws), f(b), f(g), f(beta), eps,
+                  out, M, D, static_cast<cudaStream_t>(stream), nullptr}, dtype);
+}
+
+// The kernel ac_proj_residual_ln_int8 would launch for [M, D] rows of
+// dtype: info[7] = registers per thread, shared bytes per block, threads per
+// block, blocks resident per SM, local (spill) bytes per thread, rows a
+// block, blocks in the grid.  Launches nothing.
+extern "C" int ac_proj_residual_ln_int8_info(int M, int D, int dtype, int* info) {
+  return proj_ln({nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0.f,
+                  nullptr, M, D, nullptr, info}, dtype);
 }

@@ -303,11 +303,29 @@ def params_from_tree(tree: Tree, device: Union[str, torch.device] = "cpu",
 # ---------------------------------------------------------------------------
 
 
+def _product_f32(x2d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x2d @ w`` in float32: the exact products of the operands' values
+    summed in f32, never rounded to the operands' type.  On CUDA a bf16
+    product takes ``torch.mm(..., out_dtype=torch.float32)``; elsewhere the
+    operands are upcast (a product of two bf16 values is exact in f32)."""
+    if x2d.device.type == "cuda" and x2d.dtype != torch.float32:
+        return torch.mm(x2d, w, out_dtype=torch.float32)
+    return torch.mm(x2d.float(), w.float())
+
+
 def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``x @ w + b`` → f32, the product on compute-dtype inputs.  torch's
-    bf16 product accumulates in f32 and rounds once to bf16 before the f32
-    bias add; in f32 the two paths are the same."""
-    return torch.matmul(x, w.to(x.dtype)).float() + b.float()
+    """``x @ w + b`` → f32, the product on compute-dtype operands with f32
+    sums and an f32 result, then the f32 bias: the caller's cast to the
+    compute dtype is the one rounding, as in the JAX package's
+    ``einsum(..., preferred_element_type=float32) + b`` (its
+    ``models/encoder.py:454-456, 514-515, 523-527``)."""
+    y = _product_f32(x.reshape(-1, x.shape[-1]), w.to(x.dtype))
+    return (y + b.float()).reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _linear_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The FFN's first projection: exact (erf) GELU of ``_linear`` → f32."""
+    return F.gelu(_linear(x, w, b), approximate="none")
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor, cfg: EncoderConfig,
@@ -403,8 +421,7 @@ def encoder_forward(
         attn_out = _linear(ctx, p["o_w"], p["o_b"])
         h = add_ln(attn_out.to(compute_dtype), x, p["attn_ln_scale"],
                    p["attn_ln_bias"], eps)
-        ff = F.gelu(_linear(h, p["ffn_in_w"], p["ffn_in_b"]),
-                    approximate="none").to(compute_dtype)
+        ff = _linear_gelu(h, p["ffn_in_w"], p["ffn_in_b"]).to(compute_dtype)
         ff = _linear(ff, p["ffn_out_w"], p["ffn_out_b"])
         h = add_ln(ff.to(compute_dtype), h, p["ffn_ln_scale"],
                    p["ffn_ln_bias"], eps)

@@ -98,8 +98,8 @@ k_contiguous_copies = 0
 
 
 def k_contiguous(w: torch.Tensor) -> torch.Tensor:
-    """The ``[N, K]`` copy of an int8 weight ``[K, N]`` that B2, B3 and B8
-    read, made on the first call for this tensor and kept on it: a weight
+    """The ``[N, K]`` copy of an int8 weight ``[K, N]`` that B2, B3, B8 and
+    B9 read, made on the first call for this tensor and kept on it: a weight
     is copied once, never per call."""
     global k_contiguous_copies
     kc = getattr(w, "_ac_k_contiguous", None)

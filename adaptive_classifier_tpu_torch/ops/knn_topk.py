@@ -9,7 +9,10 @@ writes and re-reads a ``[B, C]`` similarity matrix; kernel B5 never does.
   ``(vals [B, k], idx [B, k] int32)``.  The CPU path, and the yardstick the
   kernel is held to on the GPU.
 - ``topk_sims``: the wrapper.  A CPU tensor takes the plain version; a CUDA
-  tensor launches the kernel in ``csrc/knn_topk.cu`` or raises.
+  tensor launches the kernel in ``csrc/knn_topk.cu`` or raises.  The
+  kernel's dot products run on the tensor cores in three TF32 products
+  (f32-level error); its selection keeps each query's current k-th value
+  and inserts only the candidates above it.
 - ``topk_scores_fused``: ``topk_sims`` plus the reference's scoring tail:
   softmax over the k, id −1 and score 0 past the number of valid prototypes,
   and optionally the raw bias-free similarity of each neighbor.
@@ -20,6 +23,8 @@ writes and re-reads a ``[B, C]`` similarity matrix; kernel B5 never does.
 
 from __future__ import annotations
 
+import ctypes
+from functools import lru_cache
 from typing import Optional
 
 import torch
@@ -29,10 +34,6 @@ from . import _build, knn, launch_counts
 #: the kernel's largest k (the Pallas kernel's running-buffer width)
 KPAD = 128
 _NEG = -1e9
-#: pass-1 blocks per SM the split count aims for
-_BLOCKS_PER_SM = 2
-_MAX_SPLITS = 256
-_TILE = 64
 
 
 def _bias_or_zeros(protos: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -58,14 +59,41 @@ def topk_sims_ref(
     return vals, idx.to(torch.int32)
 
 
-def _splits(n_tiles: int, row_tiles: int, device: torch.device):
-    """(splits, tiles_per_split): enough pass-1 blocks to fill the card,
-    every split non-empty."""
+@lru_cache(maxsize=None)
+def topk_info(k: int, device_index: int = 0) -> dict:
+    """Kernel B5's first pass for k on a CUDA device, as the CUDA runtime
+    reports its instantiation: registers per thread, shared bytes per block,
+    threads per block, blocks resident per SM, local (spill) bytes per
+    thread, query rows a block, prototypes a tile, the sorted lists a block
+    keeps for each query (merged into one before it writes them), and the
+    most splits the second pass merges.  Launches nothing."""
+    info = (ctypes.c_int * 9)()
+    with torch.cuda.device(device_index):
+        _build.check(_build.library().ac_topk_sims_info(k, info), "knn_topk info")
+    return dict(zip(("registers", "shared_bytes", "threads", "blocks_per_sm",
+                     "local_bytes", "rows", "tile", "lists", "max_splits"), info))
+
+
+def _splits(B: int, C: int, info: dict, device: torch.device):
+    """(splits, tiles_per_split): one wave of pass-1 blocks that fills the
+    card, every split non-empty, within the splits pass 2 merges."""
+    n_tiles = -(-C // info["tile"])
+    row_tiles = -(-B // info["rows"])
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, min(n_tiles, _MAX_SPLITS,
-                      -(-_BLOCKS_PER_SM * sms // row_tiles)))
+    want = max(1, min(n_tiles, info["max_splits"],
+                      info["blocks_per_sm"] * sms // row_tiles))
     per = -(-n_tiles // want)
     return -(-n_tiles // per), per
+
+
+def _staged(x: torch.Tensor) -> torch.Tensor:
+    """``x [N, D]`` as the kernel stages it: 16-byte aligned rows (D a
+    multiple of 4, padded with zero columns, which add nothing to a dot
+    product or a norm)."""
+    pad = -x.shape[1] % 4
+    if pad == 0 and x.data_ptr() % 16 == 0:
+        return x
+    return torch.nn.functional.pad(x, (0, pad))
 
 
 def topk_sims_cuda(queries, protos, valid, k: int, bias=None):
@@ -78,8 +106,11 @@ def topk_sims_cuda(queries, protos, valid, k: int, bias=None):
     C = protos.shape[0]
     if not 1 <= k <= min(KPAD, C):
         raise ValueError(f"fused top-k takes 1 <= k <= min({KPAD}, C={C}), got {k}")
-    splits, per = _splits(-(-C // _TILE), -(-B // _TILE), queries.device)
     dev = queries.device
+    info = topk_info(k, dev.index if dev.index is not None else torch.cuda.current_device())
+    splits, per = _splits(B, C, info, dev)
+    queries, protos = _staged(queries), _staged(protos)
+    D = queries.shape[1]
     part_v = torch.empty((splits, B, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((splits, B, k), dtype=torch.int32, device=dev)
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)

@@ -13,7 +13,7 @@ Counterpart of ``adaptive_classifier_tpu/ops/matmul_int8.py``.
 
 Each wrapper takes its plain version (``*_ref``) for a CPU tensor and
 launches its CUDA kernel (``csrc/matmul_int8.cu``) for a CUDA tensor, or
-raises; there is no fallback between them.  B2's kernel reads the weight's
+raises; there is no fallback between them.  Both kernels read the weight's
 K-contiguous copy (``ffn_int8.k_contiguous``, made once per weight; the CPU
 path never reads it).  The plain versions repeat the kernels' arithmetic
 step for step: the int8 operands agree bit for bit and the int32 sums are
@@ -151,6 +151,24 @@ def quant_matmul_info(M: int, K: int, N: int, dtype: torch.dtype = torch.bfloat1
                      "local_bytes", "rows", "columns", "blocks"), info))
 
 
+#: widest D B9 takes: a block keeps all D columns of its rows in registers
+B9_MAX_D = 1024
+
+
+def proj_residual_ln_info(M: int, D: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """What B9 would launch for ``[M, D]`` rows of ``dtype`` on the current
+    CUDA device, as the CUDA runtime reports the instantiation: registers
+    per thread, shared bytes per block, threads per block, blocks resident
+    per SM, local (spill) bytes per thread, rows a block, and blocks in the
+    grid.  Launches nothing."""
+    info = (ctypes.c_int * 7)()
+    _build.check(_build.library().ac_proj_residual_ln_int8_info(M, D, _DTYPE_CODES[dtype],
+                                                                info),
+                 "proj_residual_ln_int8_info")
+    return dict(zip(("registers", "shared_bytes", "threads", "blocks_per_sm",
+                     "local_bytes", "rows", "blocks"), info))
+
+
 def quant_matmul_int8(x: torch.Tensor, w_q: torch.Tensor, s: torch.Tensor,
                       b: torch.Tensor) -> torch.Tensor:
     """B2: ``(q(x) @ w_q) · x_scale · s + b`` → ``[M, N]`` in x's type; the
@@ -182,7 +200,13 @@ def proj_residual_ln_int8(x: torch.Tensor, w_q: torch.Tensor, s: torch.Tensor,
     check_weight("proj_residual_ln_int8", w_q, D, D, s, b, ln_scale, ln_bias)
     if x.device.type == "cpu":
         return proj_residual_ln_int8_ref(x, w_q, s, b, res, ln_scale, ln_bias, eps)
-    ptrs = cuda_args("proj_residual_ln_int8", x.device, x, w_q, s, b, res,
+    if D > B9_MAX_D:
+        raise ValueError(f"proj_residual_ln_int8: D={D} > {B9_MAX_D}")
+    from .ffn_int8 import k_contiguous    # ffn_int8 imports this module
+
+    # the [D, D] copy with K contiguous that the kernel reads: made on the
+    # first call with this weight tensor and kept on it, never per call
+    ptrs = cuda_args("proj_residual_ln_int8", x.device, x, k_contiguous(w_q), s, b, res,
                      ln_scale, ln_bias)
     out = torch.empty_like(x)
     launch("proj_residual_ln_int8", "proj_residual_ln_int8", x.device,

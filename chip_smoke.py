@@ -14,7 +14,8 @@ Phases, each of which must pass:
    equal to the plain version's bit for bit is reported); the masked kNN
    similarities (B4) to max abs error <= 1e-5; the streaming top-k (B5) to
    identical indices on inputs with no near-ties, lower-index order on
-   exact ties, and values within 1e-5; the int8 kernels at the zoo's
+   exact ties, and values within 1e-5 (k 1 to 128, B off its 64-query
+   tile, D 500 and 510); the int8 kernels at the zoo's
    widths (M 8,192, and ragged for the 64-row blocks of B2, B3 and B8) and
    at bert-base's (D 768, F 3,072, where B3 and B8 take 32-row blocks; M
    16,384 and ragged), f32 and bf16: the QKV projection (B2) to
@@ -27,13 +28,17 @@ Phases, each of which must pass:
    masks and a fully masked row, to B1's tolerances; the fused add +
    LayerNorm (B10) at M 8,192, 32,768 and 1,000, D 512, to 1e-5 in f32
    and one bf16 step in bf16;
-4. serves saved zoo classifiers on the full-width encoder
+4. holds the float forward's linear layers on the card to the JAX
+   package's order (the f32 product, bias and GELU, one rounding): >= 99%
+   of a projection's bf16 outputs equal it bit for bit;
+   serves saved zoo classifiers on the full-width encoder
    (checkpoints/ac-base-v2: BERT, 8 layers, hidden 512, 8 heads):
    ``predict_batch`` on each task's test rows, with launch counts (B1 once
    and B10 twice per layer per chunk), accuracy against the zoo manifest,
-   and top-1 agreement with the plain attention; the ten kernels with the
-   most device time in one hallucination-detector chunk's forward
-   (``torch.profiler``);
+   and top-1 agreement with the plain attention; the bf16 forward of one
+   chunk timed with the parent commit's linear layers and the current ones
+   in turns; the ten kernels with the most device time in one
+   hallucination-detector chunk's forward (``torch.profiler``);
 4i. serves the same classifiers with ``quantization: "int8"``: B2, B3 and
    B1 once per layer per chunk, every embedding within cosine 0.99 of the
    bf16 forward's, accuracy >= manifest - 0.03, top-1 agreement >= 0.95
@@ -74,9 +79,10 @@ Phases, each of which must pass:
    call at the shapes the main path gave it, on the main path's inputs, as
    device time (the stream held until the host has queued every timed
    call); B1, B6 and B7 also at bert-base [32, 512], B6 and B7 with their
-   achieved TFLOP/s and the bound's share of their time; B1, B2, B3, B6, B7
-   and B8 with the registers, shared bytes, blocks per SM and spill bytes
-   of the instantiation that ran;
+   achieved TFLOP/s and the bound's share of their time; B5 also against
+   the bound of its three TF32 products; B1, B2, B3, B5, B6, B7, B8 and B9
+   with the registers, shared bytes, blocks per SM and spill bytes of the
+   instantiation that ran;
 5. prints the ``kernels`` JSON line, then as its last line
    ``{"ok": true, "device": {...}}``.
 
@@ -91,6 +97,7 @@ package is not beside this file, or if any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -110,6 +117,9 @@ REPO = Path(__file__).resolve().parent
 #: off here)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.int8: 1979e12, torch.float32: 67e12}
+#: the dense TF32 tensor-core rate, for B5's split product (three TF32
+#: products for each f32 one)
+PEAK_TF32_FLOPS = 495e12
 
 #: zoo classifiers the main path serves (checkpoints/zoo/<task>)
 TASKS = ("banking-intents", "hallucination-detector")
@@ -610,8 +620,13 @@ def check_knn() -> dict:
         "k=20 fewer valid (12)": (4, 16385, 20, {"valid_per_query": 3}),
         "k=5 none valid": (8, 16384, 5, {"none_valid": True}),
         "k=6 exact ties": (16, 16384, 6, {"dup": True}),
+        "B=100 (ragged query tile) k=5 bias": (100, 16384, 5, {"bias": True}),
+        "k=128 C=20000 B=70 bias": (70, 20000, 128, {"bias": True}),
+        "D=500 k=7": (33, 5000, 7, {"D": 500}),
+        "D=510 (padded rows) k=7 bias": (33, 5000, 7, {"D": 510, "bias": True}),
     }.items():
-        q, p, v, b, tie = planted_topk_inputs(3, B, C, 512, k, **kw)
+        kw = dict(kw)
+        q, p, v, b, tie = planted_topk_inputs(3, B, C, kw.pop("D", 512), k, **kw)
         vals, idx = knn_topk.topk_sims_cuda(q, p, v, k, bias=b)
         want_v, want_i = knn_topk.topk_sims_ref(q, p, v, k, bias=b)
         scores, sidx = knn_topk.topk_scores_fused(q, p, v, k, bias=b)
@@ -676,7 +691,10 @@ def time_knn(shapes: dict) -> dict:
                "same_idx_share": (idx == want_i).float().mean().item(),
                "ms": kernel_ms(lambda: knn_topk.topk_sims_cuda(q, p, v, k, bias=b)),
                "plain_ms": kernel_ms(lambda: knn_topk.topk_sims_ref(q, p, v, k, bias=b)),
-               "library_ms": None}
+               "library_ms": None,
+               # the product as B5 computes it: three TF32 products a pair
+               "bound_tf32_ms": 3 * 2 * B * C * D / PEAK_TF32_FLOPS * 1e3,
+               "instantiation": knn_topk.topk_info(k)}
         row["bound_ms"], row["bound_by"] = knn_bound(B, C, D, k)
         log(f"  time knn_topk {json.dumps(row)}")
         rows["knn_topk"].append(row)
@@ -861,6 +879,11 @@ def time_int8(chunks: dict) -> dict:
                 from adaptive_classifier_tpu_torch.ops.matmul_int8 import quant_matmul_info
 
                 row["instantiation"] = quant_matmul_info(M, D, 3 * D)
+            else:
+                from adaptive_classifier_tpu_torch.ops.matmul_int8 import (
+                    proj_residual_ln_info)
+
+                row["instantiation"] = proj_residual_ln_info(M, D)
             log(f"  time {name} {json.dumps(row)}")
             rows[name].append(row)
     return rows
@@ -886,6 +909,48 @@ def task_rows(task: str):
     else:
         raise KeyError(task)
     return [t for t, _ in rows], [lbl for _, lbl in rows]
+
+
+def parent_linear(x, w, b):
+    """The float forward's linear layer as the parent commit had it: the
+    product rounded to the compute dtype, then the f32 bias (the caller
+    rounds again).  Phase 4 times the forward with it, in turns with the
+    current ``_linear``."""
+    return torch.matmul(x, w.to(x.dtype)).float() + b.float()
+
+
+def check_linear() -> dict:
+    """The float forward's linear layers on the card (``_linear``, and
+    ``_linear_gelu`` for the FFN's first) against the JAX package's order
+    computed on the CPU: exact products of the bf16 operands, f32 sums, the
+    f32 bias (and GELU), one rounding.  Raises unless at least 99% of the
+    bf16 outputs of a [4096, 512] x [512, 1536] projection equal it bit for
+    bit; reports the parent's share beside it."""
+    import torch.nn.functional as F
+
+    from adaptive_classifier_tpu_torch.models import encoder as enc
+
+    r = np.random.default_rng(0)
+    x = torch.from_numpy(r.standard_normal((4096, 512)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy((0.05 * r.standard_normal((512, 1536))).astype(np.float32)).bfloat16()
+    b = torch.from_numpy((0.1 * r.standard_normal(1536)).astype(np.float32))
+    xc, wc, bc = x.cuda(), w.cuda(), b.cuda()
+    out = {"torch": torch.__version__}
+    gelu = lambda y: F.gelu(y, approximate="none")
+    for name, layer, parent in (("linear", enc._linear, parent_linear),
+                                ("linear_gelu", enc._linear_gelu,
+                                 lambda *a: gelu(parent_linear(*a)))):
+        want = layer(x, w, b).bfloat16()
+        got = layer(xc, wc, bc).bfloat16().cpu()
+        old = parent(xc, wc, bc).bfloat16().cpu()
+        out[name] = {"equal_share": (got == want).double().mean().item(),
+                     "parent_equal_share": (old == want).double().mean().item(),
+                     "max_abs_err": (got.float() - want.float()).abs().max().item()}
+    log(f"  check linear {json.dumps(out)}")
+    for name in ("linear", "linear_gelu"):
+        if not out[name]["equal_share"] >= 0.99:
+            raise AssertionError(f"{name} rounds unlike the JAX order: {out[name]}")
+    return out
 
 
 def run_task(task: str, manifest: dict, gpu: str) -> dict:
@@ -941,6 +1006,15 @@ def run_task(task: str, manifest: dict, gpu: str) -> dict:
         max_length=clf.config.max_length, pad_to_buckets=clf.encoder.SEQ_BUCKETS)
     # device share: the encoder forward alone on the first chunk
     encoder_ms = cuda_ms(lambda: clf.encoder.embed_ids(ids, mask), iters=10)
+    # the same forward with the parent's linear layers (two roundings), in turns
+    from adaptive_classifier_tpu_torch.models import encoder as enc_mod
+
+    linear_ab = []
+    for which in ("parent", "current", "current", "parent"):
+        with (mock.patch.object(enc_mod, "_linear", parent_linear) if which == "parent"
+              else contextlib.nullcontext()):
+            linear_ab.append([which, cuda_ms(lambda: clf.encoder.embed_ids(ids, mask),
+                                             iters=10)])
     # and where its device time goes, on the longer chunk
     ops = (top_device_ops(lambda: clf.encoder.embed_ids(ids, mask))
            if task == TASKS[1] else None)
@@ -963,7 +1037,8 @@ def run_task(task: str, manifest: dict, gpu: str) -> dict:
            "predict_batch_ms": batch_s * 1e3,
            "requests_per_s": len(texts) / batch_s,
            "host_tokenize_lexical_ms": host_s * 1e3,
-           "encoder_forward_ms": encoder_ms, "gpu": gpu}
+           "encoder_forward_ms": encoder_ms,
+           "encoder_forward_ms_parent_vs_current_linear": linear_ab, "gpu": gpu}
     if ops is not None:
         out["encoder_forward_top_device_ops"] = ops
     log(f"  task {json.dumps(out)}")
@@ -1623,6 +1698,7 @@ def main() -> int:
     log("phase 4: serve saved zoo classifiers (predict_batch)")
     t0 = time.perf_counter()
     manifest = json.loads((REPO / "checkpoints" / "zoo" / "manifest.json").read_text())
+    linear = check_linear()
     runs = {task: run_task(task, manifest, gpu) for task in TASKS}
     for r in runs.values():
         for name, n in r["summary"]["launches"].items():
@@ -1743,6 +1819,7 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": [row["B"], row["C"], row["D"]] + ([row["k"]] if "k" in row else []),
+            **{key: row[key] for key in ("bound_tf32_ms", "instantiation") if key in row},
             "tolerance": tol, "per_shape": knn_times[name],
         })
     for name, replaces in (("matmul_int8", "adaptive_classifier_tpu/ops/matmul_int8.py:80"),
@@ -1816,8 +1893,19 @@ def main() -> int:
         {t: {"fused": r["encoder_forward_ms_fused_ln"],
              "plain": r["encoder_forward_ms_plain_ln"],
              "fused_faster": r["fused_faster"]} for t, r in fused_ln.items()}))
+    log(f"  linear layers (torch {linear['torch']}): bf16 outputs equal to the JAX order "
+        + json.dumps(
+            {n: [linear[n]["equal_share"], linear[n]["parent_equal_share"]]
+             for n in ("linear", "linear_gelu")}) + " (current, parent)")
+    log(f"  bf16 encoder forward per chunk, parent vs current linear layers (ms) "
+        + json.dumps({t: r["summary"]["encoder_forward_ms_parent_vs_current_linear"]
+                      for t, r in runs.items()}))
     log(f"  B1 ms by shape " + json.dumps({r["task"]: r["ms"] for r in timings}))
-    for label, name in (("B2", "matmul_int8"), ("B3", "ffn_int8"), ("B8", "attn_ffn_int8")):
+    log(f"  B5 ms, bound (f32 ops), bound (3xTF32) " + json.dumps(
+        {r["shape"]: [r["ms"], r["bound_ms"], r["bound_tf32_ms"]]
+         for r in knn_times["knn_topk"]}))
+    for label, name in (("B2", "matmul_int8"), ("B3", "ffn_int8"), ("B8", "attn_ffn_int8"),
+                        ("B9", "proj_residual_ln_int8")):
         log(f"  {label} ms by shape " + json.dumps(
             {r["task"]: r["ms"] for r in int8_times[name]}))
     log(f"  fuse_o_proj (B8) vs default int8 forward, one banking chunk (ms) " + json.dumps(

@@ -1,6 +1,6 @@
-"""Time the port's int8 kernels B2 (QKV projection), B3 (FFN block) and B8
-(post-attention body) on one NVIDIA GPU, for an A/B of two versions of the
-package in one call.
+"""Time the port's int8 kernels B2 (QKV projection), B3 (FFN block), B8
+(post-attention body) and B9 (projection + residual + LayerNorm) on one
+NVIDIA GPU, for an A/B of two versions of the package in one call.
 
     python3 scripts/torch_time_ffn_int8.py [--root DIR]
 
@@ -11,8 +11,10 @@ same code; run the two roots in turns (parent, change, change, parent), one
 process each.  Each kernel runs at the banking-intents chunk (M = 8,192
 rows of D 512, F 2,048; B2's N = 3D = 1,536), the hallucination-detector
 chunk (M = 32,768) and a bert-base batch of 32 x 128 (M = 4,096, D 768,
-F 3,072, N 2,304).  Seeded random bf16 rows and int8 weights quantized as
-the port quantizes a checkpoint.  A time is the device's, in ms per call: the best
+F 3,072, N 2,304); B9 projects through the [D, D] O weight.  ``--only``
+takes a comma-separated subset of the wrappers' names.  Seeded random bf16
+rows and int8 weights quantized as the port quantizes a checkpoint.  A
+time is the device's, in ms per call: the best
 of three runs of 20 calls, the stream held by a GPU sleep until the host
 has queued them.  Each line also gives the per-row cosine against the
 plain version, the share of outputs equal to it bit for bit and, where the
@@ -70,7 +72,9 @@ def layer(M, D, F, quantize_weight, seed=0):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
+    ap.add_argument("--only", default="", help="comma-separated wrapper names")
     args = ap.parse_args()
+    only = set(filter(None, args.only.split(",")))
     if not torch.cuda.is_available():
         print("torch_time_ffn_int8: no CUDA device", file=sys.stderr)
         return 1
@@ -87,8 +91,11 @@ def main() -> int:
         calls = {"quant_matmul_int8": (m8, (h, *m["qkv"])),
                  "ffn_block_int8": (f8, (h, *m["w1"], *m["w2"], *lns[0], 1e-12)),
                  "attn_ffn_block_int8": (f8, (h, x, *m["o"], *lns[0], *m["w1"], *m["w2"],
-                                              *lns[1], 1e-12))}
+                                              *lns[1], 1e-12)),
+                 "proj_residual_ln_int8": (m8, (h, *m["o"], x, *lns[0], 1e-12))}
         for kern, (mod, a) in calls.items():
+            if only and kern not in only:
+                continue
             f, ref = getattr(mod, kern), getattr(mod, kern + "_ref")
             got, want = f(*a), ref(*a)
             g, w = got.float(), want.float()
@@ -101,6 +108,8 @@ def main() -> int:
                     row["instantiation"] = m8.quant_matmul_info(M, D, 3 * D)
                 elif kern == "attn_ffn_block_int8":
                     row["instantiation"] = f8.ffn_block_info(D, F, o_proj=True)
+                elif kern == "proj_residual_ln_int8":
+                    row["instantiation"] = m8.proj_residual_ln_info(M, D)
                 else:
                     row["instantiation"] = f8.ffn_block_info(D, F)
             except (AttributeError, TypeError):

@@ -186,6 +186,30 @@ def test_zoo_predict_batch_on_the_gpu(cuda, monkeypatch):
     assert clf.encoder._attn_impl(1024) == "flash"
 
 
+@pytest.mark.parametrize("gelu", [False, True], ids=["qkv_o_ffn_out", "ffn_in_gelu"])
+def test_linear_rounds_once_on_the_gpu(cuda, gelu):
+    """The float forward's linear layers on the card (``torch.mm`` with an
+    f32 result) against the JAX package's order computed on the CPU: the
+    exact products of the bf16 operands, f32 sums, the f32 bias (and GELU),
+    one rounding (tests/test_torch_linear.py holds the CPU order to the JAX
+    einsum).  At least 99% of the bf16 outputs equal it bit for bit."""
+    from adaptive_classifier_tpu_torch.models import encoder as tenc
+
+    r = np.random.default_rng(0)
+    x = torch.from_numpy(r.standard_normal((4096, 512)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy((0.05 * r.standard_normal((512, 1536))).astype(np.float32)).bfloat16()
+    b = torch.from_numpy((0.1 * r.standard_normal(1536)).astype(np.float32))
+    layer = tenc._linear_gelu if gelu else tenc._linear
+    want = layer(x, w, b).bfloat16()
+    got = layer(x.to(cuda), w.to(cuda), b.to(cuda))
+    assert got.dtype == torch.float32
+    got = got.bfloat16().cpu()
+    equal = (got == want).double().mean().item()
+    print(f"_linear gelu={gelu} on {torch.cuda.get_device_name(cuda)} (torch "
+          f"{torch.__version__}): {equal:.6f} of the bf16 outputs equal the JAX order's")
+    assert equal >= 0.99
+
+
 def _knn_inputs(dev, seed, B, C, D, n_valid=None, dup=False):
     """Unit-norm queries and prototypes (the real domain: d² in [0, 4]);
     ``dup`` copies prototype 3 onto 10 and 40 so similarities tie exactly."""
@@ -276,17 +300,25 @@ def min_winner_gap(q, p, valid, bias, k):
     return gaps.min() if gaps.size else np.inf
 
 
-@pytest.mark.parametrize("B,C,k,bias,n_valid,none_valid,dup", [
-    (256, 16384, 5, False, None, False, False),
-    (256, 16385, 1, True, None, False, False),
-    (64, 16384, 128, True, None, False, False),
-    (4, 16385, 20, False, 3, False, False),
-    (8, 16384, 5, False, None, True, False),
-    (16, 16384, 6, False, None, False, True),
+# B5: the main path's chunk (B 256, k 5), one ragged C, k 128 with bias, fewer
+# valid prototypes than k, none valid, exact ties; then B off the 64-query
+# tile and D off the 32-column slice (500) and off 16 bytes (510: the
+# wrapper pads the rows with zero columns)
+@pytest.mark.parametrize("B,C,k,bias,n_valid,none_valid,dup,D", [
+    (256, 16384, 5, False, None, False, False, 512),
+    (256, 16385, 1, True, None, False, False, 512),
+    (64, 16384, 128, True, None, False, False, 512),
+    (4, 16385, 20, False, 3, False, False, 512),
+    (8, 16384, 5, False, None, True, False, 512),
+    (16, 16384, 6, False, None, False, True, 512),
+    (100, 16384, 5, True, None, False, False, 512),
+    (70, 20000, 128, True, None, False, False, 512),
+    (33, 5000, 7, False, None, False, False, 500),
+    (33, 5000, 7, True, None, False, False, 510),
 ])
-def test_topk_kernel_matches_plain(cuda, B, C, k, bias, n_valid, none_valid, dup):
+def test_topk_kernel_matches_plain(cuda, B, C, k, bias, n_valid, none_valid, dup, D):
     q, p, valid, b, planted = planted_topk_inputs(
-        3, B, C, 512, k, bias, n_valid, none_valid, dup)
+        3, B, C, D, k, bias, n_valid, none_valid, dup)
     assert min_winner_gap(q, p, valid, b, k) > 1e-5
     q, p, valid = (torch.from_numpy(a).to(cuda) for a in (q, p, valid))
     b = None if b is None else torch.from_numpy(b).to(cuda)
@@ -307,6 +339,24 @@ def test_topk_kernel_matches_plain(cuda, B, C, k, bias, n_valid, none_valid, dup
     assert torch.isfinite(scores).all()
     if none_valid:
         assert (sidx == -1).all() and (scores == 0).all()
+
+
+def test_topk_instantiation_fills_the_card(cuda):
+    """B5's first pass holds two blocks an SM at the main path's k and still
+    fits at k 128 (one list a query row there, one a column warp up to k 8);
+    its grid at the main path's chunk is one wave of at least one block an
+    SM."""
+    props = torch.cuda.get_device_properties(cuda)
+    for k, per_sm, lists in ((5, 2, 4), (8, 2, 4), (9, 2, 1), (128, 1, 1)):
+        info = knn_topk.topk_info(k)
+        assert info["blocks_per_sm"] >= per_sm and info["lists"] == lists
+        assert info["shared_bytes"] <= props.shared_memory_per_block_optin
+    info = knn_topk.topk_info(5)
+    splits, per = knn_topk._splits(256, 16384, info, cuda)
+    rows = -(-256 // info["rows"])
+    assert props.multi_processor_count <= splits * rows
+    assert splits * rows <= info["blocks_per_sm"] * props.multi_processor_count
+    assert splits <= info["max_splits"]
 
 
 # ---------------------------------------------------------------------------
@@ -393,6 +443,48 @@ def test_proj_residual_ln_kernel_matches_plain(cuda, dtype, M):
     torch.cuda.synchronize()
     assert port.launch_counts["proj_residual_ln_int8"] == 1
     _assert_int8_close(got, want, dtype, f32_atol=1e-4)
+
+
+# B9 at a ragged banking chunk (32-row blocks at D 512) and at bert-base's
+# width (16-row blocks at D 768), f32 to 1e-4 and bf16 to cosine 0.999
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,D", [(8192 + 37, 512), (4096, 768), (4096 + 5, 768)])
+def test_proj_residual_ln_kernel_ragged_rows_and_widths(cuda, dtype, M, D):
+    (x, res), m, lns = _int8_layer(cuda, 11, M, dtype, D=D, F=4 * D)
+    args = (x, *m["o"], res, *lns[0], 1e-12)
+    port.reset_launch_counts()
+    got = matmul_int8.proj_residual_ln_int8(*args)
+    want = matmul_int8.proj_residual_ln_int8_ref(*args)
+    torch.cuda.synchronize()
+    assert port.launch_counts["proj_residual_ln_int8"] == 1
+    assert got.shape == (M, D) and got.dtype == dtype
+    _assert_int8_close(got, want, dtype, f32_atol=1e-4)
+
+
+#: B9's local memory per thread (bytes) as measured on an H100: its
+#: epilogue keeps the rows in the accumulators' registers under the
+#: 128-register cap of two blocks an SM and spills some; without the cap
+#: (one block an SM) it spills nothing and ran 1.2-1.3x slower
+_B9_LOCAL_BYTES = {512: 224, 768: 112}
+
+
+def test_proj_residual_ln_instantiation(cuda):
+    """B9 on ring_gemm: 32-row blocks at D 512 and 16-row ones at D 768, two
+    blocks an SM, no more local memory than measured for this design, a
+    grid of at least one block an SM at every main-path shape; past D 1,024
+    the wrapper raises."""
+    props = torch.cuda.get_device_properties(cuda)
+    for M, D, rows in ((8192, 512, 32), (32768, 512, 32), (4096, 768, 16)):
+        info = matmul_int8.proj_residual_ln_info(M, D)
+        assert info["rows"] == rows and info["threads"] == 256
+        assert info["blocks_per_sm"] >= 2
+        assert info["local_bytes"] <= _B9_LOCAL_BYTES[D]
+        assert info["blocks"] >= props.multi_processor_count
+    wide = torch.zeros((64, 1152), device=cuda)
+    w = torch.zeros((1152, 1152), dtype=torch.int8, device=cuda)
+    vec = torch.zeros(1152, device=cuda)
+    with pytest.raises(ValueError, match="1024"):
+        matmul_int8.proj_residual_ln_int8(wide, w, vec, vec, wide, vec, vec, 1e-12)
 
 
 @pytest.mark.parametrize("dtype,M", _INT8_CASES)

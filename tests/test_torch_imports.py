@@ -53,7 +53,8 @@ def test_port_imports_without_jax():
 def _sources():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                          REPO / "scripts" / "torch_time_attention.py",
-                                         REPO / "scripts" / "torch_time_ffn_int8.py"]
+                                         REPO / "scripts" / "torch_time_ffn_int8.py",
+                                         REPO / "scripts" / "torch_time_knn.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
@@ -103,23 +104,33 @@ def test_cuda_sources_are_packaged_and_bound():
                                   "oneshot_attention", "add_layer_norm", "knn_sims",
                                   "knn_topk", "matmul_int8", "ffn_int8",
                                   "proj_residual_ln_int8", "attn_ffn_int8"}
-    # the kernels call no library (cuBLAS, CUTLASS) and no f32 tensor-core
-    # path (TF32 would move exp(-d²) by ~1e-3).  They issue two exact
-    # tensor-core products: int8 x int8 -> int32 in the int8 kernels, and
-    # bf16 x bf16 with f32 accumulation in the bf16 attention tile loop
+    # the kernels call no library (cuBLAS, CUTLASS).  They issue three
+    # tensor-core products: int8 x int8 -> int32 in the int8 kernels, bf16 x
+    # bf16 with f32 accumulation in the bf16 attention tile loop, and TF32
+    # with f32 accumulation in B5 alone, whose operands are split into a
+    # TF32 high part and remainder (three products a pair: f32's error,
+    # where one TF32 product would move exp(-d²) by ~1e-3)
     code = re.sub(r"//[^\n]*", "", text).lower()
-    for word in ("cublas", "cutlass", "tf32", "wmma"):
+    for word in ("cublas", "cutlass", "wmma"):
         assert word not in code, word
     int8_mma = "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32"
     bf16_mma = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
-    assert set(re.findall(r"mma\.sync\.[a-z0-9.]+", code)) == {int8_mma, bf16_mma}
+    tf32_mma = "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"
+    assert set(re.findall(r"mma\.sync\.[a-z0-9.]+", code)) == {int8_mma, bf16_mma, tf32_mma}
     for src in sources:
         body = re.sub(r"//[^\n]*", "", src.read_text()).lower()
         allowed = ({int8_mma} if "int8" in src.name else
-                   {bf16_mma} if src.name == "attention_tile.cuh" else set())
+                   {bf16_mma} if src.name == "attention_tile.cuh" else
+                   {tf32_mma} if src.name == "knn_topk.cu" else set())
         assert set(re.findall(r"mma\.sync\.[a-z0-9.]+", body)) <= allowed, src.name
         if not allowed:
             assert "mma" not in body, src.name
+        if src.name != "knn_topk.cu":
+            assert "tf32" not in body, src.name
+        else:
+            # every TF32 operand is half of a split: hi . lo, lo . hi, hi . hi
+            assert body.count("mma_tf32(") == 4, "one definition and three products"
+            assert "tf32_rest(" in body
 
 
 def _run_smoke(cwd, block_jax=True, timeout=300):
