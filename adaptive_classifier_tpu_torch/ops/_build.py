@@ -40,7 +40,8 @@ SIGNATURES = {
     "ac_oneshot_attention": ([_VP] * 5 + [_CI] * 4 + [_CL] * 3 + [_CI, _VP], _CI),
     "ac_flash_attention_info": ([_VP] * 3 + [_CI] * 4 + [_CL] * 3 + [_CI, _CI, _VP], _CI),
     "ac_add_layer_norm": ([_VP] * 4 + [_CF, _VP, _CI, _CI, _CI, _VP], _CI),
-    "ac_masked_sims": ([_VP, _VP, _VP, _VP, _CI, _CI, _CI, _VP], _CI),
+    "ac_masked_sims": ([_VP] * 5 + [_CI] * 5 + [_VP], _CI),
+    "ac_masked_sims_info": ([_VP], _CI),
     "ac_topk_sims": ([_VP] * 8 + [_CI] * 6 + [_VP], _CI),
     "ac_topk_sims_info": ([_CI, _VP], _CI),
     "ac_quant_matmul_int8": ([_VP] * 5 + [_CI] * 4 + [_VP], _CI),

@@ -9,11 +9,17 @@ The JAX package sends ``masked_sims`` to a Pallas kernel at
 plain computation below it.  The port keeps that threshold.  At or above it
 a CPU tensor takes the plain version, ``masked_sims_ref``, and a CUDA tensor
 launches the hand-written kernel in ``csrc/knn_sims.cu`` or raises; there is
-no fallback between them.
+no fallback between them.  The kernel forms ``q·p`` on the tensor cores in
+three TF32 products a pair (f32-level error), 128 × 128 output tiles fed by
+TMA; where the tiles alone would leave most of the card idle, the wrapper
+splits the contraction over several blocks a tile (:func:`sims_splits`) and
+a second pass adds their partial sums.
 """
 
 from __future__ import annotations
 
+import ctypes
+from functools import lru_cache
 from typing import Optional, Tuple
 
 import torch
@@ -59,20 +65,71 @@ def check_knn_inputs(queries: torch.Tensor, protos: torch.Tensor,
         raise ValueError("kNN kernels take non-empty inputs")
 
 
+def staged(x: torch.Tensor) -> torch.Tensor:
+    """``x [N, D]`` as kernels B4 and B5 stage it: 16-byte aligned rows (D a
+    multiple of 4, padded with zero columns, which add nothing to a dot
+    product or a norm)."""
+    pad = -x.shape[1] % 4
+    if pad == 0 and x.data_ptr() % 16 == 0:
+        return x
+    return torch.nn.functional.pad(x, (0, pad))
+
+
+@lru_cache(maxsize=None)
+def sims_info(device_index: int = 0) -> dict:
+    """Kernel B4's first pass on a CUDA device, as the CUDA runtime reports
+    its instantiation: registers per thread, shared bytes per block, threads
+    per block, blocks resident per SM, local (spill) bytes per thread, query
+    rows and prototypes a tile, contraction columns a slice, the fewest
+    slices a split takes and the most splits.  Launches nothing."""
+    info = (ctypes.c_int * 10)()
+    with torch.cuda.device(device_index):
+        _build.check(_build.library().ac_masked_sims_info(info), "knn_sims info")
+    return dict(zip(("registers", "shared_bytes", "threads", "blocks_per_sm",
+                     "local_bytes", "rows", "cols", "slice", "min_slices",
+                     "max_splits"), info))
+
+
+def sims_splits(B: int, C: int, D: int, info: dict, sms: int) -> Tuple[int, int]:
+    """(splits, slices a split) for kernel B4, from its instantiation
+    ``info`` (:func:`sims_info`): the contraction's ``ceil(D / slice)``
+    slices go to as many blocks an output tile as one wave of the card
+    holds beside the other tiles, each split taking at least
+    ``min_slices`` slices; one split where the tiles alone fill the card."""
+    tiles = -(-B // info["rows"]) * -(-C // info["cols"])
+    slices = -(-D // info["slice"])
+    want = min(info["blocks_per_sm"] * sms // tiles, slices // info["min_slices"],
+               info["max_splits"])
+    if want <= 1:
+        return 1, slices
+    per = -(-slices // want)
+    return -(-slices // per), per
+
+
 def masked_sims_cuda(queries: torch.Tensor, protos: torch.Tensor,
                      valid: torch.Tensor) -> torch.Tensor:
-    """Kernel B4 on the GPU: ``[B, C]`` masked ``exp(−d²)``, f32 throughout."""
+    """Kernel B4 on the GPU: ``[B, C]`` masked ``exp(−d²)``, the product in
+    3×TF32 with f32 sums."""
     if queries.device.type != "cuda":
         raise ValueError(f"masked_sims_cuda takes CUDA tensors, got {queries.device}")
     check_knn_inputs(queries, protos, valid)
-    B, D = queries.shape
-    C = protos.shape[0]
-    out = torch.empty((B, C), dtype=torch.float32, device=queries.device)
+    B, C = queries.shape[0], protos.shape[0]
+    dev = queries.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    info = sims_info(index)
+    queries, protos = staged(queries), staged(protos)
+    D = queries.shape[1]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, per = sims_splits(B, C, D, info, sms)
+    out = torch.empty((B, C), dtype=torch.float32, device=dev)
+    scratch = (torch.empty((splits * (B * C + B + C),), dtype=torch.float32, device=dev)
+               if splits > 1 else None)
     lib = _build.library()
-    with torch.cuda.device(queries.device):
-        stream = torch.cuda.current_stream(queries.device).cuda_stream
-        err = lib.ac_masked_sims(queries.data_ptr(), protos.data_ptr(),
-                                 valid.data_ptr(), out.data_ptr(), B, C, D, stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ac_masked_sims(queries.data_ptr(), protos.data_ptr(), valid.data_ptr(),
+                                 out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                                 B, C, D, splits, per, stream)
     _build.check(err, "knn_sims launch")
     launch_counts["knn_sims"] += 1
     return out

@@ -86,16 +86,6 @@ def _splits(B: int, C: int, info: dict, device: torch.device):
     return -(-n_tiles // per), per
 
 
-def _staged(x: torch.Tensor) -> torch.Tensor:
-    """``x [N, D]`` as the kernel stages it: 16-byte aligned rows (D a
-    multiple of 4, padded with zero columns, which add nothing to a dot
-    product or a norm)."""
-    pad = -x.shape[1] % 4
-    if pad == 0 and x.data_ptr() % 16 == 0:
-        return x
-    return torch.nn.functional.pad(x, (0, pad))
-
-
 def topk_sims_cuda(queries, protos, valid, k: int, bias=None):
     """Kernel B5 on the GPU → ``(vals [B, k] f32, idx [B, k] int32)``."""
     if queries.device.type != "cuda":
@@ -109,7 +99,7 @@ def topk_sims_cuda(queries, protos, valid, k: int, bias=None):
     dev = queries.device
     info = topk_info(k, dev.index if dev.index is not None else torch.cuda.current_device())
     splits, per = _splits(B, C, info, dev)
-    queries, protos = _staged(queries), _staged(protos)
+    queries, protos = knn.staged(queries), knn.staged(protos)
     D = queries.shape[1]
     part_v = torch.empty((splits, B, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((splits, B, k), dtype=torch.int32, device=dev)

@@ -12,7 +12,8 @@ Phases, each of which must pass:
    bf16 to cosine > 0.999 and max abs error <= 0.05 (at S 24 to 512,
    across its one-pass and two-pass forms; the share of bf16 outputs
    equal to the plain version's bit for bit is reported); the masked kNN
-   similarities (B4) to max abs error <= 1e-5; the streaming top-k (B5) to
+   similarities (B4) to max abs error <= 1e-5, near-duplicate rows at D 512
+   and 33,280 and the split contraction included; the streaming top-k (B5) to
    identical indices on inputs with no near-ties, lower-index order on
    exact ties, and values within 1e-5 (k 1 to 128, B off its 64-query
    tile, D 500 and 510); the int8 kernels at the zoo's
@@ -79,10 +80,12 @@ Phases, each of which must pass:
    call at the shapes the main path gave it, on the main path's inputs, as
    device time (the stream held until the host has queued every timed
    call); B1, B6 and B7 also at bert-base [32, 512], B6 and B7 with their
-   achieved TFLOP/s and the bound's share of their time; B5 also against
-   the bound of its three TF32 products; B1, B2, B3, B5, B6, B7, B8 and B9
-   with the registers, shared bytes, blocks per SM and spill bytes of the
-   instantiation that ran;
+   achieved TFLOP/s and the bound's share of their time; B4 also at the
+   production classifier's width [256, 33,280] x [1,024, 33,280] (B4 and
+   B5 bounded by their three TF32 products a pair); B1, B2, B3, B4,
+   B5, B6, B7, B8 and B9 with the registers, shared bytes, blocks per SM
+   and spill bytes of the instantiation that ran (B4 with its splits of
+   the contraction);
 5. prints the ``kernels`` JSON line, then as its last line
    ``{"ok": true, "device": {...}}``.
 
@@ -117,8 +120,8 @@ REPO = Path(__file__).resolve().parent
 #: off here)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.int8: 1979e12, torch.float32: 67e12}
-#: the dense TF32 tensor-core rate, for B5's split product (three TF32
-#: products for each f32 one)
+#: the dense TF32 tensor-core rate, for B4's and B5's split product (three
+#: TF32 products for each f32 one: their operations bound)
 PEAK_TF32_FLOPS = 495e12
 
 #: zoo classifiers the main path serves (checkpoints/zoo/<task>)
@@ -534,13 +537,28 @@ def unit_rows(r, shape):
     return x / np.linalg.norm(x, axis=-1, keepdims=True)
 
 
-def knn_inputs(seed, B, C, D, valid="all"):
-    """Unit-norm queries and prototypes (the real domain: d² in [0, 4])."""
+def knn_inputs(seed, B, C, D, valid="all", near=False):
+    """Unit-norm queries and prototypes (the real domain: d² in [0, 4]).
+    ``near``: each query a near duplicate of a random prototype, ``p_c +
+    1e-3·noise`` renormalised (d² ~ 1e-6, where an error in d² reaches the
+    output one for one)."""
     r = np.random.default_rng(seed)
     v = {"all": np.ones(C, bool), "none": np.zeros(C, bool),
          "mixed": r.random(C) < 0.5}[valid]
-    return (torch.from_numpy(unit_rows(r, (B, D))).cuda(),
-            torch.from_numpy(unit_rows(r, (C, D))).cuda(), torch.from_numpy(v).cuda())
+    q, p = unit_rows(r, (B, D)), unit_rows(r, (C, D))
+    if near:
+        q = p[r.integers(0, C, B)] + 1e-3 * q
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return (torch.from_numpy(q).cuda(), torch.from_numpy(p).cuda(),
+            torch.from_numpy(v).cuda())
+
+
+def knn_splits(B, C, D) -> int:
+    """The splits of B4's contraction that its wrapper picks on this card."""
+    from adaptive_classifier_tpu_torch.ops import knn
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return knn.sims_splits(B, C, D, knn.sims_info(), sms)[0]
 
 
 def planted_topk_inputs(seed, B, C, D, k, bias=False, valid_per_query=None,
@@ -592,22 +610,28 @@ def check_knn() -> dict:
 
     assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off"
     out = {"knn_sims": [], "knn_topk": []}
-    for name, (B, C, D, valid) in {
-        "[256,512]x[1024,512]": (256, 1024, 512, "all"),
-        "[256,512]x[16384,512]": (256, 16384, 512, "all"),
-        "[3,33280]x[1000,33280]": (3, 1000, 33280, "all"),
-        "ragged [250,500]x[1021,500]": (250, 1021, 500, "mixed"),
-        "all invalid [64,512]x[600,512]": (64, 600, 512, "none"),
-        "mixed valid [100,512]x[2000,512]": (100, 2000, 512, "mixed"),
+    for name, (B, C, D, valid, near) in {
+        "split [256,512]x[1024,512]": (256, 1024, 512, "all", False),
+        "recalibration [2048,512]x[1024,512]": (2048, 1024, 512, "all", False),
+        "[256,512]x[16384,512]": (256, 16384, 512, "all", False),
+        "[3,33280]x[1000,33280]": (3, 1000, 33280, "all", False),
+        "ragged [250,500]x[1021,500]": (250, 1021, 500, "mixed", False),
+        "all invalid [64,512]x[600,512]": (64, 600, 512, "none", False),
+        "mixed valid [100,512]x[2000,512]": (100, 2000, 512, "mixed", False),
+        "near-duplicate [256,512]x[1024,512]": (256, 1024, 512, "all", True),
+        "near-duplicate [256,33280]x[1024,33280]": (256, 1024, 33280, "all", True),
     }.items():
-        q, p, v = knn_inputs(len(out["knn_sims"]), B, C, D, valid)
+        q, p, v = knn_inputs(len(out["knn_sims"]), B, C, D, valid, near)
         got = knn.masked_sims_cuda(q, p, v)
         want = knn.masked_sims_ref(q, p, v)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        res = {"case": name, "max_abs_err": err,
+        res = {"case": name, "splits": knn_splits(B, C, D), "max_abs_err": err,
                "finite": bool(torch.isfinite(got).all().item())}
         res["ok"] = res["finite"] and err <= 1e-5
+        if near:    # the near duplicates are there: similarities ~1
+            res["max_sim"] = want.max().item()
+            res["ok"] = res["ok"] and res["max_sim"] > 0.999
         log(f"  check knn_sims {json.dumps(res)}")
         if not res["ok"]:
             raise AssertionError(f"knn_sims kernel disagrees with plain: {res}")
@@ -651,14 +675,15 @@ def check_knn() -> dict:
 def knn_bound(B, C, D, k=None):
     """Least time for B4 (k None) or B5: inputs read once (queries,
     prototypes, the validity bytes and for B5 the bias), outputs written
-    once ([B, C] f32, or [B, k] values and indices), against 2·B·C·D FLOP
-    at the f32 rate outside the tensor cores."""
+    once ([B, C] f32, or [B, k] values and indices), against the
+    operations both kernels do: each f32 product as three TF32 ones on the
+    tensor cores, 3·2·B·C·D FLOP at the dense TF32 rate."""
     if k is None:
         nbytes = 4 * (B * D + C * D + B * C) + C
     else:
         nbytes = 4 * (B * D + C * D + C) + C + 8 * B * k
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = 2 * B * C * D / PEAK_FLOPS[torch.float32] * 1e3
+    t_ops = 3 * 2 * B * C * D / PEAK_TF32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -672,14 +697,19 @@ def time_knn(shapes: dict) -> dict:
         B, D = q.shape
         C = p.shape[0]
         err = (knn.masked_sims_cuda(q, p, v) - knn.masked_sims_ref(q, p, v)).abs().max().item()
+        info = knn.sims_info()
         row = {"shape": name, "B": B, "C": C, "D": D, "max_abs_err": err,
                "ms": kernel_ms(lambda: knn.masked_sims_cuda(q, p, v)),
                "plain_ms": kernel_ms(lambda: knn.masked_sims_ref(q, p, v)),
                # nearest single call: returns d, not exp(-d²)
                "library_ms": kernel_ms(lambda: torch.cdist(q, p)),
-               "library_call": "torch.cdist"}
+               "library_call": "torch.cdist",
+               "bound_ops": "3xTF32", "splits": knn_splits(B, C, D),
+               "blocks_per_sm": info["blocks_per_sm"], "instantiation": info}
         row["bound_ms"], row["bound_by"] = knn_bound(B, C, D)
         log(f"  time knn_sims {json.dumps(row)}")
+        if err > 1e-5:
+            raise AssertionError(f"knn_sims kernel disagrees with plain: {row}")
         rows["knn_sims"].append(row)
     for name, (q, p, v, b, k) in shapes["knn_topk"].items():
         B, D = q.shape
@@ -691,12 +721,12 @@ def time_knn(shapes: dict) -> dict:
                "same_idx_share": (idx == want_i).float().mean().item(),
                "ms": kernel_ms(lambda: knn_topk.topk_sims_cuda(q, p, v, k, bias=b)),
                "plain_ms": kernel_ms(lambda: knn_topk.topk_sims_ref(q, p, v, k, bias=b)),
-               "library_ms": None,
-               # the product as B5 computes it: three TF32 products a pair
-               "bound_tf32_ms": 3 * 2 * B * C * D / PEAK_TF32_FLOPS * 1e3,
+               "library_ms": None, "bound_ops": "3xTF32",
                "instantiation": knn_topk.topk_info(k)}
         row["bound_ms"], row["bound_by"] = knn_bound(B, C, D, k)
         log(f"  time knn_topk {json.dumps(row)}")
+        if row["max_abs_err"] > 1e-5:
+            raise AssertionError(f"knn_topk kernel disagrees with plain: {row}")
         rows["knn_topk"].append(row)
     return rows
 
@@ -1766,6 +1796,9 @@ def main() -> int:
             "phase 7 predict_batch chunk": (s7["emb"][:256], s7["proto"], s7["valid"]),
             "phase 7 recalibration": (s7["emb"], s7["proto"], s7["valid"]),
             "phase 8 predict_proba chunk": (s8["emb"][:256], s8["proto"], s8["valid"]),
+            # the production classifier's [dense 512 | lexical 32,768] rows
+            # at 1,024 classes (classifier._compose_channels)
+            "production width [256,33280]x[1024,33280]": knn_inputs(11, 256, 1024, 33280),
         },
         "knn_topk": {
             "phase 8 predict_batch chunk": (s8["emb"][:256], s8["proto"], s8["valid"],
@@ -1819,7 +1852,8 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": [row["B"], row["C"], row["D"]] + ([row["k"]] if "k" in row else []),
-            **{key: row[key] for key in ("bound_tf32_ms", "instantiation") if key in row},
+            **{key: row[key] for key in ("bound_ops", "splits", "instantiation")
+               if key in row},
             "tolerance": tol, "per_shape": knn_times[name],
         })
     for name, replaces in (("matmul_int8", "adaptive_classifier_tpu/ops/matmul_int8.py:80"),
@@ -1901,9 +1935,10 @@ def main() -> int:
         + json.dumps({t: r["summary"]["encoder_forward_ms_parent_vs_current_linear"]
                       for t, r in runs.items()}))
     log(f"  B1 ms by shape " + json.dumps({r["task"]: r["ms"] for r in timings}))
-    log(f"  B5 ms, bound (f32 ops), bound (3xTF32) " + json.dumps(
-        {r["shape"]: [r["ms"], r["bound_ms"], r["bound_tf32_ms"]]
-         for r in knn_times["knn_topk"]}))
+    for label, name in (("B4", "knn_sims"), ("B5", "knn_topk")):
+        log(f"  {label} ms, bound (3xTF32 ops or bytes) " + json.dumps(
+            {r["shape"]: [r["ms"], r["bound_ms"]]
+             for r in knn_times[name]}))
     for label, name in (("B2", "matmul_int8"), ("B3", "ffn_int8"), ("B8", "attn_ffn_int8"),
                         ("B9", "proj_residual_ln_int8")):
         log(f"  {label} ms by shape " + json.dumps(

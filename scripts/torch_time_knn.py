@@ -2,7 +2,8 @@
 similarities) on one NVIDIA GPU, for an A/B of two versions of the package
 in one call.
 
-    python3 scripts/torch_time_knn.py [--root DIR]
+    python3 scripts/torch_time_knn.py [--root DIR] [--kernels knn_sims,knn_topk]
+                                      [--only NAMES]
 
 ``--root`` is a directory holding an ``adaptive_classifier_tpu_torch``
 package (default: this checkout), so a copy of another commit's package,
@@ -10,10 +11,14 @@ unpacked with ``git archive`` into a git-ignored directory, is timed by the
 same code; run the two roots in turns (parent, change, change, parent), one
 process each.  B5 runs at the 16,384-class ``predict_batch`` chunk (256
 queries of D 512, k 5, a per-class bias), at k 128 and at 1,024 queries; B4
-at the same 256 x 16,384 product.  Seeded random unit rows, every prototype
-valid, the bias drawn from {0, -0.3}.  ``--only`` takes a comma-separated
-subset of the shapes' names.  A time is the device's, in ms per
-call: the best of three runs of 20 calls, the stream held by a GPU sleep
+at the shapes the main path gives it (phase 7's 1,024-class chunk and
+recalibration, phase 8's 16,384-class chunk) and at the production
+classifier's width (D 512 + 32,768 lexical columns, 1,024 classes).
+Seeded random unit rows, every prototype valid, the bias drawn from
+{0, -0.3}.  ``--kernels`` picks B4 (``knn_sims``), B5 (``knn_topk``) or
+both; ``--only`` takes a comma-separated subset of the shapes' names.
+A time is the device's, in ms per call: the best of
+three runs of 20 calls, the stream held by a GPU sleep
 until the host has queued them.  Each line also gives the largest error
 against the plain version, the share of equal indices and, where the
 package reports it, the launched instantiation.  Prints one JSON line;
@@ -30,9 +35,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-#: name -> (queries, prototypes, D, k)
+#: B5: name -> (queries, prototypes, D, k)
 SHAPES = {"phase 8 chunk": (256, 16384, 512, 5), "k=128": (256, 16384, 512, 128),
           "1024 queries": (1024, 16384, 512, 5)}
+#: B4: name -> (queries, prototypes, D)
+SIMS_SHAPES = {"phase 7 chunk": (256, 1024, 512), "recalibration": (2048, 1024, 512),
+               "phase 8 chunk": (256, 16384, 512), "production width": (256, 1024, 33280)}
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -59,8 +67,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--only", default="", help="comma-separated shape names")
+    ap.add_argument("--kernels", default="knn_sims,knn_topk",
+                    help="comma-separated: knn_sims (B4), knn_topk (B5)")
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
+    kernels = set(filter(None, args.kernels.split(",")))
     if not torch.cuda.is_available():
         print("torch_time_knn: no CUDA device", file=sys.stderr)
         return 1
@@ -73,7 +84,7 @@ def main() -> int:
         raise RuntimeError(f"imported {knn_topk.__file__}, not the package under {root}")
     out = {}
     for name, (B, C, D, k) in SHAPES.items():
-        if only and name not in only:
+        if "knn_topk" not in kernels or (only and name not in only):
             continue
         r = np.random.default_rng(0)
         q, p = unit_rows(r, (B, D)), unit_rows(r, (C, D))
@@ -90,13 +101,27 @@ def main() -> int:
         except AttributeError:
             pass
         out[f"knn_topk {name}"] = row
-        if name == "phase 8 chunk":
-            sims = knn.masked_sims_cuda(q, p, valid)
-            out[f"knn_sims {name}"] = {
-                "ms": min(device_ms(lambda: knn.masked_sims_cuda(q, p, valid))
-                          for _ in range(3)),
-                "max_abs_err": (sims - knn.masked_sims_ref(q, p, valid)).abs().max().item()}
         del q, p, valid, bias
+        torch.cuda.empty_cache()
+    for name, (B, C, D) in SIMS_SHAPES.items():
+        if "knn_sims" not in kernels or (only and name not in only):
+            continue
+        r = np.random.default_rng(0)
+        q, p = unit_rows(r, (B, D)), unit_rows(r, (C, D))
+        valid = torch.ones(C, dtype=torch.bool, device="cuda")
+        sims = knn.masked_sims_cuda(q, p, valid)
+        row = {"ms": min(device_ms(lambda: knn.masked_sims_cuda(q, p, valid))
+                         for _ in range(3)),
+               "max_abs_err": (sims - knn.masked_sims_ref(q, p, valid)).abs().max().item()}
+        try:        # what each version of the package reports
+            info = knn.sims_info()
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            row["splits"] = knn.sims_splits(B, C, D, info, sms)[0]
+            row["instantiation"] = info
+        except AttributeError:
+            pass
+        out[f"knn_sims {name}"] = row
+        del q, p, valid, sims
         torch.cuda.empty_cache()
     print(json.dumps({"root": root, "gpu": torch.cuda.get_device_name(0), "times": out}))
     return 0

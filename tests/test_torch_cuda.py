@@ -210,9 +210,12 @@ def test_linear_rounds_once_on_the_gpu(cuda, gelu):
     assert equal >= 0.99
 
 
-def _knn_inputs(dev, seed, B, C, D, n_valid=None, dup=False):
+def _knn_inputs(dev, seed, B, C, D, n_valid=None, dup=False, near=False):
     """Unit-norm queries and prototypes (the real domain: d² in [0, 4]);
-    ``dup`` copies prototype 3 onto 10 and 40 so similarities tie exactly."""
+    ``dup`` copies prototype 3 onto 10 and 40 so similarities tie exactly;
+    ``near`` makes each query a near duplicate of a random prototype
+    (``p_c + 1e-3·noise``, renormalised: d² ~ 1e-6, where an error in d²
+    reaches the output one for one)."""
     r = np.random.default_rng(seed)
     q = r.standard_normal((B, D)).astype(np.float32)
     p = r.standard_normal((C, D)).astype(np.float32)
@@ -221,26 +224,97 @@ def _knn_inputs(dev, seed, B, C, D, n_valid=None, dup=False):
     if dup:
         p[10] = p[40] = p[3]
         q[0] = p[3]
+    if near:
+        q = p[r.integers(0, C, B)] + 1e-3 * q
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
     valid = np.ones(C, bool) if n_valid is None else np.arange(C) < n_valid
     return (torch.from_numpy(q).to(dev), torch.from_numpy(p).to(dev),
             torch.from_numpy(valid).to(dev))
 
 
-@pytest.mark.parametrize("B,C,D,n_valid", [
-    (256, 1024, 512, None),
-    (250, 1021, 500, 700),
-    (3, 1000, 33280, None),
-    (5, 600, 40, 0),
+# B4: phase 7's chunk (split contraction) and its recalibration, phase 8's
+# chunk (one split), C off the 128-prototype tile, D off 32 columns (500)
+# and off 16 bytes (510: the wrapper pads the rows), the production width
+# D 33,280, none valid, near-duplicate rows at D 512 and 33,280
+@pytest.mark.parametrize("B,C,D,n_valid,near", [
+    (256, 1024, 512, None, False),
+    (250, 1021, 500, 700, False),
+    (3, 1000, 33280, None, False),
+    (5, 600, 40, 0, False),
+    (256, 16384, 512, None, False),
+    (2048, 1024, 512, None, True),
+    (256, 1024, 512, None, True),
+    (256, 1024, 33280, None, True),
+    (64, 700, 510, 650, True),
 ])
-def test_masked_sims_kernel_matches_plain(cuda, B, C, D, n_valid):
-    q, p, valid = _knn_inputs(cuda, 0, B, C, D, n_valid)
+def test_masked_sims_kernel_matches_plain(cuda, B, C, D, n_valid, near):
+    q, p, valid = _knn_inputs(cuda, 0, B, C, D, n_valid, near=near)
     port.reset_launch_counts()
     got = knn.masked_sims(q, p, valid)
     want = knn.masked_sims_ref(q, p, valid)
     torch.cuda.synchronize()
     assert port.launch_counts["knn_sims"] == 1
-    # f32 sums in another order on unit-norm rows
+    # f32 sums in another order on unit-norm rows; the product in 3xTF32
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    if near:
+        assert want.max().item() > 0.999      # the near duplicates are there
+
+
+@pytest.mark.parametrize("D", [96, 256], ids=["one_split", "four_splits"])
+@pytest.mark.parametrize("exact", [True, False], ids=["tf32_values", "f32_values"])
+def test_masked_sims_planted_operands(cuda, D, exact):
+    """One-hot rows: query b holds a_b at column k_b, prototype c holds v_c
+    at column k_(c mod B), so each output says which query and prototype
+    rows met in which column.  ``tf32_values``: a and v exact in TF32 (the
+    split's lo is 0), which isolates the wgmma descriptors' layout;
+    ``f32_values``: full f32 mantissas, which holds the split (a hardware
+    that rounded the hi operand instead of keeping its top 19 bits would
+    be off by ~1e-4)."""
+    B, C = 133, 259
+    r = np.random.default_rng(5)
+    a = r.uniform(0.5, 1.0, B).astype(np.float32)
+    v = r.uniform(0.2, 0.6, C).astype(np.float32)
+    if exact:
+        a = (a.view(np.uint32) & 0xffffe000).view(np.float32)
+        v = (v.view(np.uint32) & 0xffffe000).view(np.float32)
+    k = (np.arange(B) * 7 + 3) % D
+    q = np.zeros((B, D), np.float32)
+    q[np.arange(B), k] = a
+    p = np.zeros((C, D), np.float32)
+    p[np.arange(C), k[np.arange(C) % B]] = v
+    q, p = torch.from_numpy(q).to(cuda), torch.from_numpy(p).to(cuda)
+    valid = torch.ones(C, dtype=torch.bool, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits, _ = knn.sims_splits(B, C, D, knn.sims_info(), sms)
+    assert splits == (1 if D == 96 else 4)
+    got = knn.masked_sims_cuda(q, p, valid)
+    want = knn.masked_sims_ref(q, p, valid)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    bad = torch.nonzero(err > 1e-5)[:8].tolist()
+    assert not bad, [(b, c, got[b, c].item(), want[b, c].item()) for b, c in bad]
+
+
+def test_masked_sims_is_deterministic(cuda):
+    """The split contraction adds its partial sums in split order, with no
+    atomics: two calls give the same bits."""
+    q, p, valid = _knn_inputs(cuda, 2, 256, 1024, 512, near=True)
+    assert torch.equal(knn.masked_sims_cuda(q, p, valid), knn.masked_sims_cuda(q, p, valid))
+
+
+def test_masked_sims_instantiation(cuda):
+    """B4's first pass: one block an SM in the opt-in shared memory, no spills, and the whole register budget at
+    launch (setmaxnreg hands the producer's registers to the consumers);
+    the split choice fills the card at phase 7's chunk."""
+    props = torch.cuda.get_device_properties(cuda)
+    info = knn.sims_info()
+    print(f"B4 instantiation: {info}")
+    assert info["threads"] == 384 and info["blocks_per_sm"] == 1
+    assert info["shared_bytes"] <= props.shared_memory_per_block_optin
+    assert info["local_bytes"] == 0
+    assert info["registers"] * info["threads"] >= 40 * 128 + 232 * 256
+    splits, per = knn.sims_splits(256, 1024, 512, info, props.multi_processor_count)
+    assert splits > 1 and 16 * splits <= props.multi_processor_count
 
 
 def planted_topk_inputs(seed, B, C, D, k, bias=False, n_valid_per_query=None,

@@ -104,32 +104,44 @@ def test_cuda_sources_are_packaged_and_bound():
                                   "oneshot_attention", "add_layer_norm", "knn_sims",
                                   "knn_topk", "matmul_int8", "ffn_int8",
                                   "proj_residual_ln_int8", "attn_ffn_int8"}
-    # the kernels call no library (cuBLAS, CUTLASS).  They issue three
+    # the kernels call no library (cuBLAS, CUTLASS).  They issue four
     # tensor-core products: int8 x int8 -> int32 in the int8 kernels, bf16 x
     # bf16 with f32 accumulation in the bf16 attention tile loop, and TF32
-    # with f32 accumulation in B5 alone, whose operands are split into a
-    # TF32 high part and remainder (three products a pair: f32's error,
-    # where one TF32 product would move exp(-d²) by ~1e-3)
+    # with f32 accumulation in B5 (mma.sync) and B4 (wgmma, defined in
+    # hopper.cuh), whose operands are split into a TF32 high part and
+    # remainder (three products a pair: f32's error, where one TF32 product
+    # would move exp(-d²) by ~1e-3)
     code = re.sub(r"//[^\n]*", "", text).lower()
     for word in ("cublas", "cutlass", "wmma"):
         assert word not in code, word
     int8_mma = "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32"
     bf16_mma = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
     tf32_mma = "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"
-    assert set(re.findall(r"mma\.sync\.[a-z0-9.]+", code)) == {int8_mma, bf16_mma, tf32_mma}
+    tf32_wgmma = "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32"
+    assert set(re.findall(r"(?<!w)mma\.sync\.[a-z0-9.]+", code)) == {
+        int8_mma, bf16_mma, tf32_mma}
+    assert set(re.findall(r"wgmma\.mma_async\.[a-z0-9.]+", code)) == {tf32_wgmma}
+    tf32_users = {"knn_topk.cu", "knn_sims.cu", "hopper.cuh"}
     for src in sources:
         body = re.sub(r"//[^\n]*", "", src.read_text()).lower()
         allowed = ({int8_mma} if "int8" in src.name else
                    {bf16_mma} if src.name == "attention_tile.cuh" else
-                   {tf32_mma} if src.name == "knn_topk.cu" else set())
-        assert set(re.findall(r"mma\.sync\.[a-z0-9.]+", body)) <= allowed, src.name
-        if not allowed:
+                   {tf32_mma} if src.name == "knn_topk.cu" else
+                   {tf32_wgmma} if src.name == "hopper.cuh" else set())
+        found = set(re.findall(r"(?<!w)mma\.sync\.[a-z0-9.]+", body)) | set(
+            re.findall(r"wgmma\.mma_async\.[a-z0-9.]+", body))
+        assert found <= allowed, src.name
+        if not allowed and src.name != "knn_sims.cu":
             assert "mma" not in body, src.name
-        if src.name != "knn_topk.cu":
+        if src.name not in tf32_users:
             assert "tf32" not in body, src.name
-        else:
+        elif src.name == "knn_topk.cu":
             # every TF32 operand is half of a split: hi . lo, lo . hi, hi . hi
             assert body.count("mma_tf32(") == 4, "one definition and three products"
+            assert "tf32_rest(" in body
+        elif src.name == "knn_sims.cu":
+            # the same split on wgmma: three products a step of 8 columns
+            assert body.count("wgmma_m64n128k8_tf32(") == 3
             assert "tf32_rest(" in body
 
 

@@ -19,9 +19,15 @@ def unit(r, shape):
     return x / np.linalg.norm(x, axis=-1, keepdims=True)
 
 
-def scene(seed, B, C, D, valid="mixed", ties=False, bias=False):
+def scene(seed, B, C, D, valid="mixed", ties=False, bias=False, near=False):
+    """``near``: each query a near duplicate of a random prototype, ``p_c +
+    1e-3·noise`` renormalised (d² ~ 1e-6: an error in d² reaches the output
+    one for one)."""
     r = np.random.default_rng(seed)
     q, p = unit(r, (B, D)), unit(r, (C, D))
+    if near:
+        q = p[r.integers(0, C, B)] + 1e-3 * q
+        q = (q / np.linalg.norm(q, axis=-1, keepdims=True)).astype(np.float32)
     if ties:
         p[7] = p[2]
         p[C - 1] = p[2]
@@ -36,19 +42,82 @@ def t(a):
     return None if a is None else torch.from_numpy(np.array(a))
 
 
-@pytest.mark.parametrize("B,C,D,valid", [
+@pytest.mark.parametrize("B,C,D,kind", [
     (10, 300, 40, "mixed"),
     (128, 128, 128, "all"),
     (7, 513, 33, "none"),
     (3, 1000, 200, "mixed"),
+    (32, 300, 512, "near-duplicate"),
 ])
-def test_masked_sims_plain_matches_pallas(B, C, D, valid):
-    q, p, v, _ = scene(0, B, C, D, valid)
+def test_masked_sims_plain_matches_pallas(B, C, D, kind):
+    near = kind == "near-duplicate"
+    q, p, v, _ = scene(0, B, C, D, "all" if near else kind, near=near)
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jknn.masked_sims(jnp.asarray(q), jnp.asarray(p),
                                            jnp.asarray(v), use_pallas=True))
     got = knn.masked_sims(t(q), t(p), t(v), pallas_min_classes=1)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    if near:
+        assert want.max() > 0.999          # the near duplicates are there
+
+
+# B4's split of the contraction on an H100 (132 SMs), for the instantiation
+# ``knn.sims_info`` reports there (128 x 128 output tiles, 32-column slices,
+# one block an SM): phase 8's chunk and the recalibration fill the card with
+# output tiles alone; phase 7's chunk and the production width
+# (D 512 + 32,768) split
+H100_SIMS_INFO = {"rows": 128, "cols": 128, "slice": 32, "min_slices": 2,
+                  "max_splits": 64, "blocks_per_sm": 1}
+
+
+@pytest.mark.parametrize("B,C,D,want", [
+    (256, 16384, 512, 1),
+    (2048, 1024, 512, 1),
+    (256, 1024, 512, 8),
+    (256, 1024, 33280, 8),
+    (3, 1000, 33280, 16),
+    (5, 600, 40, 1),
+    (133, 259, 256, 4),
+])
+def test_masked_sims_split_choice(B, C, D, want):
+    sms, info = 132, H100_SIMS_INFO
+    splits, per = knn.sims_splits(B, C, D, info, sms)
+    assert splits == want
+    tiles = -(-B // info["rows"]) * -(-C // info["cols"])
+    slices = -(-D // info["slice"])
+    # every split takes at least two slices, none is empty, all are covered
+    assert splits * per >= slices and (splits - 1) * per < slices
+    assert splits == 1 or per >= info["min_slices"]
+    # one wave: the tiles and their splits fit the card, and one more split
+    # would not (or would leave a split short of slices)
+    assert tiles * splits <= max(sms, tiles)
+    if splits > 1:
+        assert tiles * (splits + 1) > sms or slices // (splits + 1) < info["min_slices"]
+        # at the main path's shapes the wave fills most of the card
+        assert tiles * splits > sms // 2 or per == info["min_slices"]
+
+
+@pytest.mark.parametrize("D", [510, 512, 33, 40])
+def test_staged_rows_pad_exactly(D):
+    """B4 and B5 stage rows through one helper: D padded to a multiple of 4
+    with zero columns (nothing added to a dot product or a norm), the
+    values untouched, rows 16-byte aligned; an aligned D % 4 == 0 input is
+    returned as it is."""
+    r = np.random.default_rng(D)
+    x = t(unit(r, (7, D)))
+    y = knn.staged(x)
+    assert y.shape == (7, D + (-D % 4)) and y.data_ptr() % 16 == 0
+    assert torch.equal(y[:, :D], x) and not y[:, D:].any()
+    if D % 4 == 0 and x.data_ptr() % 16 == 0:
+        assert y is x
+    # a view 4 bytes off alignment is copied to aligned memory
+    base = torch.zeros(7 * D + 1)
+    z = base[1:].view(7, D)
+    z.copy_(x)
+    assert z.data_ptr() % 16 != 0
+    w = knn.staged(z)
+    assert w.data_ptr() % 16 == 0 and torch.equal(w[:, :D], x) and not w[:, D:].any()
+    assert not hasattr(knn_topk, "_staged")     # one helper for both wrappers
 
 
 @pytest.mark.parametrize("B,C,k,valid,ties,bias", [
