@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of adaptive_classifier_tpu.
 
-Loads, builds and grows an adaptive classifier and answers ``predict_batch``
-on an NVIDIA GPU, with hand-written CUDA kernels for attention, the
-prototype search and the int8 encoder's products.  Imports torch and numpy
+Builds an adaptive classifier (ridge or MLP head), grows it with new
+classes (EWC and distillation, or frozen probes after a lossy load), saves
+and loads it, and answers ``predict_batch`` on an NVIDIA GPU, with
+hand-written CUDA kernels for attention, the prototype search and the int8
+encoder's products.  Imports torch and numpy
 only; kernels build with nvcc on first use.  ``launch_counts`` counts each
 kernel's launches (``reset_launch_counts`` zeroes them).
 """

@@ -1,19 +1,24 @@
 """AdaptiveClassifier — building, growing and serving a classifier.
 
-Counterpart of ``adaptive_classifier_tpu/classifier.py`` for the main path:
-``add_examples`` with linear (ridge) heads — the first batch and later
-batches with new classes — ``load``, ``predict_batch``, ``predict`` and
+Counterpart of ``adaptive_classifier_tpu/classifier.py``: ``add_examples``
+with ridge and MLP heads (the first batch, and later batches with new
+classes), ``save`` and ``load``, ``predict_batch``, ``predict`` and
 ``predict_proba``.  Texts are tokenized (and, with the lexical channel on,
 hashed into TF-IDF features) on the host; the encoder forward, channel
 composition, prototype similarities, head logits and fusion run on the
 device, and one packed ``[N, 2k]`` block of scores and ids comes back per
-predict call.  ``add_examples`` fits the ridge head in closed form, the
-lexical knobs, λ and the fusion share by train-fold probes, and after new
-classes the prototype recalibration bias, as the JAX package does.
+predict call.  ``add_examples`` fits a ridge head in closed form and an MLP
+head by gradient descent (``training.fit_head``); the lexical knobs, λ and
+the fusion share by train-fold probes; new classes on a trained classifier
+by balanced replay with EWC and distillation, or, after a lossy load, as
+frozen-trunk probes; and the prototype recalibration bias, as the JAX
+package does.  Random draws (head init, shuffles, dropout, EWC sampling,
+k-means) come from ``torch.Generator``s on the classifier's device, seeded
+from the classifier's seed and the JAX package's salt for each fit.
 
-MLP heads and gradient training, typo-augmented heads, strategic mode,
-calibrated probabilities, the embedding cache (``embedding_cache_size`` is
-read and ignored), saving and the other surfaces come with later slices.
+Strategic mode, calibrated probabilities, the embedding cache
+(``embedding_cache_size`` is read and ignored) and the other surfaces come
+with later slices.
 """
 
 from __future__ import annotations
@@ -25,14 +30,15 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Set, Tuple, Un
 import numpy as np
 import torch
 
-from ._device import resolve_device
-from .config import ModelConfig
+from . import ewc as ewc_lib
 from . import training
+from ._device import resolve_device
+from .config import Example, ModelConfig
 from .memory import PrototypeMemory, gather_training_set
 from .models import head as head_lib
 from .models.encoder import Encoder
 from .models.head import HeadParams
-from .ops import fusion
+from .ops import fusion, kmeans
 
 Predictions = List[List[Tuple[str, float]]]
 
@@ -88,6 +94,10 @@ class AdaptiveClassifier:
         self._proto_bias: Optional[np.ndarray] = None
         #: fitted prototype share of the fusion; None = reference weighting
         self._fusion_alpha: Optional[float] = None
+        #: the last gradient fit's result (params, final loss, epochs run)
+        self.last_fit: Optional[training.TrainResult] = None
+        #: generators handed out by _next_generator (the EWC draws)
+        self._draws = 0
 
     @classmethod
     def load(cls, save_dir: Union[str, Path],
@@ -133,9 +143,25 @@ class AdaptiveClassifier:
             ids, mask, lex = self._tokenize_chunk(part, self._pad_rows(len(part), CH))
             yield self._compose_channels(self.encoder.embed_ids(ids, mask), lex), len(part)
 
+    def _query_chunks(self, texts: List[str], chunk_override: Optional[int] = None
+                      ) -> Iterator[Tuple[torch.Tensor, int]]:
+        """The chunks a prediction scores: ``_embed_chunks``, or, when
+        ``_get_embeddings`` was replaced on the instance or in a subclass
+        (the reference's extension point), its rows."""
+        if ("_get_embeddings" not in self.__dict__
+                and type(self)._get_embeddings is AdaptiveClassifier._get_embeddings):
+            yield from self._embed_chunks(texts, chunk_override)
+            return
+        CH = self._chunk_size(chunk_override)
+        for s in range(0, len(texts), CH):
+            part = texts[s:s + CH]
+            rows = np.asarray(self._get_embeddings(part), np.float32)
+            yield torch.from_numpy(rows).to(self.device), len(part)
+
     def _get_embeddings(self, texts: List[str]) -> np.ndarray:
-        """Embeddings of ``texts`` on the host ``[N, D]`` float32 (the JAX
-        package's embedding cache is not ported: every call embeds)."""
+        """Embeddings of ``texts`` on the host ``[N, D]`` float32.  The JAX
+        package's embedding cache is not ported: ``embedding_cache_size`` is
+        read into the config and ignored, and every call embeds."""
         with torch.inference_mode():
             parts = [emb[:n] for emb, n in self._embed_chunks(texts)]
             return torch.cat(parts, dim=0).float().cpu().numpy()
@@ -181,48 +207,42 @@ class AdaptiveClassifier:
         b[:n] = self._proto_bias[:n]
         return torch.from_numpy(b).to(self.device)
 
+    def _head_logits(self, emb: torch.Tensor) -> torch.Tensor:
+        if self.head_params is None:
+            return torch.zeros((emb.shape[0], self._class_capacity), device=emb.device)
+        return head_lib.head_forward(self.head_params, emb)
+
+    # ------------------------------------------------------------------
+    # random draws
+    # ------------------------------------------------------------------
+    def _generator(self, *salt: int) -> torch.Generator:
+        """A generator on the classifier's device seeded from ``(seed,
+        *salt)``: the JAX package's ``PRNGKey(seed)`` with no salt, its
+        ``fold_in(PRNGKey(seed), salt)`` with one, so each fit's draws do not
+        depend on what ran before it."""
+        state = np.random.SeedSequence([self.seed % 2**64, *salt]).generate_state(1, np.uint64)
+        return torch.Generator(device=self.device).manual_seed(int(state[0]))
+
+    def _next_generator(self) -> torch.Generator:
+        """The next generator of the classifier's own stream (the JAX
+        package's ``_next_key``), restarted by a load."""
+        self._draws += 1
+        return self._generator(0x5EED, self._draws)
+
     # ------------------------------------------------------------------
     # add_examples
     # ------------------------------------------------------------------
-    def _check_trainable(self, labels: List[str]):
-        """Raise for the training paths that come with later slices, before
-        anything is changed."""
-        if self.config.head_type != "ridge":
-            raise NotImplementedError(
-                f"head_type={self.config.head_type!r}: MLP heads and gradient "
-                f"training come with a later slice; use head_type='ridge'")
-        if self.config.head_typo_augment:
-            raise NotImplementedError("head_typo_augment comes with a later slice")
-        if set(labels) - set(self.label_to_id) and self._lossy_replay():
-            raise self._lossy_replay_error()
-
-    def _lossy_replay(self, exclude: Set[str] = frozenset()) -> bool:
-        """Whether some stored class trained on more examples than the store
-        keeps (a loaded checkpoint keeps ~5 rows per class) while the config
-        asks to freeze old classes for new ones."""
-        return (self.head_params is not None
-                and self.config.incremental_freeze_on_lossy_replay
-                and any(self.training_history.get(l, 0) > len(t)
-                        for l, t in self.memory.texts.items() if t and l not in exclude))
-
-    @staticmethod
-    def _lossy_replay_error() -> NotImplementedError:
-        return NotImplementedError(
-            "new classes on a lossy replay store (a loaded checkpoint keeps "
-            "~5 rows per class) train frozen old classes by gradient descent, "
-            "which comes with a later slice")
-
     def add_examples(self, texts: List[str], labels: List[str]):
         """Store labeled examples and refit: new labels get ids in
         alphabetical order, the prototypes take the new embeddings, and the
-        ridge head is refitted on every stored example.  After new classes
-        on a classifier that has some, the prototype recalibration bias is
-        fitted too."""
+        head is refitted on the stored examples (``_train_adaptive_head``),
+        or, for new classes on a classifier that has some, trained for them
+        (``_train_new_classes``) and the prototype recalibration bias
+        fitted."""
         if not texts or not labels:
             raise ValueError("Empty input lists")
         if len(texts) != len(labels):
             raise ValueError("Mismatched text and label lists")
-        self._check_trainable(labels)
 
         self._ensure_lexical_ready(texts, labels)
 
@@ -308,43 +328,90 @@ class AdaptiveClassifier:
                                         typo_views=typo_views)
 
     def _initialize_adaptive_head(self):
-        """A linear head over the class capacity (ridge heads have no hidden
-        layers); the ridge fit that follows sets its weights."""
+        """Hidden layers ``[D, D//2]`` at the dense encoder width ``D``
+        (also with the lexical channel on), none for ``head_type="ridge"``,
+        whose closed-form fit overwrites the output layer."""
+        D = self.encoder.hidden_size
+        hidden = [] if self.config.head_type == "ridge" else [D, D // 2]
         self.head_params = head_lib.init_head(
-            self.embedding_dim, self._class_capacity, hidden_dims=[],
-            device=self.device)
+            self.embedding_dim, self._class_capacity, max(len(self.label_to_id), 1),
+            hidden_dims=hidden, generator=self._generator())
 
     def _ensure_head_capacity(self):
+        """Repad the output layer when the class capacity crossed a bucket."""
         if self.head_params is None:
             return
         if self.head_params["out"]["w"].shape[1] < self._class_capacity:
-            self.head_params = head_lib.grow_capacity(self.head_params,
-                                                      self._class_capacity)
+            self.head_params = head_lib.grow_capacity(
+                self.head_params, self._class_capacity, self._generator(),
+                len(self.label_to_id))
 
     def _train_adaptive_head(self):
-        """Closed-form ridge refit on every stored example; λ ``"auto"`` is
-        resolved once and stored in the config, then the fusion share is
-        fitted when ``fusion_weights="auto"``."""
+        """Refit on every stored example: a ridge head in closed form (λ
+        ``"auto"`` resolved once on the clean rows and stored in the
+        config), an MLP head by ``training.fit_head``; with
+        ``head_typo_augment`` on typo'd copies of the rows as well.  Then
+        the fusion share is fitted on the clean rows when
+        ``fusion_weights="auto"``."""
         n_total = sum(len(t) for t in self.memory.texts.values())
         if n_total == 0 or self.head_params is None:
             return
         n_cap = self.config.train_capacity(n_total)
         emb, lbl, valid = gather_training_set(self.memory.state, n_cap)
-        if self.config.ridge_lambda == "auto":
-            lam, _ = training.select_ridge_lambda(emb, lbl, valid,
-                                                  self._class_capacity)
-            self.config.ridge_lambda = lam
-        self.head_params = training.ridge_head_params(
-            emb, lbl, valid, self._class_capacity,
-            lam=self.config.ridge_lambda, keep_from=self.head_params)
+        clean_rows = (emb, lbl, valid)
+        row_weight = None
+        if self.config.head_typo_augment:
+            emb, lbl, valid, row_weight = self._typo_augment_rows(emb, lbl, valid)
+        if self.config.head_type == "ridge":
+            if self.config.ridge_lambda == "auto":
+                lam, _ = training.select_ridge_lambda(*clean_rows, self._class_capacity)
+                self.config.ridge_lambda = lam
+            self.head_params = training.ridge_head_params(
+                emb, lbl, valid, self._class_capacity, lam=self.config.ridge_lambda,
+                keep_from=self.head_params, sample_weight=row_weight)
+        else:
+            self.last_fit = training.fit_head(
+                self.head_params, emb, lbl, valid, self._active_mask(),
+                self._generator(self.train_steps), lr=self.config.learning_rate,
+                loss_type="ce", max_epochs=self.config.epochs,
+                patience=self.config.early_stopping_patience, use_scheduler=True)
+            self.head_params = self.last_fit.params
         self.train_steps += 1
         if self.config.fusion_weights == "auto":
-            self._fit_fusion_alpha(emb, lbl, valid)
+            self._fit_fusion_alpha(*clean_rows)
+
+    def _typo_augment_rows(self, emb, lbl, valid):
+        """The training rows plus one typo'd copy per stored text
+        (``_typo_variant``) at weight ``head_typo_weight``
+        → ``(emb, lbl, valid, row_weight)``; the prototypes never see them."""
+        texts: List[str] = []
+        labels: List[str] = []
+        for label, ts in self.memory.texts.items():
+            texts += ts
+            labels += [label] * len(ts)
+        if not texts:
+            return emb, lbl, valid, None
+        aug_texts = [self._typo_variant(t, self.seed) for t in texts]
+        dev = emb.device
+        aug_emb = torch.from_numpy(self._get_embeddings(aug_texts)).to(dev)
+        aug_ids = torch.tensor([self.label_to_id[l] for l in labels],
+                               dtype=lbl.dtype, device=dev)
+        n, m = int(valid.sum()), len(aug_texts)
+        cap2 = self.config.train_capacity(n + m)
+        e2 = torch.zeros((cap2, emb.shape[1]), device=dev)
+        e2[:n], e2[n:n + m] = emb[:n], aug_emb
+        l2 = torch.zeros((cap2,), dtype=lbl.dtype, device=dev)
+        l2[:n], l2[n:n + m] = lbl[:n], aug_ids
+        w2 = torch.ones((cap2,), device=dev)
+        w2[n:n + m] = self.config.head_typo_weight
+        return e2, l2, torch.arange(cap2, device=dev) < (n + m), w2
 
     def _fit_fusion_alpha(self, emb, lbl, valid):
         """Fit the prototype/head fusion share on a 2-fold split of the
-        training rows; each fold fits a ridge head on its fit half and is
-        scored on its val half (training.fit_fusion_alpha)."""
+        training rows; each fold fits a head of the configured type on its
+        fit half (ridge in closed form, MLP by the same gradient fit from
+        the same init) and is scored on its val half
+        (training.fit_fusion_alpha)."""
         n = int(valid.sum())
         n_classes = len(self.label_to_id)
         if n < 8 or n_classes < 2:
@@ -352,35 +419,191 @@ class AdaptiveClassifier:
         e = emb[:n].float().cpu().numpy()      # valid rows are front-sorted
         y = lbl[:n].cpu().numpy()
         cap = self._class_capacity
-        lam = self.config.ridge_lambda
         dev = self.device
 
-        def fold_fit(fe, fy, ve):
+        def padded(fe, fy):
             nf = len(fy)
             fcap = self.config.train_capacity(nf)
             fe_p = torch.zeros((fcap, fe.shape[1]), device=dev)
             fy_p = torch.zeros((fcap,), dtype=torch.int64, device=dev)
             fe_p[:nf] = torch.from_numpy(fe).to(dev)
             fy_p[:nf] = torch.from_numpy(fy.astype(np.int64)).to(dev)
-            W = training.ridge_solve(fe_p, fy_p, torch.arange(fcap, device=dev) < nf,
-                                     cap, lam)
-            return (torch.from_numpy(np.ascontiguousarray(ve)).to(dev) @ W).cpu().numpy()
+            return fe_p, fy_p, torch.arange(fcap, device=dev) < nf
+
+        def ve_t(ve):
+            return torch.from_numpy(np.ascontiguousarray(ve)).to(dev)
+
+        if self.config.head_type == "ridge":
+            lam = self.config.ridge_lambda
+
+            def fold_fit(fe, fy, ve):
+                W = training.ridge_solve(*padded(fe, fy), cap, lam)
+                return (ve_t(ve) @ W).cpu().numpy()
+        else:
+            D = self.encoder.hidden_size
+
+            def fold_fit(fe, fy, ve):
+                params = head_lib.init_head(self.embedding_dim, cap, max(n_classes, 1),
+                                            hidden_dims=[D, D // 2],
+                                            generator=self._generator())
+                result = training.fit_head(
+                    params, *padded(fe, fy), self._active_mask(), self._generator(104729),
+                    lr=self.config.learning_rate, loss_type="ce",
+                    max_epochs=self.config.epochs,
+                    patience=self.config.early_stopping_patience, use_scheduler=True)
+                return head_lib.head_forward(result.params, ve_t(ve)).cpu().numpy()
 
         self._fusion_alpha, _ = training.fit_fusion_alpha(e, y, n_classes, fold_fit)
 
     def _train_new_classes(self, old_head: Optional[HeadParams], new_classes: Set[str]):
-        """New classes on a classifier that has some: a ridge head is refitted
-        on the whole replay store.  After a lossy load (fewer stored rows
-        than the class trained on) the JAX package instead freezes the old
-        classes and trains only the new output rows by gradient descent;
-        that path comes with a later slice."""
-        if not any(self.memory.texts.values()):
+        """New classes on a classifier that has some.
+
+        A ridge head with its full replay store is refitted in closed form.
+        Otherwise the head trains on a class-balanced resample of the store
+        (``np.random.default_rng(seed + train_steps)``, as the JAX package
+        draws it), with an EWC penalty over at most 5 exemplars per old
+        class and logit distillation from the old head.  After a lossy load
+        (a class trained on more examples than the store keeps) with
+        ``incremental_freeze_on_lossy_replay``, the trunk and the old output
+        columns are frozen instead: the new columns and a raw-embedding
+        ``skip`` probe train as one-vs-all sigmoid probes, three rows of
+        each old prototype anchoring them, so the old classes' logits stay
+        bit-identical."""
+        counts = {l: len(t) for l, t in self.memory.texts.items() if t}
+        if not counts:
             return
         if self.head_params is None:
             self._initialize_adaptive_head()
-        if old_head is not None and self._lossy_replay(exclude=new_classes):
-            raise self._lossy_replay_error()
-        self._train_adaptive_head()
+
+        rng = np.random.default_rng(self.seed + self.train_steps)
+        min_examples = min(counts.values())
+        num_classes = len(counts)
+        target = max(5, min(10, min_examples * 2))
+        sel_slots: List[int] = []
+        sel_pos: List[int] = []
+        sel_labels: List[int] = []
+        for label, n in counts.items():
+            slot = self.memory.label_to_index[label]
+            if num_classes > 20:  # many-class stratified sampling
+                ns = min(n, target * 2) if label in new_classes else min(n, target)
+            else:
+                weight = 2.0 if label in new_classes else min_examples / n
+                ns = max(min_examples, int(n * weight))
+            idxs = rng.choice(n, size=ns, replace=ns > n)
+            sel_slots += [slot] * len(idxs)
+            sel_pos += [int(i) for i in idxs]
+            sel_labels += [self.label_to_id[label]] * len(idxs)
+
+        old_labels = [l for l in counts if l not in new_classes]
+        lossy_replay = old_head is not None and any(
+            self.training_history.get(l, 0) > counts.get(l, 0) for l in old_labels)
+        freeze_old = lossy_replay and self.config.incremental_freeze_on_lossy_replay
+
+        if self.config.head_type == "ridge" and not freeze_old:
+            # the exact ridge solution weighs every stored row already
+            self._train_adaptive_head()
+            return
+
+        dev = self.device
+        st = self.memory.state
+        n_sel = len(sel_labels)
+        proto_rows = []
+        if freeze_old:
+            # the replay rows are the new probes' only negatives: each old
+            # prototype, as 3 labeled rows, anchors them over its class
+            for label in old_labels:
+                proto_rows += [(self.memory.label_to_index[label], self.label_to_id[label])] * 3
+        n_rows = n_sel + len(proto_rows)
+        n_cap = self.config.train_capacity(n_rows)
+        slots = np.zeros((n_cap,), np.int64)
+        poss = np.zeros((n_cap,), np.int64)
+        lbls = np.zeros((n_cap,), np.int64)
+        slots[:n_sel], poss[:n_sel], lbls[:n_sel] = sel_slots, sel_pos, sel_labels
+        emb = st.emb[torch.from_numpy(slots).to(dev), torch.from_numpy(poss).to(dev)]
+        if proto_rows:
+            pslots = torch.tensor([s for s, _ in proto_rows], device=dev)
+            emb[n_sel:n_rows] = st.proto[pslots]
+            lbls[n_sel:n_rows] = [l for _, l in proto_rows]
+        valid = torch.arange(n_cap, device=dev) < n_rows
+
+        ewc_bundle = None
+        distill_logits = None
+        old_active = None
+        if old_head is not None and not freeze_old:
+            n_old = len(self.label_to_id) - len(new_classes)
+            old_active = torch.arange(self._class_capacity, device=dev) < n_old
+            old_padded = old_head
+            if old_padded["out"]["w"].shape[1] < self._class_capacity:
+                old_padded = head_lib.grow_capacity(old_padded, self._class_capacity,
+                                                    self._generator(), n_old)
+            if "skip" in self.head_params:
+                old_padded = head_lib.ensure_skip(old_padded, self.embedding_dim)
+            if self.config.incremental_distill_lambda > 0:
+                with torch.no_grad():   # the old head's eval-mode logits
+                    distill_logits = head_lib.head_forward(old_padded, emb)
+            o_slots, o_pos = [], []
+            for label in old_labels:
+                slot = self.memory.label_to_index[label]
+                for i in range(min(counts[label], 5)):
+                    o_slots.append(slot)
+                    o_pos.append(i)
+            if o_slots:
+                o_cap = self.config.train_capacity(len(o_slots))
+                os_ = np.zeros((o_cap,), np.int64)
+                op_ = np.zeros((o_cap,), np.int64)
+                os_[:len(o_slots)] = o_slots
+                op_[:len(o_pos)] = o_pos
+                o_emb = st.emb[torch.from_numpy(os_).to(dev), torch.from_numpy(op_).to(dev)]
+                ewc_bundle = ewc_lib.make_ewc_bundle(
+                    old_padded, o_emb, torch.arange(o_cap, device=dev) < len(o_slots),
+                    old_active, self._next_generator(),
+                    ewc_lambda=self.config.incremental_ewc_lambda)
+
+        grad_mask = None
+        loss_type = "ce"
+        labels_arr = torch.from_numpy(lbls).to(dev)
+        if freeze_old:
+            n_old = len(self.label_to_id) - len(new_classes)
+            self._ensure_head_capacity()
+            # the frozen trunk never saw the new class's input coordinates:
+            # the new columns also get a linear probe on the raw embedding
+            self.head_params = head_lib.ensure_skip(self.head_params, self.embedding_dim)
+            cap = self.head_params["out"]["w"].shape[1]
+            new_rows = (torch.arange(cap, device=dev) >= n_old).to(torch.float32)
+            grad_mask = training.tree_map(torch.zeros_like, self.head_params)
+            grad_mask["out"]["w"] = new_rows[None, :].expand_as(
+                self.head_params["out"]["w"]).clone()
+            grad_mask["out"]["b"] = new_rows
+            grad_mask["skip"]["w"] = new_rows[None, :].expand_as(
+                self.head_params["skip"]["w"]).clone()
+            # one-vs-all sigmoid probes: BCE pushes a new logit negative on
+            # every negative row, however confident the old logits are
+            loss_type = "bce"
+            labels_arr = torch.nn.functional.one_hot(labels_arr, cap).to(torch.float32)
+            # zero the new columns' init, so what the probe holds is learned
+            self.head_params = dict(self.head_params)
+            self.head_params["out"] = {
+                "w": self.head_params["out"]["w"] * (1.0 - new_rows[None, :]),
+                "b": self.head_params["out"]["b"] * (1.0 - new_rows)}
+
+        self.last_fit = training.fit_head(
+            self.head_params, emb, labels_arr, valid, self._active_mask(),
+            self._generator(7919 + self.train_steps),
+            # the frozen probe is a linear one-vs-all fit from zero weights:
+            # it needs a longer schedule, and cannot move the old columns
+            lr=0.01 if freeze_old else 0.001, loss_type=loss_type,
+            max_epochs=100 if freeze_old else 15, patience=10 if freeze_old else 3,
+            use_scheduler=False,
+            ewc_old=ewc_bundle.old_params if ewc_bundle else None,
+            ewc_fisher=ewc_bundle.fisher if ewc_bundle else None,
+            ewc_lambda=ewc_bundle.ewc_lambda if ewc_bundle else 0.0,
+            distill_logits=distill_logits,
+            distill_active=old_active if distill_logits is not None else None,
+            distill_lambda=self.config.incremental_distill_lambda,
+            distill_temperature=self.config.incremental_distill_temperature,
+            grad_mask=grad_mask)
+        self.head_params = self.last_fit.params
+        self.train_steps += 1
 
     def _recalibrate_prototypes(self, new_classes: Set[str]):
         """Fit the per-class similarity penalty of the just-added classes on
@@ -466,7 +689,7 @@ class AdaptiveClassifier:
         device, so the host tokenizes chunk N+1 while the device runs N."""
         packed, spans = [], []
         with torch.inference_mode():
-            for emb, n in self._embed_chunks(texts, chunk_override):
+            for emb, n in self._query_chunks(texts, chunk_override):
                 scores, idx = fuse(emb)
                 packed.append(torch.cat([scores, idx.float()], dim=1))
                 spans.append((n, scores.shape[0]))
@@ -506,7 +729,7 @@ class AdaptiveClassifier:
         proto_bias = self._proto_bias_arr()
         parts = []
         with torch.inference_mode():
-            for emb, n in self._embed_chunks(texts):
+            for emb, n in self._query_chunks(texts):
                 parts.append(fusion.fuse_dist_from_emb(
                     emb, state.proto, state.valid, self.head_params, active,
                     pw, hw, self.head_params is not None,
@@ -514,3 +737,57 @@ class AdaptiveClassifier:
                     proto_bias=proto_bias)[:n])
             probs = torch.cat(parts, dim=0).cpu().numpy()
         return probs[:, :n_classes], labels
+
+    # ------------------------------------------------------------------
+    # statistics, representative examples, saving
+    # ------------------------------------------------------------------
+    def get_memory_stats(self) -> Dict[str, Any]:
+        return self.memory.get_stats()
+
+    def get_example_statistics(self) -> Dict[str, Any]:
+        counts = {l: len(t) for l, t in self.memory.texts.items() if t}
+        D = self.embedding_dim
+        stats = {
+            "total_examples": sum(counts.values()),
+            "examples_per_class": counts,
+            "num_classes": len(self.label_to_id),
+            "train_steps": self.train_steps,
+            "memory_usage": {"prototypes": len(counts) * D * 4,
+                             "examples": sum(counts.values()) * D * 4},
+        }
+        if self.head_params is not None:
+            stats["model_params"] = int(sum(p.numel() for p in
+                                            training.tree_leaves(self.head_params)))
+        return stats
+
+    def select_representative_examples(self, examples: List[Example],
+                                       k: int = 5) -> List[Example]:
+        """The ``k`` examples nearest to the k-means centroids of their
+        L2-normalized embeddings (a generator seeded 42, as the JAX package
+        keys its k-means with ``PRNGKey(42)``); all of them when ``k`` or
+        fewer."""
+        if len(examples) <= k:
+            return examples
+        embs = np.stack([np.asarray(ex.embedding, np.float32) for ex in examples])
+        embs = embs / np.maximum(np.linalg.norm(embs, axis=1, keepdims=True), 1e-12)
+        n = embs.shape[0]
+        n_cap = self.config.train_capacity(n)
+        x = torch.zeros((n_cap, embs.shape[1]), device=self.device)
+        x[:n] = torch.from_numpy(embs).to(self.device)
+        valid = torch.arange(n_cap, device=self.device) < n
+        generator = torch.Generator(device=self.device).manual_seed(42)
+        idx = kmeans.representative_indices(x, valid, generator, k)
+        return [examples[int(i)] for i in idx.cpu().numpy()]
+
+    def save(self, save_dir: Union[str, Path], include_onnx: bool = True,
+             quantize_onnx: bool = True, include_quantized: Optional[bool] = None):
+        """Write the checkpoint (``persistence.save_classifier``).
+        ``include_onnx`` stands for the int8 encoder export ``quantized/``
+        unless ``include_quantized`` is given; ``quantize_onnx`` is accepted
+        for the JAX package's signature and ignored."""
+        from . import persistence
+
+        if include_quantized is None:
+            include_quantized = include_onnx
+        return persistence.save_classifier(self, Path(save_dir),
+                                           include_quantized=include_quantized)

@@ -5,7 +5,8 @@
 - ``encoder_int8_params_from_jax``: the runtime int8 tree of the JAX
   int8 forward (``layers/qkv_w.int8``, ``layers/qkv_w.scale``, …, stacked
   over layers) → the port's int8 state;
-- ``head_params_from_jax``: linear head params (``out``, optional ``skip``);
+- ``head_params_from_jax``: head params (``hidden`` layers, ``out``,
+  optional ``skip``);
 - ``memory_state_from_jax``: the prototype memory's buffers.
 
 Feeding the same state to both packages, or converting one package's state
@@ -63,15 +64,16 @@ def _t(a, device, dtype=np.float32) -> torch.Tensor:
 
 def head_params_from_jax(params: Dict[str, Any],
                          device: Union[str, torch.device] = "cpu") -> HeadParams:
-    """JAX head params ``{"hidden": [], "out": {"w", "b"}, "skip"?}`` (numpy
-    or JAX arrays) → the port's head params on ``device``.  Linear heads
-    only: MLP heads come with a later slice."""
-    if params["hidden"]:
-        raise NotImplementedError("MLP heads come with a later slice")
-    out: HeadParams = {"hidden": [], "out": {"w": _t(params["out"]["w"], device),
-                                             "b": _t(params["out"]["b"], device)}}
+    """JAX head params ``{"hidden": [{"w", "b"}, ...], "out": {"w", "b"},
+    "skip"?}`` (numpy or JAX arrays) → the port's head params on
+    ``device``, values unchanged."""
+    def layer(d):
+        return {k: _t(v, device) for k, v in d.items()}
+
+    out: HeadParams = {"hidden": [layer(h) for h in params["hidden"]],
+                       "out": layer(params["out"])}
     if "skip" in params:
-        out["skip"] = {"w": _t(params["skip"]["w"], device)}
+        out["skip"] = layer(params["skip"])
     return out
 
 

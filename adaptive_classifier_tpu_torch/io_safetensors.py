@@ -1,12 +1,13 @@
-"""Minimal numpy reader for ``.safetensors`` files.
+"""Minimal numpy reader and writer for ``.safetensors`` files.
 
 The format: an 8-byte little-endian header length ``n``, then ``n`` bytes of
 JSON mapping each tensor name to ``{"dtype", "shape", "data_offsets"}``
 (offsets relative to the end of the header), then the raw little-endian
 tensor bytes.  An optional ``__metadata__`` entry is skipped.
 
-Stands in for ``safetensors.numpy.load_file`` so the port needs no package
-beyond torch and numpy.  BF16 has no numpy dtype: it is read as uint16 and
+Stands in for ``safetensors.numpy.load_file`` and ``save_file`` so the port
+needs no package beyond torch and numpy.  ``save_file`` writes the tensors
+in name order, back to back, the header padded with spaces to 8 bytes.  BF16 has no numpy dtype: it is read as uint16 and
 widened to float32 exactly (a bf16 value is the top half of an f32).
 """
 
@@ -20,7 +21,7 @@ from typing import Dict, Union
 import numpy as np
 
 _DTYPES = {"F32": np.dtype("<f4"), "F16": np.dtype("<f2"), "I64": np.dtype("<i8"),
-           "I8": np.dtype("i1")}
+           "I32": np.dtype("<i4"), "I8": np.dtype("i1")}
 
 
 def _bf16_to_f32(raw: np.ndarray) -> np.ndarray:
@@ -58,3 +59,28 @@ def load_file(path: Union[str, Path]) -> Dict[str, np.ndarray]:
         # copy: frombuffer views are read-only and pin the whole file
         out[name] = arr.reshape(shape).copy()
     return out
+
+
+def save_file(tensors: Dict[str, np.ndarray], path: Union[str, Path]) -> None:
+    """Write numpy arrays of a dtype in ``_DTYPES`` to a ``.safetensors`` file."""
+    names = {dt: name for name, dt in _DTYPES.items()}
+    header: Dict[str, dict] = {}
+    blobs = []
+    offset = 0
+    for name in sorted(tensors):
+        arr = np.asarray(tensors[name])
+        dt = arr.dtype.newbyteorder("<") if arr.dtype.itemsize > 1 else arr.dtype
+        if dt not in names:
+            raise ValueError(f"tensor {name!r} has unsupported dtype {arr.dtype}")
+        raw = np.ascontiguousarray(arr, dtype=dt).tobytes()
+        header[name] = {"dtype": names[dt], "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)

@@ -32,7 +32,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .config import ModelConfig
+from .config import Example, ModelConfig
 from .ops import knn, knn_topk
 
 logger = logging.getLogger(__name__)
@@ -298,6 +298,35 @@ class PrototypeMemory:
             elif n > 0:
                 st.proto[slot] = st.emb[slot, :n].mean(dim=0)
             st.pweight[slot] = float(max(prototype_weight or 0, n))
+
+    # -- host views ----------------------------------------------------
+    def _counts_host(self) -> Dict[str, int]:
+        return {label: len(ts) for label, ts in self.texts.items()}
+
+    @property
+    def prototypes(self) -> Dict[str, np.ndarray]:
+        """Prototypes of the labels that hold at least one example."""
+        proto = self.state.proto.cpu().numpy()
+        return {label: proto[slot] for label, slot in self.label_to_index.items()
+                if self.texts.get(label)}
+
+    @property
+    def examples(self) -> Dict[str, List[Example]]:
+        """Stored examples as ``Example`` objects, embeddings on the host."""
+        emb = self.state.emb.cpu().numpy()
+        return {label: [Example(t, label, emb[slot, i].copy()) for i, t in enumerate(ts)]
+                for label, slot in self.label_to_index.items()
+                if (ts := self.texts.get(label))}
+
+    def get_stats(self) -> Dict[str, object]:
+        counts = self._counts_host()
+        return {
+            "num_classes": sum(1 for v in counts.values() if v > 0),
+            "examples_per_class": {label: c for label, c in counts.items() if c > 0},
+            "total_examples": sum(counts.values()),
+            "prototype_dimensions": self.embedding_dim,
+            "updates_since_rebuild": self.updates_since_rebuild,
+        }
 
     # -- queries -------------------------------------------------------
     def sims_for(self, queries: torch.Tensor) -> torch.Tensor:

@@ -510,7 +510,7 @@ class Encoder:
         ckpt = _find_local_checkpoint(model_name)
         if ckpt is not None:
             self.config = _read_hf_config(ckpt)
-            tree = _map_hf_weights(_load_state_dict(ckpt), self.config)
+            self._read_tree = lambda: _map_hf_weights(_load_state_dict(ckpt), self.config)
             self.tokenizer = WordPieceTokenizer.from_pretrained(str(ckpt))
             self.pretrained = True
         else:
@@ -519,9 +519,11 @@ class Encoder:
             # padded to the arch's size (so the JAX package's shrink of the
             # word table to the vocabulary leaves it as it is)
             self.config = config_for_model_name(model_name)
-            tree = init_params(offline_seed(seed, model_name), self.config)
+            self._read_tree = lambda: init_params(offline_seed(seed, model_name),
+                                                  self.config)
             self.tokenizer = WordPieceTokenizer.hermetic(self.config.vocab_size)
             self.pretrained = False
+        tree = self._read_tree()
         if self.quantization == "int8":
             from ..quantization import quantize_encoder_for_inference
 
@@ -584,6 +586,7 @@ class Encoder:
                 f"tokenizer is available: refusing to pair pretrained weights "
                 f"with another vocabulary")
         self.config = config_from_dict(enc_cfg)
+        self._read_tree = lambda: load_quantized_encoder_params(directory)[0]
         if self.quantization == "int8":
             self.params = self._on_device(params)
         else:
@@ -596,6 +599,13 @@ class Encoder:
     @property
     def hidden_size(self) -> int:
         return self.config.hidden_size
+
+    def float_tree(self) -> Tree:
+        """The float32 weights as the JAX package's stacked-layer tree, read
+        again from where they came from (the local checkpoint, the offline
+        seed, or the int8 export), not from the device copy, whose matrices
+        may be bf16 or int8."""
+        return self._read_tree()
 
     def _attn_impl(self, seq_len: int) -> str:
         """Attention policy, read on every call: ``self.attn_impl`` if set,

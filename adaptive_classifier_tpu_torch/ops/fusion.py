@@ -25,7 +25,7 @@ import torch
 
 from . import knn, knn_topk
 from .knn import top_k_lower_index
-from ..models.head import HeadParams, head_forward
+from ..models.head import HeadParams, head_forward, masked_probs
 
 
 def _sims_and_logits(emb, proto, proto_valid, head_params, has_head,
@@ -35,13 +35,6 @@ def _sims_and_logits(emb, proto, proto_valid, head_params, has_head,
                            pallas_min_classes=pallas_min_classes)
     logits = head_forward(head_params, emb) if has_head else torch.zeros_like(sims)
     return sims, logits
-
-
-def _head_probs(logits: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
-    """Softmax over active class slots; inactive slots get probability 0."""
-    masked = torch.where(active[None, :], logits, torch.full_like(logits, -1e9))
-    probs = torch.softmax(masked, dim=-1)
-    return torch.where(active[None, :], probs, torch.zeros_like(probs))
 
 
 def _normalize_rows(combined: torch.Tensor) -> torch.Tensor:
@@ -55,7 +48,7 @@ def _combined_dist(sims, logits, proto_valid, active, proto_w, head_w,
     sum-normalized → (combined [B, C], scorable [C])."""
     combined = knn.full_scores(sims, proto_valid, bias=proto_bias) * proto_w[None, :]
     if has_head:
-        combined = combined + _head_probs(logits, active) * head_w[None, :]
+        combined = combined + masked_probs(logits, active) * head_w[None, :]
     scorable = proto_valid | (active if has_head else torch.zeros_like(active))
     return _normalize_rows(combined), scorable
 
@@ -122,7 +115,7 @@ def _fuse_from_proto_topk(
         torch.where(topk_idx >= 0, topk_scores, torch.zeros_like(topk_scores)))
     combined = proto_vec * proto_weight
     if has_head:
-        hvals, hidx = top_k_lower_index(_head_probs(logits, active), kk)
+        hvals, hidx = top_k_lower_index(masked_probs(logits, active), kk)
         head_vec = torch.zeros((B, C), dtype=torch.float32, device=dev)
         head_vec.scatter_add_(1, hidx, hvals)
         combined = combined + head_vec * head_weight

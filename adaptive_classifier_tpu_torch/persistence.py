@@ -1,26 +1,33 @@
-"""Checkpoint loading — the reference on-disk format.
+"""Checkpoints in the reference on-disk format: saving and loading.
 
-Counterpart of ``load_classifier`` in ``adaptive_classifier_tpu/persistence.py``:
-``config.json`` (label maps, train_steps, training_history, config),
-``examples.json`` (representative examples per class), ``model.safetensors``
-(``prototype_{label}`` vectors, ``adaptive_head_model.*`` tensors in torch
-``[out, in]`` layout, optional ``proto_calibration_bias``) and, with the
-lexical channel on, ``lexical.json``.  Prototypes and head load exactly, so
-predictions match the classifier that was saved.
+Counterpart of ``save_classifier``, ``load_classifier`` and
+``generate_model_card`` in ``adaptive_classifier_tpu/persistence.py``:
+``config.json`` (label maps, train_steps, training_history, config, the
+seed and the fitted fusion share),
+``examples.json`` (``num_representative_examples`` k-means-selected
+examples per class), ``model.safetensors`` (``prototype_{label}`` vectors,
+``adaptive_head_model.*`` tensors in torch ``[out, in]`` layout, optional
+``proto_calibration_bias``), with the lexical channel on ``lexical.json``,
+a model card ``README.md`` and, unless left out, the int8 encoder export
+``quantized/``.  A save is lossy by design (a few examples per class) but
+prototypes and head round-trip exactly, so predictions match the
+classifier that was saved; a checkpoint either package writes loads in
+the other.
 
 When the encoder's checkpoint is not on this machine but the checkpoint's
 ``quantized/`` export captured a pretrained encoder, the encoder is built
 from the export (``Encoder.from_quantized_export``): as the int8 state when
 the classifier's ``quantization`` resolves to int8, else as dequantized
-float weights.  Saving comes with a later slice.
+float weights.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 from pathlib import Path
-from typing import Optional, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -48,6 +55,126 @@ def _resolve_model_name(model_path: Path, model_name: str) -> str:
     return model_name
 
 
+def save_classifier(clf, save_directory: Union[str, Path],
+                    include_quantized: bool = True) -> Dict[str, str]:
+    """Write ``clf`` to ``save_directory`` → the files written, by role."""
+    save_directory = Path(save_directory)
+    os.makedirs(save_directory, exist_ok=True)
+    config_dict: Dict[str, Any] = {
+        "model_name": clf.model_name,
+        "embedding_dim": clf.embedding_dim,
+        "label_to_id": clf.label_to_id,
+        "id_to_label": {str(k): v for k, v in clf.id_to_label.items()},
+        "train_steps": clf.train_steps,
+        "training_history": clf.training_history,
+        "config": clf.config.to_full_dict(),
+        # an offline encoder's weights derive from (seed, model_name): a
+        # load with another seed would build another embedding space
+        "ac_seed": clf.seed,
+        "library_name": "adaptive-classifier",
+    }
+    if clf._fusion_alpha is not None:
+        config_dict["ac_fusion_alpha"] = float(clf._fusion_alpha)
+
+    saved_examples = {
+        label: [ex.to_dict() for ex in clf.select_representative_examples(
+            examples, k=clf.config.num_representative_examples)]
+        for label, examples in clf.memory.examples.items()}
+
+    tensors: Dict[str, np.ndarray] = {
+        f"prototype_{label}": np.asarray(proto, np.float32)
+        for label, proto in clf.memory.prototypes.items()}
+    if clf.head_params is not None:
+        sd = head_lib.to_torch_state_dict(clf.head_params, max(len(clf.label_to_id), 1))
+        tensors.update({f"adaptive_head_{name}": t for name, t in sd.items()})
+    if clf._proto_bias is not None:
+        tensors["proto_calibration_bias"] = np.ascontiguousarray(clf._proto_bias, np.float32)
+    if clf.lexical is not None and clf.lexical.fitted:
+        clf.lexical.save(save_directory / "lexical.json")
+
+    (save_directory / "config.json").write_text(
+        json.dumps(config_dict, indent=2, sort_keys=True), encoding="utf-8")
+    (save_directory / "examples.json").write_text(
+        json.dumps(saved_examples, indent=2, sort_keys=True), encoding="utf-8")
+    io_safetensors.save_file(tensors, save_directory / "model.safetensors")
+    card = save_directory / "README.md"
+    if not card.exists():
+        card.write_text(generate_model_card(clf), encoding="utf-8")
+    saved = {"config": "config.json", "examples": "examples.json",
+             "model": "model.safetensors", "model_card": "README.md"}
+
+    if include_quantized:
+        if not clf.encoder.params:
+            logger.warning("Skipping the quantized export: the encoder has no "
+                           "params to export")
+        else:
+            from .quantization import save_quantized_encoder
+
+            save_quantized_encoder(clf.encoder, save_directory / "quantized")
+            saved["quantized"] = "quantized/"
+    return saved
+
+
+def generate_model_card(clf) -> str:
+    """The checkpoint's ``README.md``."""
+    stats = clf.get_memory_stats()
+    total = sum(stats["examples_per_class"].values()) or 1
+    dist = "\n".join(f"{label}: {count} examples ({count / total * 100:.1f}%)"
+                     for label, count in sorted(stats["examples_per_class"].items()))
+    return f"""---
+language: multilingual
+tags:
+- adaptive-classifier
+- text-classification
+- continuous-learning
+license: apache-2.0
+---
+
+# Adaptive Classifier
+
+This model is an instance of an adaptive classifier supporting continuous
+learning and dynamic class addition, saved by the PyTorch/CUDA build
+`adaptive_classifier_tpu_torch`; the JAX build `adaptive_classifier_tpu`
+loads it too.
+
+## Model Details
+
+- Base Model: {clf.model_name}
+- Number of Classes: {stats['num_classes']}
+- Total Examples: {stats['total_examples']}
+- Embedding Dimension: {clf.embedding_dim}
+
+## Class Distribution
+
+```
+{dist or "No examples stored"}
+```
+
+## Usage
+
+```python
+from adaptive_classifier_tpu_torch import AdaptiveClassifier
+
+classifier = AdaptiveClassifier.load("path")
+predictions = classifier.predict("Your text here")
+
+classifier.add_examples(["Example 1", "Example 2"], ["class1", "class2"])
+```
+
+## Training Details
+
+- Training Steps: {clf.train_steps}
+- Prototype Memory: Active
+- Neural Adaptation: {"Active" if clf.head_params is not None else "Inactive"}
+
+## Limitations
+
+This model:
+- Requires at least {clf.config.min_examples_per_class} examples per class
+- Has a maximum of {clf.config.max_examples_per_class} examples per class
+"""
+
+
 def load_classifier(cls, model_path: Union[str, Path],
                     device: Optional[Union[str, torch.device]] = None):
     model_path = Path(model_path)
@@ -63,7 +190,11 @@ def load_classifier(cls, model_path: Union[str, Path],
     encoder = None
     qdir = model_path / "quantized"
     if (_find_local_checkpoint(model_name) is None
-            and (qdir / "model_int8.safetensors").exists()):
+            and (qdir / "model_int8.safetensors").exists()
+            and json.loads((qdir / "quantize_config.json").read_text())
+            .get("encoder_pretrained", False)):
+        # an export of the offline random-weight encoder is not used: the
+        # model name rebuilds the same weights from the saved seed
         cfg = ModelConfig(config_dict.get("config", None))
         encoder = Encoder.from_quantized_export(
             qdir, model_name, compute_dtype=cfg.compute_dtype, device=device,
@@ -122,6 +253,7 @@ def load_classifier(cls, model_path: Union[str, Path],
     if head_sd:
         clf.head_params, _ = head_lib.from_torch_state_dict(
             head_sd, clf._class_capacity, device=clf.device)
+        clf._ensure_head_capacity()
 
     if "proto_calibration_bias" in tensors:
         clf._proto_bias = np.asarray(tensors["proto_calibration_bias"], np.float32)

@@ -16,23 +16,39 @@ of ``adaptive_classifier_tpu/quantization.py``.
   being per column); embeddings, biases and norms stay float32.
 - ``load_quantized_encoder_params``: a ``quantized/`` export
   (``model_int8.safetensors`` + ``quantize_config.json``), in either of its
-  two formats, as float weights or as the int8 state.
-
-Saving an export comes with a later slice.
+  two formats, as float weights or as the int8 state;
+- ``save_quantized_encoder``: writes that export, in the ``standard``
+  format (``quantize_tree`` of the float32 weights) from a float encoder,
+  and as the ``runtime_int8_tree`` (the int8 state, stacked over layers)
+  from an int8 one, with ``quantize_config.json`` and ``vocab.txt``.
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, List, Tuple, Union
 
 import numpy as np
 import torch
 
 from . import io_safetensors
 from .convert import encoder_int8_params_from_jax
-from .models.encoder import _MATRICES, Params, Tree, params_from_tree
+from .models.encoder import _MATRICES, _VECTORS, Params, Tree, params_from_tree
+
+#: weights smaller than this stay float32 in a ``standard`` export
+_MIN_QUANT_SIZE = 1024
+
+#: the JAX package's encoder-config fields of the other families, at their
+#: defaults (what a BERT encoder's export records for them)
+_OTHER_FAMILY_FIELDS = {
+    "global_attn_every_n_layers": 3, "local_attention": 128,
+    "global_rope_theta": 160000.0, "local_rope_theta": 10000.0,
+    "embedding_size": 0, "relative_attn_buckets": 0,
+    "relative_attn_max_distance": 128, "rel_att_span": 0, "rel_att_buckets": 0,
+    "rel_att_max_pos": 0, "rel_pos_att": "", "rel_norm": False,
+    "position_biased_input": True,
+}
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -60,6 +76,20 @@ def quantize_encoder_for_inference(params: Params) -> Params:
     return out
 
 
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dicts and lists → ``{"a/b/0": array}``."""
+    out: Dict[str, np.ndarray] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}{i}/"))
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
+
+
 def _unflatten(flat: Dict[str, np.ndarray]) -> Any:
     """``{"a/b/0": x}`` → nested dicts, with all-digit keys as lists."""
     root: Dict[str, Any] = {}
@@ -79,6 +109,79 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Any:
         return node
 
     return listify(root)
+
+
+def quantize_tree(tree: Tree) -> Tuple[Dict[str, np.ndarray], Dict[str, List[str]]]:
+    """A float32 tree → (tensors, manifest) of the ``standard`` export:
+    every array of rank >= 2 and >= ``_MIN_QUANT_SIZE`` values becomes
+    ``name.int8`` + ``name.scale``, symmetric per output channel (the
+    absmax over axis ``ndim - 2``, the scale squeezed there); the rest
+    stays float32."""
+    tensors: Dict[str, np.ndarray] = {}
+    manifest: Dict[str, List[str]] = {"quantized": [], "passthrough": []}
+    for name, w in _flatten(tree).items():
+        w = np.asarray(w, np.float32)
+        if w.ndim >= 2 and w.size >= _MIN_QUANT_SIZE:
+            axis = w.ndim - 2
+            absmax = np.maximum(np.abs(w).max(axis=axis, keepdims=True), 1e-8)
+            scale = (absmax / 127.0).astype(np.float32)
+            tensors[f"{name}.int8"] = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
+            tensors[f"{name}.scale"] = np.squeeze(scale, axis=axis)
+            manifest["quantized"].append(name)
+        else:
+            tensors[name] = w
+            manifest["passthrough"].append(name)
+    return tensors, manifest
+
+
+def runtime_int8_tree(params: Params) -> Dict[str, Dict[str, np.ndarray]]:
+    """The port's int8 state → the JAX package's runtime int8 tree:
+    ``embeddings/*`` and ``layers/{qkv_w,o_w,ffn_in_w,ffn_out_w}.{int8,scale}``
+    plus the float vectors, stacked over layers (numpy)."""
+    def np_(t):
+        return t.detach().cpu().numpy()
+
+    n_layers = 1 + max(int(k.split(".")[1]) for k in params if k.startswith("layers."))
+    layers: Dict[str, np.ndarray] = {}
+    for name in _MATRICES:
+        for part in ("int8", "scale"):
+            layers[f"{name}.{part}"] = np.stack(
+                [np_(params[f"layers.{i}.{name}.{part}"]) for i in range(n_layers)])
+    for name in _VECTORS:
+        layers[name] = np.stack([np_(params[f"layers.{i}.{name}"]) for i in range(n_layers)])
+    emb = {k.split(".", 1)[1]: np_(v) for k, v in params.items()
+           if k.startswith("embeddings.")}
+    return {"embeddings": emb, "layers": layers}
+
+
+def save_quantized_encoder(encoder, directory: Union[str, Path]) -> Path:
+    """Write ``model_int8.safetensors``, ``quantize_config.json`` and
+    ``vocab.txt`` into ``directory``: the ``standard`` format from a float
+    encoder (quantized from its float32 weights, ``Encoder.float_tree``),
+    the ``runtime_int8_tree`` from an int8 one (its int8 state as it is;
+    quantizing it again would corrupt it)."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    runtime = encoder.quantization == "int8"
+    if runtime:
+        tensors = _flatten(runtime_int8_tree(encoder.params))
+        manifest = {"quantized": sorted(n for n in tensors if ".int8" in n),
+                    "passthrough": sorted(n for n in tensors if ".int8" not in n)}
+    else:
+        tensors, manifest = quantize_tree(encoder.float_tree())
+    io_safetensors.save_file(tensors, directory / "model_int8.safetensors")
+    (directory / "quantize_config.json").write_text(json.dumps({
+        "scheme": "int8_symmetric_per_channel",
+        "format": "runtime_int8_tree" if runtime else "standard",
+        "encoder_config": {**encoder.config.__dict__, **_OTHER_FAMILY_FIELDS},
+        "encoder_pretrained": bool(encoder.pretrained),
+        "manifest": manifest,
+    }, indent=2))
+    vocab = getattr(encoder.tokenizer, "vocab", None)
+    if vocab:
+        tokens = [t for t, _ in sorted(vocab.items(), key=lambda kv: kv[1])]
+        (directory / "vocab.txt").write_text("\n".join(tokens) + "\n", encoding="utf-8")
+    return directory
 
 
 def dequantize_tree(tensors: Dict[str, np.ndarray]) -> Tree:

@@ -18,18 +18,248 @@ Counterpart of the parts of ``adaptive_classifier_tpu/training.py`` that
   runs in chunks sized so that no chunk's ``[g, N, C]`` block passes
   ``max_block`` elements (44 GB at N = C = 16,384 for the whole grid).
 
-Gradient training (MLP heads, EWC) comes with a later slice.
+- ``fit_head``: the gradient fit of MLP heads and of the frozen probe
+  after a lossy load: shuffled batches of 32, a hand-rolled AdamW, global
+  norm clipping, the plateau schedule and early stopping, with an EWC
+  penalty, logit distillation and a gradient mask as options.  The JAX
+  package runs the whole loop as one device program; here the batches run
+  from Python and the epoch's mean loss comes to the host once an epoch,
+  for the stopping rule.  The shuffles and dropout masks come from
+  ``_epoch_permutation`` and ``head._keep_mask``, which a test can replace
+  with the JAX package's own draws.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+import math
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .lexical import _fold_machinery
-from .models.head import HeadParams
+from .models import head as head_lib
+from .models.head import NEG_INF, HeadParams
+
+BATCH_SIZE = 32
+
+
+# ---------------------------------------------------------------------------
+# parameter trees: the leaf order of jax.tree.leaves (dict keys sorted)
+# ---------------------------------------------------------------------------
+
+def tree_leaves(tree: Any) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+# ---------------------------------------------------------------------------
+# AdamW, clipping, losses
+# ---------------------------------------------------------------------------
+
+class AdamW(NamedTuple):
+    m: Any
+    v: Any
+    step: int
+
+
+def adamw_init(params) -> AdamW:
+    return AdamW(m=tree_map(torch.zeros_like, params),
+                 v=tree_map(torch.zeros_like, params), step=0)
+
+
+def adamw_update(params, grads, opt: AdamW, lr: float, weight_decay: float = 0.01,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    """One AdamW step with the decay inside the step, as the JAX package
+    writes it: ``p - lr·(m̂ / (sqrt(v̂) + eps) + wd·p)``.  The bias
+    corrections are float32 scalars."""
+    step = opt.step + 1
+    t = np.float32(step)
+    bc1 = float(np.float32(1) - np.float32(b1) ** t)
+    bc2 = float(np.float32(1) - np.float32(b2) ** t)
+    m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, opt.m, grads)
+    v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, opt.v, grads)
+    new = tree_map(
+        lambda p, m_, v_: p - lr * (m_ / bc1 / (torch.sqrt(v_ / bc2) + eps)
+                                    + weight_decay * p), params, m, v)
+    return new, AdamW(m=m, v=v, step=step)
+
+
+def clip_global_norm(grads, max_norm: float = 1.0):
+    """Scale every gradient by ``min(1, max_norm / ‖g‖)`` (global norm),
+    on the device."""
+    leaves = tree_leaves(grads)
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in leaves))
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-6), max=1.0)
+    return tree_map(lambda g: g * scale, grads)
+
+
+def _masked(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask[None, :], logits, torch.full_like(logits, NEG_INF))
+
+
+def _ce_loss(logits, y, vmask, active) -> torch.Tensor:
+    """Cross-entropy over active class slots; mean over valid rows."""
+    logp = torch.log_softmax(_masked(logits, active), dim=-1)
+    nll = -torch.gather(logp, 1, torch.clamp(y.to(torch.int64), min=0)[:, None])[:, 0]
+    return torch.sum(nll * vmask) / torch.clamp(torch.sum(vmask), min=1.0)
+
+
+def _bce_loss(logits, y_multihot, vmask, active) -> torch.Tensor:
+    """Sigmoid BCE over active class slots; mean over valid rows × active
+    columns."""
+    p = torch.clamp(torch.sigmoid(logits), 1e-7, 1 - 1e-7)
+    bce = -(y_multihot * torch.log(p) + (1 - y_multihot) * torch.log(1 - p))
+    elems = bce * active[None, :].to(torch.float32) * vmask[:, None]
+    denom = torch.clamp(torch.sum(vmask) * torch.sum(active.to(torch.float32)), min=1.0)
+    return torch.sum(elems) / denom
+
+
+def _distill_loss(logits, old_logits, vmask, old_active, T: float) -> torch.Tensor:
+    """Logit distillation over the old classes:
+    ``KL(softmax(old/T) ‖ softmax(new/T))·T²``, mean over valid rows."""
+    lp_new = torch.log_softmax(_masked(logits / T, old_active), dim=-1)
+    p_old = torch.softmax(_masked(old_logits / T, old_active), dim=-1)
+    kl = torch.where(old_active[None, :],
+                     p_old * (torch.log(torch.clamp(p_old, 1e-9, 1.0)) - lp_new),
+                     torch.zeros((), device=logits.device)).sum(dim=-1)
+    return torch.sum(kl * vmask) * (T * T) / torch.clamp(torch.sum(vmask), min=1.0)
+
+
+def ewc_penalty(params, ewc_old, ewc_fisher, ewc_lambda: float, batch_n) -> torch.Tensor:
+    """``λ·Σ F·(θ−θ_old)² / batch_n``."""
+    sq = sum(torch.sum(f * (p - o) ** 2) for f, p, o in
+             zip(tree_leaves(ewc_fisher), tree_leaves(params), tree_leaves(ewc_old)))
+    return ewc_lambda * sq / torch.clamp(batch_n, min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# the gradient fit
+# ---------------------------------------------------------------------------
+
+class TrainResult(NamedTuple):
+    params: Any
+    final_loss: float
+    epochs_run: int
+
+
+def _epoch_permutation(generator: torch.Generator, valid: torch.Tensor) -> torch.Tensor:
+    """One epoch's shuffle: valid rows first, each block in a uniform
+    random order (the JAX package's ``argsort(where(valid, u, 2 + u))``)."""
+    u = torch.rand(valid.shape, generator=generator, device=generator.device)
+    return torch.argsort(torch.where(valid, u, 2.0 + u), stable=True)
+
+
+def _batch_rows(perm: torch.Tensor, b: int) -> torch.Tensor:
+    """Batch ``b``'s rows of ``perm``; a slice past the end starts earlier,
+    as ``lax.dynamic_slice`` clamps it."""
+    start = max(min(b * BATCH_SIZE, perm.shape[0] - BATCH_SIZE), 0)
+    return perm[start:start + BATCH_SIZE]
+
+
+def fit_head(
+    params: HeadParams,
+    emb: torch.Tensor,            # [N_cap, D] float32
+    labels: torch.Tensor,         # [N_cap] int (ce) or [N_cap, C_cap] float (bce)
+    valid: torch.Tensor,          # [N_cap] bool: real rows
+    active: torch.Tensor,         # [C_cap] bool: active class slots
+    generator: torch.Generator,
+    lr: float = 1e-3,
+    loss_type: str = "ce",
+    max_epochs: int = 10,
+    patience: int = 3,
+    use_scheduler: bool = True,
+    ewc_old=None, ewc_fisher=None, ewc_lambda: float = 0.0,
+    distill_logits: Optional[torch.Tensor] = None,   # [N_cap, C_cap] old head, eval mode
+    distill_active: Optional[torch.Tensor] = None,   # [C_cap] bool: old class slots
+    distill_lambda: float = 0.0, distill_temperature: float = 2.0,
+    grad_mask=None,               # params-shaped 0/1 floats; 0 freezes a weight
+) -> TrainResult:
+    """The multi-epoch gradient fit.  Each epoch shuffles the valid rows to
+    the front and runs ⌈n_real/32⌉ batches; per batch one train-mode
+    forward (one dropout draw) feeds the loss and the distillation term,
+    the gradient is masked, clipped to norm 1 and taken by AdamW, and
+    frozen entries are copied back unchanged.  After each epoch the mean
+    batch loss drives the plateau schedule (factor 0.5, patience 2,
+    relative threshold 1e-4) and early stopping (``patience``)."""
+    N = emb.shape[0]
+    vmask_f = valid.to(torch.float32)
+    n_batches = max(math.ceil(int(valid.sum()) / BATCH_SIZE), 1)
+    loss_fn = _ce_loss if loss_type == "ce" else _bce_loss
+    params = tree_map(lambda p: p.detach().clone(), params)
+    opt = adamw_init(params)
+    best = sched_best = np.float32(np.inf)
+    pc = sc = 0
+    lr_scale = np.float32(1.0)
+    last = np.float32(0.0)
+    epoch = 0
+    while epoch < max_epochs:
+        perm = _epoch_permutation(generator, valid)
+        loss_sum = torch.zeros((), device=emb.device)
+        step_lr = float(np.float32(lr) * lr_scale)
+        for b in range(n_batches):
+            idx = _batch_rows(perm, b)
+            x, y, v = emb[idx], labels[idx], vmask_f[idx]
+            keep = [head_lib._keep_mask(generator, (x.shape[0], layer["w"].shape[1]))
+                    for layer in params["hidden"]]
+            leaves = tree_leaves(params)
+            for p in leaves:
+                p.requires_grad_(True)
+            with torch.enable_grad():
+                logits = head_lib.head_forward(params, x, train=True, keep=keep)
+                loss = loss_fn(logits, y, v, active)
+                if ewc_fisher is not None:
+                    loss = loss + ewc_penalty(params, ewc_old, ewc_fisher, ewc_lambda,
+                                              torch.sum(v))
+                if distill_logits is not None:
+                    loss = loss + distill_lambda * _distill_loss(
+                        logits, distill_logits[idx], v, distill_active,
+                        distill_temperature)
+                grads = torch.autograd.grad(loss, leaves)
+            for p in leaves:
+                p.requires_grad_(False)
+            by_leaf = {id(p): g for p, g in zip(leaves, grads)}
+            grads = tree_map(lambda p: by_leaf[id(p)], params)
+            if grad_mask is not None:
+                grads = tree_map(lambda g, m: g * m, grads, grad_mask)
+            grads = clip_global_norm(grads, 1.0)
+            new, opt = adamw_update(params, grads, opt, step_lr)
+            if grad_mask is not None:
+                # weight decay moves zero-gradient weights too: frozen
+                # entries are copied back, so they stay bit-identical
+                new = tree_map(lambda n, p, m: torch.where(m > 0, n, p), new, params,
+                               grad_mask)
+            params = new
+            loss_sum = loss_sum + loss.detach()
+        # the one host read of the epoch
+        avg = np.float32((loss_sum / np.float32(n_batches)).item())
+        if use_scheduler:
+            if avg < sched_best * np.float32(1 - 1e-4):
+                sched_best, sc = avg, 0
+            else:
+                sc += 1
+            if sc > 2:
+                lr_scale, sc = lr_scale * np.float32(0.5), 0
+        if avg < best:
+            best, pc = avg, 0
+        else:
+            pc += 1
+        last = avg
+        epoch += 1
+        if pc >= patience:
+            break
+    return TrainResult(params=params, final_loss=float(last), epochs_run=epoch)
 
 
 # ---------------------------------------------------------------------------

@@ -63,6 +63,19 @@ Phases, each of which must pass:
    the production config (lexical_dim 32768, ridge head, auto knobs), then
    adds its three new classes; accuracy >= manifest - 0.03; 6i does the
    same with ``quantization: "int8"`` (B2, B3 launched in every step);
+6m. builds a classifier on the default configuration (``config={}``: MLP
+   head, ``fusion_weights: history``, no lexical channel) from the intents
+   train rows, then adds the three new classes (balanced replay with EWC and
+   distillation): old-class top-1 relative drop <= 0.10, new-class top-1
+   >= 2/3, first-batch top-1 >= the JAX package's on the CPU - 0.05; B1 and
+   B10 on every add; seconds and epochs per add;
+6s. saves the 6m classifier and loads it back on the card: the checkpoint's
+   files, 5 examples a class, top-1 agreement >= 0.99 and score drift < 0.01
+   on all 218 test rows;
+6l. adds the new classes to the loaded zoo checkpoint banking-intents (a
+   lossy replay store): the frozen-probe branch, the old classes' head
+   logits bit for bit (``torch.equal``), old-class top-1 drop <= the JAX
+   package's on the CPU + 0.03;
 7. grows a 1,024-class classifier (960 + 64 classes): kernel B4 carries
    the recalibration and every ``predict_batch`` chunk, with top-1
    agreement >= 0.99 against the plain versions on the same embeddings;
@@ -89,7 +102,7 @@ Phases, each of which must pass:
 5. prints the ``kernels`` JSON line, then as its last line
    ``{"ok": true, "device": {...}}``.
 
-Each phase prints its seconds; phases 4, 4i, 4a, 6, 6i, 7, 8 and 9 zero the
+Each phase prints its seconds; phases 4, 4i, 4a, 6, 6i, 6m, 6s, 6l, 7, 8 and 9 zero the
 launch counts just before each step and read them just after.  B9 has no caller
 on any path (in the JAX package too); it is held in phase 3 and timed in
 3b, and the ``kernels`` line gives it 0 main-path launches.
@@ -106,6 +119,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -1549,6 +1563,159 @@ def run_build(manifest: dict, launches: Launches, config=None, phase="6") -> dic
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 6m, 6s, 6l: the default configuration's continual learning, saving
+# ---------------------------------------------------------------------------
+
+#: the JAX package's figures for the flows of phases 6m and 6l on the CPU
+#: (same rows, same configs), from
+#:   JAX_PLATFORMS=cpu python scripts/jax_reference_continual.py
+JAX_DEFAULT_FIRST_TOP1 = 0.75
+JAX_LOSSY_DROP = 0.0
+#: the new-class bounds of the JAX package's
+#: tests/test_new_class_accuracy_preservation.py:38-42
+MAX_RELATIVE_DROP = 0.10
+MIN_NEW_CLASS_TOP1 = 2 / 3
+#: the round trip's bound on score drift (the JAX package's
+#: tests/test_persistence.py:89)
+MAX_SCORE_DRIFT = 0.01
+ADD_KERNELS = ("attention_qkv", "add_layer_norm")
+
+
+def check_launched(phase: str, steps: dict, kernels=ADD_KERNELS):
+    for step, counts in steps.items():
+        for k in kernels:
+            if counts[k] == 0:
+                raise AssertionError(f"phase {phase} {step}: kernel {k} never launched")
+
+
+def run_default_config(launches: Launches) -> tuple:
+    """Phase 6m: ``config={}`` (MLP head, ``fusion_weights: history``, no
+    lexical channel) on ac-base-v2 in bf16: the intents train rows, then
+    ``predict_batch`` on the ten classes' test rows, then the three new
+    classes (EWC + distillation).  → (report, classifier)."""
+    import adaptive_classifier_tpu_torch as port
+
+    clf = port.AdaptiveClassifier(str(ENCODER), config={}, device="cuda")
+    if clf.config.head_type != "mlp" or clf.lexical is not None:
+        raise AssertionError("phase 6m: the default config is not the MLP head without "
+                             "the lexical channel")
+    texts, labels = intents_rows("train")
+    t0 = time.perf_counter()
+    _, first = launches.run(lambda: clf.add_examples(texts, labels))
+    first_s = time.perf_counter() - t0
+    first_fit = clf.last_fit
+    test_t, test_l = intents_rows("test_base")
+    preds, pred_counts = launches.run(lambda: clf.predict_batch(test_t, k=1))
+    before = accuracy(preds, test_l)
+    new_t, new_l = intents_rows("new_classes")
+    t0 = time.perf_counter()
+    _, second = launches.run(lambda: clf.add_examples(new_t, new_l))
+    second_s = time.perf_counter() - t0
+    after = accuracy(clf.predict_batch(test_t, k=1), test_l)
+    nt_t, nt_l = intents_rows("test_new")
+    new_acc = accuracy(clf.predict_batch(nt_t, k=1), nt_l)
+    drop = (before - after) / before if before else 1.0
+    out = {"phase": "6m", "head_hidden": [list(h["w"].shape) for h in clf.head_params["hidden"]],
+           "train_rows": len(texts), "new_class_rows": len(new_t),
+           "top1_before": before, "top1_after": after, "relative_drop": drop,
+           "new_class_top1": new_acc, "jax_cpu_first_top1": JAX_DEFAULT_FIRST_TOP1,
+           "add_examples_s": first_s, "add_new_classes_s": second_s,
+           "epochs_run": {"first_add": first_fit.epochs_run,
+                          "new_class_add": clf.last_fit.epochs_run},
+           "final_loss": {"first_add": first_fit.final_loss,
+                          "new_class_add": clf.last_fit.final_loss},
+           "launches": {"first_add": first, "predict_batch": pred_counts,
+                        "new_class_add": second}}
+    log(f"  default config {json.dumps(out)}")
+    check_launched("6m", out["launches"])
+    if not drop <= MAX_RELATIVE_DROP:
+        raise AssertionError(f"phase 6m: old-class top-1 dropped {drop:.4f} > {MAX_RELATIVE_DROP}")
+    if not new_acc >= MIN_NEW_CLASS_TOP1:
+        raise AssertionError(f"phase 6m: new-class top-1 {new_acc:.4f} < 2/3")
+    if not before >= JAX_DEFAULT_FIRST_TOP1 - 0.05:
+        raise AssertionError(f"phase 6m: first-batch top-1 {before:.4f} < the JAX package's "
+                             f"{JAX_DEFAULT_FIRST_TOP1:.4f} - 0.05")
+    return out, clf
+
+
+def run_save_load(clf, launches: Launches) -> dict:
+    """Phase 6s: the 6m classifier saved and loaded back on the card; the
+    same answers on all test rows."""
+    import adaptive_classifier_tpu_torch as port
+
+    texts = intents_rows("test_base")[0] + intents_rows("test_new")[0]
+    want = clf.predict_batch(texts, k=3)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        clf.save(d)
+        save_s = time.perf_counter() - t0
+        files = sorted(p.name for p in Path(d).iterdir())
+        examples = json.loads((Path(d) / "examples.json").read_text())
+        t0 = time.perf_counter()
+        back, load_counts = launches.run(lambda: port.AdaptiveClassifier.load(d, device="cuda"))
+        load_s = time.perf_counter() - t0
+    got, pred_counts = launches.run(lambda: back.predict_batch(texts, k=3))
+    agree = float(np.mean([a[0][0] == b[0][0] for a, b in zip(got, want)]))
+    drift = max(abs(s - dict(b)[l]) for a, b in zip(got, want) for l, s in a if l in dict(b))
+    per_class = {l: len(v) for l, v in examples.items()}
+    out = {"phase": "6s", "files": files, "examples_per_class": per_class,
+           "test_rows": len(texts), "top1_agreement": agree, "max_score_drift": drift,
+           "save_s": save_s, "load_s": load_s, "launches": {"predict_batch": pred_counts}}
+    log(f"  save/load {json.dumps(out)}")
+    check_launched("6s", out["launches"])
+    if set(files) != {"config.json", "examples.json", "model.safetensors", "README.md",
+                      "quantized"}:
+        raise AssertionError(f"phase 6s: saved files {files}")
+    if any(n != min(5, len(clf.memory.texts[l])) for l, n in per_class.items()) \
+            or len(per_class) != len(clf.label_to_id):
+        raise AssertionError(f"phase 6s: examples.json holds {per_class}")
+    if not agree >= 0.99 or not drift < MAX_SCORE_DRIFT:
+        raise AssertionError(f"phase 6s: top-1 agreement {agree}, score drift {drift}")
+    del back
+    return out
+
+
+def run_lossy_add(launches: Launches) -> dict:
+    """Phase 6l: the three new classes added to the loaded zoo checkpoint
+    banking-intents (ridge, lexical 32,768; ~5 stored rows a class): the
+    frozen-probe branch, the old classes' head logits bit for bit."""
+    import adaptive_classifier_tpu_torch as port
+
+    zoo = port.AdaptiveClassifier.load(REPO / "checkpoints" / "zoo" / "banking-intents",
+                                       device="cuda")
+    test_t, test_l = intents_rows("test_base")
+    n_old = len(zoo.label_to_id)
+    emb = torch.from_numpy(zoo._get_embeddings(test_t)).to("cuda")
+    logits_before = zoo._head_logits(emb)[:, :n_old].clone()
+    before = accuracy(zoo.predict_batch(test_t, k=1), test_l)
+    new_t, new_l = intents_rows("new_classes")
+    t0 = time.perf_counter()
+    _, counts = launches.run(lambda: zoo.add_examples(new_t, new_l))
+    add_s = time.perf_counter() - t0
+    identical = bool(torch.equal(zoo._head_logits(emb)[:, :n_old], logits_before))
+    after = accuracy(zoo.predict_batch(test_t, k=1), test_l)
+    nt_t, nt_l = intents_rows("test_new")
+    new_acc = accuracy(zoo.predict_batch(nt_t, k=1), nt_l)
+    out = {"phase": "6l", "skip_probe": "skip" in zoo.head_params,
+           "old_logits_bit_identical": identical, "top1_before": before,
+           "top1_after": after, "drop": before - after, "jax_cpu_drop": JAX_LOSSY_DROP,
+           "new_class_top1": new_acc, "add_new_classes_s": add_s,
+           "epochs_run": zoo.last_fit.epochs_run, "launches": {"new_class_add": counts}}
+    log(f"  lossy add {json.dumps(out)}")
+    check_launched("6l", out["launches"])
+    if not out["skip_probe"]:
+        raise AssertionError("phase 6l: the frozen-probe branch did not run")
+    if not identical:
+        raise AssertionError("phase 6l: the old classes' head logits changed")
+    if not before - after <= JAX_LOSSY_DROP + 0.03:
+        raise AssertionError(f"phase 6l: old-class top-1 dropped {before - after:.4f} > the "
+                             f"JAX package's {JAX_LOSSY_DROP:.4f} + 0.03")
+    del zoo
+    torch.cuda.empty_cache()
+    return out
+
+
 def many_class_rows(first: int, n: int, per_class: int, r):
     """Templated texts: bench.py's phrasing and, with ``per_class`` 2, a
     second one whose topic is drawn from ``r``."""
@@ -1770,6 +1937,23 @@ def main() -> int:
                            phase="6i")
     phase_done("6i", t0)
 
+    log("phase 6m: the default config (MLP head), then its new classes")
+    t0 = time.perf_counter()
+    default_run, default_clf = run_default_config(launches)
+    phase_done("6m", t0)
+
+    log("phase 6s: save the 6m classifier and load it back")
+    t0 = time.perf_counter()
+    save_run = run_save_load(default_clf, launches)
+    del default_clf
+    torch.cuda.empty_cache()
+    phase_done("6s", t0)
+
+    log("phase 6l: new classes on the loaded zoo checkpoint (lossy replay)")
+    t0 = time.perf_counter()
+    lossy_run = run_lossy_add(launches)
+    phase_done("6l", t0)
+
     log("phase 7: 1,024 classes (960 + 64 added), kernel B4")
     t0 = time.perf_counter()
     p7 = run_many(7, launches)
@@ -1956,6 +2140,15 @@ def main() -> int:
          for name, rows in flash_times.items() for r in rows}))
     log(f"  bert-base A/B ms per batch " + json.dumps(
         {f"{r['path']} S={r['S']} {r['impl']}": r["ms_per_batch"] for r in bert["rows"]}))
+    log("  continual learning and saving " + json.dumps({
+        "6m": {k: default_run[k] for k in ("top1_before", "top1_after", "relative_drop",
+                                           "new_class_top1", "add_examples_s",
+                                           "add_new_classes_s", "epochs_run")},
+        "6s": {k: save_run[k] for k in ("top1_agreement", "max_score_drift", "save_s",
+                                        "load_s")},
+        "6l": {k: lossy_run[k] for k in ("top1_before", "top1_after", "new_class_top1",
+                                         "add_new_classes_s", "epochs_run",
+                                         "old_logits_bit_identical")}}))
     log(f"  phase 6i resolved {json.dumps(build_int8['resolved'])} zoo "
         f"{json.dumps(build_int8['zoo'])} top-1 {build_int8['top1_accuracy']}")
     log(gpu)

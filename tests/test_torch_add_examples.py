@@ -230,8 +230,13 @@ def test_add_examples_validates_and_raises_for_later_slices():
         clf.add_examples([], [])
     with pytest.raises(ValueError):
         clf.add_examples(["a"], ["x", "y"])
+    # MLP heads and typo-augmented heads train (tests/test_torch_continual.py
+    # holds them to the JAX package)
     for config in ({"head_type": "mlp"}, {"head_type": "ridge", "head_typo_augment": True}):
         clf = AdaptiveClassifier(TINY, device="cpu", config=config)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            clf.add_examples(["a", "b"], ["x", "y"])
-        assert clf.label_to_id == {}
+        clf.add_examples(["a", "b"], ["x", "y"])
+        assert clf.label_to_id == {"x": 0, "y": 1}
+        assert len(clf.head_params["hidden"]) == (2 if config["head_type"] == "mlp" else 0)
+    # strategic mode is a later slice
+    with pytest.raises(NotImplementedError, match="later slice"):
+        AdaptiveClassifier(TINY, device="cpu", config={"enable_strategic_mode": True})

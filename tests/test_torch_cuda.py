@@ -1045,3 +1045,96 @@ def test_offline_encoder_on_the_gpu(cuda, monkeypatch):
     gpu = tenc.Encoder("prajjwal1/bert-tiny", compute_dtype="float32", device=cuda)
     cpu = tenc.Encoder("prajjwal1/bert-tiny", compute_dtype="float32", device="cpu")
     torch.testing.assert_close(gpu.embed(texts).cpu(), cpu.embed(texts), atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the gradient fit and saving on the card
+# ---------------------------------------------------------------------------
+
+def _fit_inputs(dev, seed=0, n=70, n_cap=128, D=64, C=16, n_classes=6):
+    from adaptive_classifier_tpu_torch.models import head as thead
+
+    g = torch.Generator().manual_seed(seed)
+    centers = 2.0 * torch.randn((n_classes, D), generator=g)
+    y = torch.zeros((n_cap,), dtype=torch.int64)
+    y[:n] = torch.arange(n) % n_classes
+    emb = torch.zeros((n_cap, D))
+    emb[:n] = centers[y[:n]] + 0.5 * torch.randn((n, D), generator=g)
+    params = thead.init_head(D, C, n_classes, hidden_dims=[D, D // 2],
+                             generator=torch.Generator().manual_seed(seed + 1))
+    params = thead.ensure_skip(params, D)
+    move = lambda t: t.to(dev)
+    from adaptive_classifier_tpu_torch.training import tree_map
+
+    return (tree_map(move, params), emb.to(dev), y.to(dev), (torch.arange(n_cap) < n).to(dev),
+            (torch.arange(C) < n_classes).to(dev))
+
+
+def test_fit_head_on_the_gpu_matches_the_cpu(cuda, monkeypatch):
+    """The same draws (the CPU run's, recorded and handed to the card's
+    run): at the config's learning rate the card's fit equals the CPU's
+    within 1e-5 (TF32 off).  (Once the loss nears 0, AdamW's ``m/sqrt(v)``
+    of vanishing gradients turns last-bit differences into steps of the
+    learning rate: at a much larger rate the two fits part by more.)"""
+    from adaptive_classifier_tpu_torch import training
+    from adaptive_classifier_tpu_torch.models import head as thead
+
+    draws = []
+    perm, keep = training._epoch_permutation, thead._keep_mask
+    monkeypatch.setattr(training, "_epoch_permutation",
+                        lambda g, v: draws.append(perm(g, v)) or draws[-1])
+    monkeypatch.setattr(thead, "_keep_mask", lambda g, s: draws.append(keep(g, s)) or draws[-1])
+    kw = dict(lr=1e-3, loss_type="ce", max_epochs=8, patience=3, use_scheduler=True)
+    cpu = training.fit_head(*_fit_inputs("cpu"), torch.Generator().manual_seed(3), **kw)
+    replay = [d.to(cuda) for d in draws]
+    monkeypatch.setattr(training, "_epoch_permutation", lambda g, v: replay.pop(0))
+    monkeypatch.setattr(thead, "_keep_mask", lambda g, s: replay.pop(0))
+    gpu = training.fit_head(*_fit_inputs(cuda), torch.Generator(cuda).manual_seed(3), **kw)
+    assert replay == [] and gpu.epochs_run == cpu.epochs_run
+    assert abs(gpu.final_loss - cpu.final_loss) <= 1e-5
+    for a, b in zip(training.tree_leaves(gpu.params), training.tree_leaves(cpu.params)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
+
+
+def test_grad_masked_fit_keeps_frozen_entries_on_the_gpu(cuda):
+    from adaptive_classifier_tpu_torch import training
+
+    params, emb, y, valid, active = _fit_inputs(cuda, seed=5)
+    C = params["out"]["w"].shape[1]
+    new = (torch.arange(C, device=cuda) >= 4).float()
+    mask = training.tree_map(torch.zeros_like, params)
+    mask["out"]["w"] = new[None, :].expand_as(params["out"]["w"]).clone()
+    mask["out"]["b"] = new
+    mask["skip"]["w"] = new[None, :].expand_as(params["skip"]["w"]).clone()
+    onehot = torch.nn.functional.one_hot(y, C).float()
+    res = training.fit_head(params, emb, onehot, valid, active,
+                            torch.Generator(cuda).manual_seed(0), lr=0.05, loss_type="bce",
+                            max_epochs=6, patience=10, use_scheduler=False, grad_mask=mask)
+    x = emb[:8]
+    from adaptive_classifier_tpu_torch.models.head import head_forward
+
+    assert torch.equal(head_forward(res.params, x)[:, :4], head_forward(params, x)[:, :4])
+    for p0, p1, m in zip(*(training.tree_leaves(t) for t in (params, res.params, mask))):
+        assert torch.equal(p1[m == 0], p0[m == 0])
+        if (m > 0).any():
+            assert not torch.equal(p1[m > 0], p0[m > 0])
+
+
+def test_save_on_the_gpu_loads_on_the_cpu(cuda, tmp_path, monkeypatch):
+    """The default configuration (MLP head) built on the card, saved, and
+    loaded on the CPU: the same predictions, scores within 1e-4."""
+    monkeypatch.delenv("AC_ATTN_IMPL", raising=False)
+    cfg = {"compute_dtype": "float32", "train_size_buckets": [64, 256],
+           "class_capacity_buckets": [8, 16, 32], "example_capacity_buckets": [32, 128]}
+    data = json.loads((REPO / "data/intents.json").read_text())
+    texts = [t for ts in data["train"].values() for t in ts]
+    labels = [l for l, ts in data["train"].items() for _ in ts]
+    clf = port.AdaptiveClassifier(str(REPO / "checkpoints/ac-base-v2"), device=cuda, config=cfg)
+    clf.add_examples(texts, labels)
+    clf.save(tmp_path / "ckpt")
+    back = port.AdaptiveClassifier.load(tmp_path / "ckpt", device="cpu")
+    queries = [t for ts in data["test"].values() for t in ts][:40]
+    got, want = back.predict_batch(queries, k=3), clf.predict_batch(queries, k=3)
+    assert [[l for l, _ in r] for r in got] == [[l for l, _ in r] for r in want]
+    np.testing.assert_allclose([[s for _, s in r] for r in got],
+                               [[s for _, s in r] for r in want], atol=1e-4)

@@ -120,9 +120,14 @@ def test_head_forward(skip):
 
 
 def test_mlp_head_waits_for_its_slice():
-    sd = _head_sd(np.random.default_rng(4), 24, 5, hidden=(12, 8))
-    with pytest.raises(NotImplementedError, match="MLP"):
-        thead.from_torch_state_dict(sd, 16)
+    # MLP heads load (they were a later slice) and score as the JAX package's
+    r = np.random.default_rng(4)
+    sd = _head_sd(r, 24, 5, hidden=(12, 8))
+    jp, jdims = jhead.from_torch_state_dict(sd, 16)
+    tp, tdims = thead.from_torch_state_dict(sd, 16)
+    assert tdims == jdims == [12, 8]
+    x = _unit(r, (6, 24))
+    _close(thead.head_forward(tp, _t(x)), jhead.head_forward(jp, jnp.asarray(x)), atol=1e-5)
 
 
 def _fusion_inputs(seed, n_classes=7, C=16, ties=True):

@@ -94,11 +94,15 @@ def test_entry_points_default_to_the_gpu():
 def test_unported_paths_raise(both):
     _, clf = both
     labels = dict(clf.label_to_id)
-    # a loaded checkpoint keeps ~5 rows per class: new classes there take the
-    # JAX package's frozen-head gradient path, not ported yet; nothing changes
-    with pytest.raises(NotImplementedError, match="later slice"):
-        clf.add_examples(["a"], ["b"])
-    assert clf.label_to_id == labels
+    # a loaded checkpoint keeps ~5 rows per class: a new class there trains
+    # frozen-trunk probes, and the old classes keep their ids and their head
+    # logits bit for bit
+    probe = torch.from_numpy(clf._get_embeddings(_test_texts(4)))
+    before = clf._head_logits(probe)[:, :len(labels)].clone()
+    clf.add_examples(["a"], ["b"])
+    assert clf.label_to_id == {**labels, "b": len(labels)}
+    assert "skip" in clf.head_params
+    assert torch.equal(clf._head_logits(probe)[:, :len(labels)], before)
     with pytest.raises(NotImplementedError, match="later slice"):
         clf.predict_proba(["a"], calibrated=True)
     with pytest.raises(ValueError):

@@ -204,18 +204,22 @@ def test_prototype_memory_add_and_prune_match_jax(max_examples, slack):
 
 
 def test_linear_head_init_and_growth():
-    h = thead.init_head(10, 8)
+    h = thead.init_head(10, 8, 3, hidden_dims=[])
     assert h["hidden"] == [] and h["out"]["w"].shape == (10, 8)
-    assert not h["out"]["w"].any()
+    # Xavier-uniform over (fan_in 10, 3 classes), zero bias, as the JAX package
+    assert 0 < h["out"]["w"].abs().max() <= np.sqrt(6.0 / 13) and not h["out"]["b"].any()
     h["out"]["w"][:, :3] = 1.0
     h["skip"] = {"w": torch.ones(10, 8)}
     g = thead.grow_capacity(h, 16)
     assert g["out"]["w"].shape == (10, 16) and g["skip"]["w"].shape == (10, 16)
     assert torch.equal(g["out"]["w"][:, :8], h["out"]["w"])
-    assert not g["out"]["w"][:, 8:].any() and not g["out"]["b"][8:].any()
+    assert g["out"]["w"][:, 8:].any() and not g["out"]["b"][8:].any()
+    assert not g["skip"]["w"][:, 8:].any()
     assert thead.grow_capacity(g, 8) is g
-    with pytest.raises(NotImplementedError, match="later slice"):
-        thead.init_head(10, 8, hidden_dims=[4])
+    # hidden widths build an MLP head (tests/test_torch_mlp_head.py)
+    mlp = thead.init_head(10, 8, 3, hidden_dims=[4])
+    assert [tuple(l["w"].shape) for l in mlp["hidden"]] == [(10, 4)]
+    assert mlp["out"]["w"].shape == (4, 8)
 
 
 def test_head_params_from_jax():
