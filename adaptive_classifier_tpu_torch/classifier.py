@@ -2,28 +2,40 @@
 
 Counterpart of ``adaptive_classifier_tpu/classifier.py``: ``add_examples``
 with ridge and MLP heads (the first batch, and later batches with new
-classes), ``save`` and ``load``, ``predict_batch``, ``predict`` and
-``predict_proba``.  Texts are tokenized (and, with the lexical channel on,
-hashed into TF-IDF features) on the host; the encoder forward, channel
-composition, prototype similarities, head logits and fusion run on the
-device, and one packed ``[N, 2k]`` block of scores and ids comes back per
-predict call.  ``add_examples`` fits a ridge head in closed form and an MLP
-head by gradient descent (``training.fit_head``); the lexical knobs, λ and
-the fusion share by train-fold probes; new classes on a trained classifier
-by balanced replay with EWC and distillation, or, after a lossy load, as
-frozen-trunk probes; and the prototype recalibration bias, as the JAX
-package does.  Random draws (head init, shuffles, dropout, EWC sampling,
-k-means) come from ``torch.Generator``s on the classifier's device, seeded
-from the classifier's seed and the JAX package's salt for each fit.
+classes), ``save``, ``load`` and ``from_pretrained`` (a local directory),
+``predict_batch``, ``predict``, ``predict_proba`` (temperature-calibrated
+after ``calibrate``), ``predict_document`` for texts longer than the
+encoder window, the robust / strategic entry points (which answer as
+``predict`` does: strategic mode is not ported), and the memory's editing
+surface (``clear_memory``, ``merge_classifiers``).  Texts are tokenized
+(and, with the lexical channel on, hashed into TF-IDF features) on the
+host; the encoder forward, channel composition, prototype similarities,
+head logits and fusion run on the device, and one packed ``[N, 2k]`` block
+of scores and ids comes back per predict call.  A text seen before is not
+embedded again: ``_get_embeddings`` reads a host LRU, and the predict path
+a ring buffer of rows on the device (``utils/cache.py``), both sized by
+``embedding_cache_size``.  ``add_examples`` fits a ridge head in closed
+form and an MLP head by gradient descent (``training.fit_head``); the
+lexical knobs, λ and the fusion share by train-fold probes; new classes on
+a trained classifier by balanced replay with EWC and distillation, or,
+after a lossy load, as frozen-trunk probes; and the prototype
+recalibration bias, as the JAX package does.  Random draws (head init,
+shuffles, dropout, EWC sampling, k-means) come from ``torch.Generator``s
+on the classifier's device, seeded from the classifier's seed and the JAX
+package's salt for each fit.
 
-Strategic mode, calibrated probabilities, the embedding cache
-(``embedding_cache_size`` is read and ignored) and the other surfaces come
-with later slices.
+Methods may be called from several threads at once (the serving workers
+do): the caches and the memory take their own locks, and every launch goes
+to the device's current stream, whose order keeps a cache row's write
+ahead of any gather of it.  ``add_examples`` must not run beside a predict
+(the server's reader-writer lock sees to it).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterator, List, Optional, Set, Tuple, Union
 
@@ -98,6 +110,15 @@ class AdaptiveClassifier:
         self.last_fit: Optional[training.TrainResult] = None
         #: generators handed out by _next_generator (the EWC draws)
         self._draws = 0
+        #: stage timers (enable_profiling); None = off
+        self.timers = None
+        #: fitted calibration.TemperatureScaler; None until calibrate()
+        self._temperature_scaler = None
+        #: the host LRU (_get_embeddings) and the device ring (the predict
+        #: path), made at first use when embedding_cache_size > 0
+        self._emb_cache = None
+        self._dev_cache = None
+        self._cache_lock = threading.Lock()
 
     @classmethod
     def load(cls, save_dir: Union[str, Path],
@@ -105,6 +126,45 @@ class AdaptiveClassifier:
         from . import persistence
 
         return persistence.load_classifier(cls, Path(save_dir), device=device)
+
+    @classmethod
+    def from_pretrained(cls, model_id: Union[str, Path],
+                        device: Optional[Union[str, torch.device]] = None
+                        ) -> "AdaptiveClassifier":
+        """A checkpoint in a local directory; anything else raises (the
+        JAX package's Hub download is not ported)."""
+        from . import persistence
+
+        return persistence.from_pretrained(cls, model_id, device=device)
+
+    def to(self, device: Union[str, torch.device]) -> "AdaptiveClassifier":
+        """``self`` for the classifier's own device; moving the state to
+        another device is not ported yet."""
+        dev = torch.device(device)
+        if dev.type == self.device.type and (
+                dev.index is None or self.device.index is None
+                or dev.index == self.device.index):
+            return self
+        raise NotImplementedError(
+            f"moving a classifier from {self.device} to {dev} comes with a later "
+            f"slice; load the checkpoint with device={str(dev)!r} instead")
+
+    @property
+    def strategic_mode(self) -> bool:
+        """Always false: the constructor refuses ``enable_strategic_mode``."""
+        return False
+
+    def enable_profiling(self):
+        """Attach stage timers (``tokenize``, ``encoder_forward``,
+        ``knn_fusion``) → the ``StageTimers``, for ``summary()`` and
+        ``report()``."""
+        from .utils.profiling import StageTimers
+
+        self.timers = StageTimers()
+        return self.timers
+
+    def _stage(self, name: str):
+        return self.timers.stage(name) if self.timers is not None else contextlib.nullcontext()
 
     # ------------------------------------------------------------------
     # embeddings
@@ -140,16 +200,18 @@ class AdaptiveClassifier:
         CH = self._chunk_size(chunk_override)
         for s in range(0, len(texts), CH):
             part = texts[s:s + CH]
-            ids, mask, lex = self._tokenize_chunk(part, self._pad_rows(len(part), CH))
-            yield self._compose_channels(self.encoder.embed_ids(ids, mask), lex), len(part)
+            with self._stage("tokenize"):
+                ids, mask, lex = self._tokenize_chunk(part, self._pad_rows(len(part), CH))
+            with self._stage("encoder_forward"):
+                emb = self._compose_channels(self.encoder.embed_ids(ids, mask), lex)
+            yield emb, len(part)
 
     def _query_chunks(self, texts: List[str], chunk_override: Optional[int] = None
                       ) -> Iterator[Tuple[torch.Tensor, int]]:
         """The chunks a prediction scores: ``_embed_chunks``, or, when
         ``_get_embeddings`` was replaced on the instance or in a subclass
         (the reference's extension point), its rows."""
-        if ("_get_embeddings" not in self.__dict__
-                and type(self)._get_embeddings is AdaptiveClassifier._get_embeddings):
+        if not self._embeddings_overridden():
             yield from self._embed_chunks(texts, chunk_override)
             return
         CH = self._chunk_size(chunk_override)
@@ -158,13 +220,67 @@ class AdaptiveClassifier:
             rows = np.asarray(self._get_embeddings(part), np.float32)
             yield torch.from_numpy(rows).to(self.device), len(part)
 
+    def _embeddings_overridden(self) -> bool:
+        return ("_get_embeddings" in self.__dict__
+                or type(self)._get_embeddings is not AdaptiveClassifier._get_embeddings)
+
     def _get_embeddings(self, texts: List[str]) -> np.ndarray:
-        """Embeddings of ``texts`` on the host ``[N, D]`` float32.  The JAX
-        package's embedding cache is not ported: ``embedding_cache_size`` is
-        read into the config and ignored, and every call embeds."""
+        """Embeddings of ``texts`` on the host ``[N, D]`` float32.  Texts
+        seen before come from the host LRU (``embedding_cache_size`` rows;
+        0 turns it off); the others are embedded and stored."""
+        cache = self._host_cache()
+        if cache is None:
+            return self._embed_uncached(texts)
+        cached, miss_idx = cache.lookup(texts, self.config.max_length)
+        if not miss_idx:
+            return (np.stack(cached) if cached
+                    else np.zeros((0, self.embedding_dim), np.float32))
+        miss_texts = [texts[i] for i in miss_idx]
+        fresh = self._embed_uncached(miss_texts)
+        cache.store(miss_texts, self.config.max_length, fresh)
+        out = np.zeros((len(texts), self.embedding_dim), np.float32)
+        out[miss_idx] = fresh
+        for i, row in enumerate(cached):
+            if row is not None:
+                out[i] = row
+        return out
+
+    def _embed_uncached(self, texts: List[str]) -> np.ndarray:
         with torch.inference_mode():
             parts = [emb[:n] for emb, n in self._embed_chunks(texts)]
             return torch.cat(parts, dim=0).float().cpu().numpy()
+
+    def _embed_device(self, texts: List[str]) -> torch.Tensor:
+        return torch.from_numpy(self._get_embeddings(texts)).to(self.device)
+
+    def _host_cache(self):
+        if self._emb_cache is None and self.config.embedding_cache_size > 0:
+            from .utils.cache import EmbeddingCache
+
+            with self._cache_lock:
+                if self._emb_cache is None:
+                    self._emb_cache = EmbeddingCache(self.config.embedding_cache_size)
+        return self._emb_cache
+
+    def _device_cache(self):
+        """The device ring, made at the first predict (at the production
+        width it is 4,096 x 33,280 float32 rows, 545 MB).  Call it outside
+        ``torch.inference_mode()``."""
+        if self._dev_cache is None and self.config.embedding_cache_size > 0:
+            from .utils.cache import DeviceEmbeddingCache
+
+            with self._cache_lock:
+                if self._dev_cache is None:
+                    self._dev_cache = DeviceEmbeddingCache(
+                        self.config.embedding_cache_size, self.embedding_dim, self.device)
+        return self._dev_cache
+
+    def _clear_embedding_caches(self):
+        """Forget every cached row, host and device: the next predict of a
+        text embeds it again."""
+        for cache in (self._emb_cache, self._dev_cache):
+            if cache is not None:
+                cache.clear()
 
     def _compose_channels(self, enc: torch.Tensor, lex: Optional[np.ndarray]) -> torch.Tensor:
         """``[enc, w*lex] / sqrt(1+w²)`` on the device; identity without lex."""
@@ -315,17 +431,19 @@ class AdaptiveClassifier:
             # dense encoder channel only (composition needs the weight)
             saved, self.lexical = self.lexical, None
             try:
-                enc = self._get_embeddings(texts)
+                enc = self._embed_uncached(texts)
                 typo_views = None
                 if saved.grams == "auto":
                     # robust tie-breaking among near-tied gram kinds
                     texts_t = [self._typo_variant(t, self.seed) for t in texts]
-                    typo_views = (self._get_embeddings(texts_t), texts_t)
+                    typo_views = (self._embed_uncached(texts_t), texts_t)
             finally:
                 self.lexical = saved
             lid = {l: i for i, l in enumerate(uniq)}
             self.lexical.resolve_config(enc, texts, [lid[l] for l in labels],
                                         typo_views=typo_views)
+        # no row embedded before the channel was set up may be served
+        self._emb_cache = None
 
     def _initialize_adaptive_head(self):
         """Hidden layers ``[D, D//2]`` at the dense encoder width ``D``
@@ -633,8 +751,13 @@ class AdaptiveClassifier:
         the JAX package's ``predict`` (per-label history weights)."""
         if not text:
             raise ValueError("Empty input text")
+        return self._predict_regular_batch([text], k)[0]
+
+    def _predict_regular_batch(self, texts: List[str], k: int) -> Predictions:
+        """``predict`` for many texts: the per-label-weight fusion over the
+        full distribution, then its top-k."""
         if not self.label_to_id:
-            return []
+            return [[] for _ in texts]
         pw, hw = self._history_weights()
         kk = min(max(k, 1), self._class_capacity)
         state = self.memory.state
@@ -648,7 +771,7 @@ class AdaptiveClassifier:
                 kk, has_head, pallas_min_classes=self.config.pallas_knn_min_classes,
                 proto_bias=proto_bias)
 
-        return self._predict_rows([text], fuse, kk, k)[0]
+        return self._predict_rows(texts, fuse, kk, k)
 
     def predict_batch(self, texts: List[str], k: int = 5,
                       batch_size: Optional[int] = None) -> Predictions:
@@ -656,7 +779,8 @@ class AdaptiveClassifier:
         at a fixed prototype share (the fitted one, else 0.7).
 
         ``batch_size`` caps the rows per device chunk (default
-        ``config.embed_chunk_size``)."""
+        ``config.embed_chunk_size``); it rides the call, so serving workers
+        with their own sizes do not race."""
         if not texts:
             raise ValueError("Empty input batch")
         if not self.label_to_id:
@@ -682,18 +806,49 @@ class AdaptiveClassifier:
                       fuse: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
                       kk: int, k: int,
                       chunk_override: Optional[int] = None) -> Predictions:
-        """Shared predict pipeline.  Chunks are padded to the batch buckets
-        {1, 8, 64, chunk} so the device sees few shapes; each chunk's
-        ``[pad, 2·kk]`` block of scores and ids stays on the device until one
-        copy to the host at the end, and no step in between waits for the
-        device, so the host tokenizes chunk N+1 while the device runs N."""
+        """Shared predict pipeline.  Texts in the device cache are not
+        embedded: their rows are gathered (the gathers queued first), the
+        others are embedded in chunks and each chunk's rows stored in the
+        ring.  Chunks of either kind are padded to the batch buckets {1, 8,
+        64, chunk} so the device sees few shapes; each chunk's ``[pad,
+        2·kk]`` block of scores and ids stays on the device until one copy
+        to the host at the end, and no step in between waits for the
+        device, so the host tokenizes chunk N+1 while the device runs N.
+        The rows come back as misses then hits and are put back in request
+        order.  A replaced ``_get_embeddings`` feeds its own rows and
+        bypasses the device cache."""
+        CH = self._chunk_size(chunk_override)
+        cache = None if self._embeddings_overridden() else self._device_cache()
+        if cache is not None:
+            hits, miss_idx = cache.lookup(texts, self.config.max_length)
+        else:
+            hits, miss_idx = [], list(range(len(texts)))
+        miss_texts = [texts[i] for i in miss_idx]
         packed, spans = [], []
         with torch.inference_mode():
-            for emb, n in self._query_chunks(texts, chunk_override):
-                scores, idx = fuse(emb)
+            hit_chunks = []
+            slots = [s for _, s in hits]
+            for s0 in range(0, len(slots), CH):
+                part = slots[s0:s0 + CH]
+                n = len(part)
+                hit_chunks.append((cache.gather(part + [0] * (self._pad_rows(n, CH) - n)), n))
+            pos = 0
+            chunks = (self._query_chunks(miss_texts, chunk_override) if miss_texts else ())
+            for emb, n in chunks:
+                with self._stage("knn_fusion"):
+                    scores, idx = fuse(emb)
                 packed.append(torch.cat([scores, idx.float()], dim=1))
                 spans.append((n, scores.shape[0]))
-            host = torch.cat(packed, dim=0).cpu().numpy()
+                if cache is not None:
+                    cache.store(miss_texts[pos:pos + n], self.config.max_length, emb)
+                pos += n
+            for emb, n in hit_chunks:
+                with self._stage("knn_fusion"):
+                    scores, idx = fuse(emb)
+                packed.append(torch.cat([scores, idx.float()], dim=1))
+                spans.append((n, scores.shape[0]))
+            host = (torch.cat(packed, dim=0).cpu().numpy() if packed
+                    else np.zeros((0, 2 * kk), np.float32))
         keep = np.zeros(host.shape[0], bool)
         off = 0
         for n, pad in spans:
@@ -701,20 +856,87 @@ class AdaptiveClassifier:
             off += pad
         host = host[keep]
         id2l = self.id_to_label
-        return [
-            [(id2l[i], s) for s, i in zip(srow, irow) if i >= 0 and i in id2l][:k]
-            for srow, irow in zip(host[:, :kk].tolist(),
-                                  host[:, kk:].astype(np.int64).tolist())
-        ]
+        results: Predictions = [[] for _ in texts]
+        row_order = miss_idx + [i for i, _ in hits]
+        for dest, srow, irow in zip(row_order, host[:, :kk].tolist(),
+                                    host[:, kk:].astype(np.int64).tolist()):
+            results[dest] = [(id2l[i], s) for s, i in zip(srow, irow)
+                             if i >= 0 and i in id2l][:k]
+        return results
+
+    def _predict_from_embedding(self, embedding, k: int = 5, robust: bool = False,
+                                strategic: bool = False) -> List[Tuple[str, float]]:
+        """Top-k fusion of one embedding ``[D]`` at the config's
+        ``prototype_weight`` / ``neural_weight``."""
+        return self._predict_from_embeddings_batch(embedding, k, robust=robust,
+                                                   strategic=strategic)[0]
+
+    def _predict_from_embeddings_batch(self, embs, k: int = 5, robust: bool = False,
+                                       strategic: bool = False) -> Predictions:
+        """Top-k fusion of ``[B, D]`` embeddings (host arrays or tensors) at
+        the config's ``prototype_weight`` / ``neural_weight`` (the robust
+        and strategic weights apply in strategic mode only, which is not
+        ported), with the recalibration bias."""
+        pw, hw = self.config.prototype_weight, self.config.neural_weight
+        if not isinstance(embs, torch.Tensor):
+            embs = torch.tensor(np.asarray(embs, np.float32))
+        emb = embs.to(self.device, torch.float32)
+        emb = emb.reshape(-1, emb.shape[-1])
+        kk = min(max(k, 1), self._class_capacity)
+        with torch.inference_mode():
+            sims = self.memory.sims_for(emb)
+            logits = self._head_logits(emb)
+            scores, ids = fusion.fuse_topk(
+                sims, logits, self.memory.state.valid, self._active_mask(), pw, hw, kk,
+                self.head_params is not None, proto_bias=self._proto_bias_arr())
+            scores_np, ids_np = scores.cpu().numpy(), ids.cpu().numpy()
+        id2l = self.id_to_label
+        return [[(id2l[int(i)], float(s)) for s, i in zip(srow, irow)
+                 if i >= 0 and int(i) in id2l][:k]
+                for srow, irow in zip(scores_np, ids_np)]
+
+    # the strategic entry points: strategic mode is not ported, and without
+    # it the JAX package answers each of them as predict does
+    def predict_robust(self, text: str, k: int = 5) -> List[Tuple[str, float]]:
+        return self.predict_robust_batch([text], k)[0]
+
+    def predict_strategic(self, text: str, k: int = 5) -> List[Tuple[str, float]]:
+        return self.predict_strategic_batch([text], k)[0]
+
+    def predict_robust_batch(self, texts: List[str], k: int = 5) -> Predictions:
+        return self._predict_regular_batch(texts, k)
+
+    def predict_strategic_batch(self, texts: List[str], k: int = 5) -> Predictions:
+        return self._predict_regular_batch(texts, k)
+
+    @staticmethod
+    def _blend_dual(regular, strategic, rw: float, sw: float, k: int):
+        blended: Dict[str, float] = {}
+        for label, score in regular:
+            blended[label] = score * rw
+        for label, score in strategic:
+            blended[label] = blended.get(label, 0.0) + score * sw
+        preds = sorted(blended.items(), key=lambda x: x[1], reverse=True)
+        total = sum(s for _, s in preds)
+        if total > 0:
+            preds = [(l, s / total) for l, s in preds]
+        return preds[:k]
+
+    def _predict_dual_batch(self, texts: List[str], k: int = 5) -> Predictions:
+        """The regular and the strategic answers blended at the config's
+        weights and renormalized over the top-k."""
+        regular = self._predict_regular_batch(texts, k)
+        strategic = self.predict_strategic_batch(texts, k)
+        rw = self.config.strategic_blend_regular_weight
+        sw = self.config.strategic_blend_strategic_weight
+        return [self._blend_dual(r, s, rw, sw, k) for r, s in zip(regular, strategic)]
 
     def predict_proba(self, texts: Union[str, List[str]], calibrated: bool = False
                       ) -> Tuple[np.ndarray, List[str]]:
         """Full fused probability distribution per text → ``(probs
         [N, n_classes], labels)``: the per-label-weight fusion of
-        ``predict``, returned whole; rows sum to 1."""
-        if calibrated:
-            raise NotImplementedError("calibrated probabilities (calibrate(), "
-                                      "temperature scaling) come with a later slice")
+        ``predict``, returned whole; rows sum to 1.  ``calibrated=True``
+        applies the temperature fitted by :meth:`calibrate`."""
         if isinstance(texts, str):
             texts = [texts]
         if not texts:
@@ -735,8 +957,32 @@ class AdaptiveClassifier:
                     pw, hw, self.head_params is not None,
                     pallas_min_classes=self.config.pallas_knn_min_classes,
                     proto_bias=proto_bias)[:n])
-            probs = torch.cat(parts, dim=0).cpu().numpy()
-        return probs[:, :n_classes], labels
+            probs = torch.cat(parts, dim=0).cpu().numpy()[:, :n_classes]
+        if calibrated:
+            if self._temperature_scaler is None:
+                raise RuntimeError("predict_proba(calibrated=True) needs calibrate() first")
+            probs = self._temperature_scaler.transform(probs)
+        return probs, labels
+
+    def calibrate(self, texts: List[str], labels: List[str]) -> Dict[str, Any]:
+        """Fit a temperature on held-out labeled texts (calibration.py) →
+        the report (T, NLL and ECE before and after); arms
+        ``predict_proba(calibrated=True)``."""
+        from .calibration import fit_classifier_temperature
+
+        scaler, report = fit_classifier_temperature(self, texts, labels)
+        self._temperature_scaler = scaler
+        return report
+
+    def predict_document(self, text: str, k: int = 5, chunk_tokens: Optional[int] = None,
+                         overlap: float = 0.25, pool: str = "mean") -> List[Tuple[str, float]]:
+        """Classify a text longer than the encoder window: overlapping token
+        windows embedded in one device batch, pooled ``mean``, ``max`` or
+        ``vote`` (document.py)."""
+        from . import document
+
+        return document.predict_document(self, text, k=k, chunk_tokens=chunk_tokens,
+                                         overlap=overlap, pool=pool)
 
     # ------------------------------------------------------------------
     # statistics, representative examples, saving
@@ -759,6 +1005,51 @@ class AdaptiveClassifier:
             stats["model_params"] = int(sum(p.numel() for p in
                                             training.tree_leaves(self.head_params)))
         return stats
+
+    def clear_memory(self, labels: Optional[List[str]] = None):
+        """Forget the stored examples of ``labels`` (all of them when None);
+        the labels keep their ids.  The recalibration bias goes, as it was
+        fitted on what the memory held."""
+        self._proto_bias = None
+        if labels is None:
+            self.memory.clear()
+            for idx in sorted(self.id_to_label):
+                self.memory.register_label(self.id_to_label[idx])
+        else:
+            for label in labels:
+                self.memory.remove_label(label)
+
+    def merge_classifiers(self, other: "AdaptiveClassifier") -> "AdaptiveClassifier":
+        """Take ``other``'s labels and stored examples, then refit the head.
+        Rows are copied when both classifiers embed with the same model
+        (across devices if need be); otherwise ``other``'s texts are
+        embedded again with this classifier's encoder."""
+        if self.embedding_dim != other.embedding_dim:
+            raise ValueError("Classifiers have different embedding dimensions")
+        same_space = self.model_name == other.model_name
+        next_idx = max(self.id_to_label.keys()) + 1 if self.id_to_label else 0
+        for label in other.label_to_id:
+            if label not in self.label_to_id:
+                self.label_to_id[label] = next_idx
+                self.id_to_label[next_idx] = label
+                self.memory.register_label(label)
+                next_idx += 1
+        for label, slot in other.memory.label_to_index.items():
+            n = len(other.memory.texts.get(label, ()))
+            if n == 0:
+                continue
+            texts = list(other.memory.texts[label])
+            if same_space:
+                embs = other.memory.state.emb[slot, :n].cpu().numpy()
+            else:
+                embs = self._get_embeddings(texts)
+            self.memory.add_batch_host(texts, embs, [label] * n)
+        self._proto_bias = None
+        if self.head_params is not None:
+            self._initialize_adaptive_head()
+            self._ensure_head_capacity()
+            self._train_adaptive_head()
+        return self
 
     def select_representative_examples(self, examples: List[Example],
                                        k: int = 5) -> List[Example]:

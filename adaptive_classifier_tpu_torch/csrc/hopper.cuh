@@ -230,8 +230,19 @@ inline EncodeTiledFn encode_tiled() {
 // Tensor map of a row-major f32 matrix [rows, cols] (cols % 4 == 0, ptr
 // 16-byte aligned) read in boxes of box_rows x 32 columns, 128-byte swizzle,
 // zeros outside the matrix.
+//
+// The encoder (libcuda's cuTensorMapEncodeTiled) fails with
+// CUDA_ERROR_INVALID_CONTEXT in a host thread that has no context current.
+// The runtime binds the device's primary context to a thread only at that
+// thread's first call that needs it, and a launch from a new thread (a
+// serving worker) whose tensors all came from PyTorch's allocator cache
+// may reach this point first: cudaSetDevice binds it (CUDA 12).
 inline cudaError_t f32_rows_map(CUtensorMap* map, const float* ptr, int rows, int cols,
                                 int box_rows) {
+  int device = 0;
+  cudaError_t bound = cudaGetDevice(&device);
+  if (bound == cudaSuccess) bound = cudaSetDevice(device);
+  if (bound != cudaSuccess) return bound;
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorSymbolNotFound;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};

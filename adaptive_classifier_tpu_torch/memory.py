@@ -150,6 +150,14 @@ def prune(state: MemoryState, max_examples: int) -> torch.Tensor:
     return order
 
 
+def clear_class(state: MemoryState, slot: int):
+    """Empty one class row in place: no examples, a zero prototype."""
+    state.emb[slot] = 0.0
+    state.count[slot] = 0
+    state.proto[slot] = 0.0
+    state.pweight[slot] = 0.0
+
+
 def gather_training_set(state: MemoryState, n_cap: int):
     """Compact all stored examples into a flat training set
     → ``(emb [n, D], labels [n] int32, valid [n] bool)`` with real rows first
@@ -215,6 +223,16 @@ class PrototypeMemory:
         return self._slot(label)
 
     # -- mutation ------------------------------------------------------
+    def add_example(self, example: Example, label: str):
+        """Store one example whose embedding is set."""
+        if example.embedding is None:
+            raise ValueError("Example must have an embedding")
+        emb = np.asarray(example.embedding, dtype=np.float32).reshape(-1)
+        if emb.shape[-1] != self.embedding_dim:
+            raise ValueError(f"Example embedding dimension {emb.shape[-1]} does not "
+                             f"match memory dimension {self.embedding_dim}")
+        self.add_batch_host([example.text], emb[None, :], [label])
+
     def add_batch_host(self, texts: List[str], embs: np.ndarray, labels: List[str]):
         """Append a batch and prune any class past ``max_examples_per_class``,
         keeping the host text lists aligned with the device rows."""
@@ -299,7 +317,51 @@ class PrototypeMemory:
                 st.proto[slot] = st.emb[slot, :n].mean(dim=0)
             st.pweight[slot] = float(max(prototype_weight or 0, n))
 
+    def reembed(self, embed_fn):
+        """Embed every stored text again with ``embed_fn(texts) → [N, D]``
+        and rebuild the device state from them; label slots stay as they
+        are.  (Its caller in the JAX package, encoder fine-tuning, is not
+        ported.)"""
+        with self._write_lock:
+            texts_by_label = {l: list(ts) for l, ts in self.texts.items()}
+            C, E, D = self.state.emb.shape
+            self.state = init_state(C, E, D, self.device)
+            all_texts: List[str] = []
+            all_labels: List[str] = []
+            for l, ts in texts_by_label.items():
+                self.texts[l] = []
+                all_texts += ts
+                all_labels += [l] * len(ts)
+            if all_texts:
+                embs = np.asarray(embed_fn(all_texts), np.float32)
+                self._add_batch_locked(all_texts, embs, all_labels)
+
+    def clear(self):
+        """Forget every label and example; the capacities stay."""
+        with self._write_lock:
+            C, E, D = self.state.emb.shape
+            self.state = init_state(C, E, D, self.device)
+            self.label_to_index.clear()
+            self.index_to_label.clear()
+            self.texts.clear()
+            self.updates_since_rebuild = 0
+
+    def remove_label(self, label: str):
+        """Forget a label's examples and prototype; its slot stays
+        registered."""
+        with self._write_lock:
+            if label not in self.label_to_index:
+                return
+            clear_class(self.state, self.label_to_index[label])
+            self.texts[label] = []
+
     # -- host views ----------------------------------------------------
+    def class_embeddings(self, label: str) -> np.ndarray:
+        """The stored embeddings of ``label`` on the host, ``[n, D]``."""
+        slot = self.label_to_index[label]
+        n = len(self.texts.get(label, ()))
+        return self.state.emb[slot, :n].cpu().numpy()
+
     def _counts_host(self) -> Dict[str, int]:
         return {label: len(ts) for label, ts in self.texts.items()}
 

@@ -136,6 +136,60 @@ def ensure_skip(params: HeadParams, input_dim: int) -> HeadParams:
     return {**params, "skip": {"w": torch.zeros((input_dim, w.shape[1]), device=w.device)}}
 
 
+class AdaptiveHead(torch.nn.Module):
+    """Module facade over the functional head, for standalone use: ``forward``
+    returns logits over the logical classes; ``update_num_classes`` grows
+    the output layer, keeping the trained columns.  Draws come from a
+    generator seeded with ``seed`` on ``device`` (the GPU unless the caller
+    names another)."""
+
+    def __init__(self, input_dim: int, num_classes: int,
+                 hidden_dims: Optional[Sequence[int]] = None, seed: int = 42,
+                 device: Optional[Union[str, torch.device]] = None):
+        super().__init__()
+        from .._device import resolve_device
+
+        self.input_dim = input_dim
+        self.num_classes = num_classes
+        self.hidden_dims = list(hidden_dims) if hidden_dims is not None else [input_dim]
+        self.seed = seed
+        self.device = resolve_device(device)
+        self.params = init_head(input_dim, num_classes, num_classes,
+                                hidden_dims=self.hidden_dims,
+                                generator=self._seeded_generator())
+
+    def _seeded_generator(self) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(self.seed)
+
+    def _rows(self, x) -> torch.Tensor:
+        x = torch.as_tensor(x if isinstance(x, torch.Tensor) else np.asarray(x, np.float32))
+        x = x.to(self.device, torch.float32)
+        return x.reshape(-1, x.shape[-1])
+
+    def forward(self, x) -> torch.Tensor:
+        return head_forward(self.params, self._rows(x))[:, :self.num_classes]
+
+    def update_num_classes(self, num_classes: int):
+        if num_classes > self.num_classes:
+            self.params = grow_capacity(self.params, num_classes,
+                                        self._seeded_generator(), num_classes)
+            self.num_classes = num_classes
+
+
+class MultiLabelAdaptiveHead(AdaptiveHead):
+    """Sigmoid outputs, one hidden layer of ``input_dim // 2`` by default."""
+
+    def __init__(self, input_dim: int, num_classes: int,
+                 hidden_dims: Optional[Sequence[int]] = None, seed: int = 42,
+                 device: Optional[Union[str, torch.device]] = None):
+        if hidden_dims is None:
+            hidden_dims = [input_dim // 2]
+        super().__init__(input_dim, num_classes, hidden_dims, seed, device)
+
+    def forward(self, x) -> torch.Tensor:
+        return torch.sigmoid(super().forward(x))
+
+
 # ---------------------------------------------------------------------------
 # (de)serialization: the reference's torch nn.Sequential names
 # ---------------------------------------------------------------------------

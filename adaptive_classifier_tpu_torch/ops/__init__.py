@@ -3,9 +3,12 @@
 ``launch_counts`` holds, per kernel, how many times its wrapper launched it
 on a GPU.  A wrapper adds one where it launches its kernel and nowhere else,
 so a run that zeroes the counts, drives a path and reads them back shows
-which kernels that path went through.
+which kernels that path went through.  ``count_launch`` adds under a lock:
+serving workers launch kernels from several threads at once, and a bare
+``d[k] += 1`` from two threads can lose an increment.
 """
 
+import threading
 from typing import Dict
 
 launch_counts: Dict[str, int] = {
@@ -15,6 +18,17 @@ launch_counts: Dict[str, int] = {
 }
 
 
+_counts_lock = threading.Lock()
+
+
+def count_launch(name: str):
+    """One launch of kernel ``name``: called by its wrapper where it
+    launches the kernel, and nowhere else."""
+    with _counts_lock:
+        launch_counts[name] += 1
+
+
 def reset_launch_counts():
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _counts_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0

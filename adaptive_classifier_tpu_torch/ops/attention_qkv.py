@@ -25,7 +25,7 @@ import math
 
 import torch
 
-from . import _build, launch_counts
+from . import _build, count_launch
 
 NEG = -1e9
 
@@ -101,7 +101,7 @@ def attention_from_qkv(
                                    B, S, num_heads, head_dim,
                                    _DTYPE_CODES[qkv.dtype], stream)
     _build.check(err, "attention_qkv launch")
-    launch_counts["attention_qkv"] += 1
+    count_launch("attention_qkv")
     return out
 
 

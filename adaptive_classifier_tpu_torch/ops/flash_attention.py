@@ -33,7 +33,7 @@ import math
 
 import torch
 
-from . import _build, launch_counts
+from . import _build, count_launch
 
 NEG = -1e9
 #: keys per step of the flash recurrence (``TK`` in csrc/flash_attention.cu
@@ -131,7 +131,7 @@ def _launch(entry: str, count: str, q, k, v, attention_mask) -> torch.Tensor:
                                   mask.data_ptr(), out.data_ptr(), B, S, H, Dh,
                                   sb, ss, sh, _DTYPE_CODES[q.dtype], stream)
     _build.check(err, f"{count} launch")
-    launch_counts[count] += 1
+    count_launch(count)
     return out
 
 

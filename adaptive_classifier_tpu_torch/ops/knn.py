@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build, launch_counts
+from . import _build, count_launch
 
 
 def masked_sims_ref(
@@ -131,7 +131,7 @@ def masked_sims_cuda(queries: torch.Tensor, protos: torch.Tensor,
                                  out.data_ptr(), None if scratch is None else scratch.data_ptr(),
                                  B, C, D, splits, per, stream)
     _build.check(err, "knn_sims launch")
-    launch_counts["knn_sims"] += 1
+    count_launch("knn_sims")
     return out
 
 

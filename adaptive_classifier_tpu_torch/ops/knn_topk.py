@@ -29,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from . import _build, knn, launch_counts
+from . import _build, knn, count_launch
 
 #: the kernel's largest k (the Pallas kernel's running-buffer width)
 KPAD = 128
@@ -114,7 +114,7 @@ def topk_sims_cuda(queries, protos, valid, k: int, bias=None):
                                vals.data_ptr(), idx.data_ptr(),
                                B, C, D, k, splits, per, stream)
     _build.check(err, "knn_topk launch")
-    launch_counts["knn_topk"] += 1
+    count_launch("knn_topk")
     return vals, idx
 
 

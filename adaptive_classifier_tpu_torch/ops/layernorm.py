@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from . import _build, launch_counts
+from . import _build, count_launch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel holds a row in registers, at most 8 16-byte vectors a lane
@@ -90,5 +90,5 @@ def add_layer_norm(x: torch.Tensor, resid: torch.Tensor, scale: torch.Tensor,
                                     bias.data_ptr(), float(eps), out.data_ptr(), R, D,
                                     _DTYPE_CODES[x.dtype], stream)
     _build.check(err, "add_layer_norm launch")
-    launch_counts["add_layer_norm"] += 1
+    count_launch("add_layer_norm")
     return out

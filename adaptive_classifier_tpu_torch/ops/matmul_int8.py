@@ -30,7 +30,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build, launch_counts
+from . import _build, count_launch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -135,7 +135,7 @@ def launch(name: str, counter: str, device: torch.device, fn, *args):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
     _build.check(err, f"{name} launch")
-    launch_counts[counter] += 1
+    count_launch(counter)
 
 
 def quant_matmul_info(M: int, K: int, N: int, dtype: torch.dtype = torch.bfloat16) -> dict:

@@ -1,6 +1,7 @@
 """Checkpoints in the reference on-disk format: saving and loading.
 
-Counterpart of ``save_classifier``, ``load_classifier`` and
+Counterpart of ``save_classifier``, ``load_classifier``, ``from_pretrained``
+(a local directory only) and
 ``generate_model_card`` in ``adaptive_classifier_tpu/persistence.py``:
 ``config.json`` (label maps, train_steps, training_history, config, the
 seed and the fitted fusion share),
@@ -264,3 +265,16 @@ def load_classifier(cls, model_path: Union[str, Path],
             clf.training_history[label] = len(examples) * 20
 
     return clf
+
+
+def from_pretrained(cls, model_id: Union[str, Path],
+                    device: Optional[Union[str, torch.device]] = None):
+    """A checkpoint in a local directory (one holding ``config.json``).
+    The JAX package also downloads a model id from the Hugging Face Hub;
+    that is not ported, and nothing here reaches the network."""
+    path = Path(model_id)
+    if path.is_dir() and (path / "config.json").exists():
+        return load_classifier(cls, path, device=device)
+    raise ValueError(f"{model_id!r} is not a local checkpoint directory; loading "
+                     f"from the Hugging Face Hub is not ported, download the "
+                     f"checkpoint and pass its directory")

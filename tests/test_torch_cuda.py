@@ -720,6 +720,7 @@ def test_int8_load_makes_the_k_contiguous_copies_once(cuda, tmp_path):
     data = json.loads((REPO / "data/intents.json").read_text())
     texts = [t for ts in data["test"].values() for t in ts]
     for _ in range(2):
+        clf._clear_embedding_caches()    # each pass runs the encoder
         port.reset_launch_counts()
         clf.predict_batch(texts, k=1)
         assert port.launch_counts["ffn_int8"] == layers
@@ -1003,6 +1004,7 @@ def test_zoo_predict_batch_through_flash_kernels(cuda, monkeypatch, impl, kernel
     data = json.loads((REPO / "data/intents.json").read_text())
     texts = [t for lbl in data["train"] for t in data["test"][lbl]]
     base = [p[0][0] for p in clf.predict_batch(texts, k=1)]
+    clf._clear_embedding_caches()    # the second pass runs the encoder again
     monkeypatch.setenv("AC_ATTN_IMPL", impl)
     port.reset_launch_counts()
     preds = [p[0][0] for p in clf.predict_batch(texts, k=1)]
@@ -1138,3 +1140,125 @@ def test_save_on_the_gpu_loads_on_the_cpu(cuda, tmp_path, monkeypatch):
     assert [[l for l, _ in r] for r in got] == [[l for l, _ in r] for r in want]
     np.testing.assert_allclose([[s for _, s in r] for r in got],
                                [[s for _, s in r] for r in want], atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# serving on the card: the device embedding cache, concurrent predicts,
+# calibration, exact launch counts
+# ---------------------------------------------------------------------------
+
+def test_device_cache_on_the_gpu(cuda):
+    """A padded chunk writes only its rows (no out-of-bounds write, so no
+    device assert), the ring evicts the oldest slot, and a gather returns
+    the stored rows bit for bit."""
+    from adaptive_classifier_tpu_torch.utils.cache import DeviceEmbeddingCache
+
+    c = DeviceEmbeddingCache(capacity=4, dim=96, device=cuda)
+    r = torch.Generator(device=cuda).manual_seed(0)
+    rows = torch.randn(64, 96, device=cuda, generator=r)
+    c.store(["a", "b", "c"], 32, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(c._buf[3], torch.zeros(96, device=cuda))
+    hits, misses = c.lookup(["a", "b", "c", "x"], 32)
+    assert misses == [3]
+    assert torch.equal(c.gather([s for _, s in hits]), rows[:3])
+    c.store(["d", "e"], 32, rows[10:18])
+    _, misses = c.lookup(["a", "b", "c", "d", "e"], 32)
+    assert misses == [0]
+    hits, _ = c.lookup(["d", "e"], 32)
+    assert torch.equal(c.gather([s for _, s in hits]), rows[10:12])
+
+
+def test_two_threads_predict_like_serial_calls(cuda, monkeypatch):
+    """Two threads calling predict_batch at once on one classifier (the
+    caches on) give the answers of serial calls on a fresh one."""
+    import threading
+
+    monkeypatch.delenv("AC_ATTN_IMPL", raising=False)
+    data = json.loads((REPO / "data/intents.json").read_text())
+    texts = [t for lbl in data["train"] for t in data["test"][lbl]]
+    halves = [texts[0::2], texts[1::2]]
+    serial = port.AdaptiveClassifier.load(REPO / "checkpoints/zoo/banking-intents")
+    want = [serial.predict_batch(h, k=3) for h in halves]
+    clf = port.AdaptiveClassifier.load(REPO / "checkpoints/zoo/banking-intents")
+    got, errors = [None, None], []
+
+    def run(i):
+        try:
+            for _ in range(3):
+                got[i] = clf.predict_batch(halves[i], k=3)
+        except Exception as e:   # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors, errors
+    for g, w in zip(got, want):
+        assert [p[0][0] for p in g] == [p[0][0] for p in w]
+        np.testing.assert_allclose([p[0][1] for p in g], [p[0][1] for p in w], atol=1e-3)
+
+
+def test_temperature_fit_on_the_gpu_equals_the_cpu(cuda):
+    from adaptive_classifier_tpu_torch.calibration import TemperatureScaler
+
+    rng = np.random.default_rng(0)
+    p = rng.dirichlet(np.ones(5) * 0.7, size=800).astype(np.float32)
+    y = np.asarray([rng.choice(5, p=row / row.sum()) for row in p], np.int64)
+    gpu = TemperatureScaler(device=cuda).fit(p, y)
+    cpu = TemperatureScaler(device="cpu").fit(p, y)
+    assert gpu.grid_index == cpu.grid_index
+    assert gpu.temperature == pytest.approx(cpu.temperature, rel=1e-6)
+    np.testing.assert_allclose(gpu.transform(p), cpu.transform(p), atol=1e-6)
+
+
+def test_masked_sims_first_call_in_a_new_thread(cuda):
+    """B4's first launch from a host thread that has made no CUDA call yet,
+    every tensor it allocates served from the allocator's cache (a serving
+    worker's case): the tensor-map encoder needs the device's context bound
+    to that thread, and the launcher binds it."""
+    import threading
+
+    q = torch.randn(64, 128, device=cuda)
+    p = torch.randn(1024, 128, device=cuda)
+    valid = torch.ones(1024, dtype=torch.bool, device=cuda)
+    want = knn.masked_sims_cuda(q, p, valid).clone()   # out and scratch now cached
+    torch.cuda.synchronize()
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append(knn.masked_sims_cuda(q, p, valid))
+        except Exception as e:   # reported below
+            errors.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive() and not errors, errors
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want)
+
+
+def test_launch_counts_stay_exact_under_two_threads(cuda):
+    import threading
+
+    q = torch.randn(64, 128, device=cuda)
+    p = torch.randn(1024, 128, device=cuda)
+    valid = torch.ones(1024, dtype=torch.bool, device=cuda)
+    port.reset_launch_counts()
+    n = 300
+
+    def run():
+        for _ in range(n):
+            knn.masked_sims_cuda(q, p, valid)
+
+    threads = [threading.Thread(target=run) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    torch.cuda.synchronize()
+    assert port.launch_counts["knn_sims"] == 2 * n

@@ -103,7 +103,13 @@ def test_unported_paths_raise(both):
     assert clf.label_to_id == {**labels, "b": len(labels)}
     assert "skip" in clf.head_params
     assert torch.equal(clf._head_logits(probe)[:, :len(labels)], before)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # calibrated probabilities need calibrate() first, and work after it
+    with pytest.raises(RuntimeError, match="calibrate"):
         clf.predict_proba(["a"], calibrated=True)
+    texts = _test_texts(12)
+    report = clf.calibrate(texts, [clf.predict_batch([t], k=1)[0][0][0] for t in texts])
+    assert report["temperature"] > 0
+    probs, _ = clf.predict_proba(texts[:3], calibrated=True)
+    np.testing.assert_allclose(probs.sum(axis=1), 1.0, atol=1e-5)
     with pytest.raises(ValueError):
         clf.predict_batch([])
