@@ -1,7 +1,8 @@
 """State of the JAX package → the port's state, numpy in and torch out.
 
-- ``encoder_params_from_jax``: the stacked-layer encoder tree
-  (``embeddings/*``, and ``layers/*`` with a leading layer axis);
+- ``encoder_params_from_jax``: the stacked-layer encoder tree of any
+  family (``embeddings/*``, ``layers/*`` with a leading layer axis, and
+  ModernBERT's ``final_ln_scale``);
 - ``encoder_int8_params_from_jax``: the runtime int8 tree of the JAX
   int8 forward (``layers/qkv_w.int8``, ``layers/qkv_w.scale``, …, stacked
   over layers) → the port's int8 state;
@@ -29,10 +30,12 @@ from .models.head import HeadParams
 def encoder_params_from_jax(params: Dict[str, Dict[str, Any]],
                             device: Union[str, torch.device] = "cpu",
                             matrix_dtype: torch.dtype = torch.float32) -> Params:
-    """``{"embeddings": {...}, "layers": {...}}`` of numpy-convertible arrays
-    (numpy or JAX arrays) → the port's encoder state dict on ``device``."""
-    tree = {group: {name: np.asarray(arr, np.float32) for name, arr in sub.items()}
-            for group, sub in params.items() if group in ("embeddings", "layers")}
+    """``{"embeddings": {...}, "layers": {...}}`` (ModernBERT: and
+    ``"final_ln_scale"``) of numpy-convertible arrays (numpy or JAX
+    arrays) → the port's encoder state dict on ``device``."""
+    tree = {group: ({name: np.asarray(arr, np.float32) for name, arr in sub.items()}
+                    if isinstance(sub, dict) else np.asarray(sub, np.float32))
+            for group, sub in params.items()}
     return params_from_tree(tree, device=device, matrix_dtype=matrix_dtype)
 
 

@@ -1,45 +1,62 @@
-"""Transformer encoder, BERT family, in PyTorch.
+"""Transformer encoders in PyTorch: BERT, DistilBERT, RoBERTa, ELECTRA,
+MPNet, DeBERTa-v2/v3 and (``models/modernbert.py``) ModernBERT.
 
-Counterpart of ``adaptive_classifier_tpu/models/encoder.py`` for the
-``bert`` architecture: embeddings + LayerNorm, then per layer the fused
-``[D, 3D]`` QKV projection, all-heads attention, the O-projection, residual
-+ LayerNorm, an exact-erf GELU FFN and residual + LayerNorm; then pooling
-and L2 normalization.
+Counterpart of ``adaptive_classifier_tpu/models/encoder.py``.  Every family
+but ModernBERT is a post-LayerNorm stack: embeddings + LayerNorm, then per
+layer the fused ``[D, 3D]`` QKV projection, all-heads attention, the
+O-projection, residual + LayerNorm, an exact-erf GELU FFN and residual +
+LayerNorm; then pooling and L2 normalization.  The families differ in their
+embeddings (``embed_tokens``: RoBERTa's and MPNet's padding-offset
+positions, ELECTRA's narrow table and projection, DeBERTa's order and
+masked rows) and in their attention:
+
+- BERT, DistilBERT, RoBERTa and ELECTRA take one of four paths
+  (``attn_impl``): ``"fusedqkv"`` (``ops.attention_qkv``, kernel B1, the
+  default on the GPU), ``"flash"`` and ``"oneshot"``
+  (``ops.flash_attention``, kernels B6 and B7; the GPU default from 1,024
+  tokens is ``"flash"``), or ``"einsum"``, the plain torch version of B1
+  (the CPU default).  ``AC_ATTN_IMPL`` in the environment forces the path,
+  as in the JAX package.
+- MPNet (a bucketed relative bias shared by all layers) and DeBERTa
+  (disentangled content-to-position and position-to-content scores) run
+  ``relative_attention``, plain torch on every device, as the JAX package
+  computes them in plain ``jnp`` whatever ``attn_impl`` asks.
 
 Matrix products take compute-dtype inputs (bf16 by default) and accumulate
 in f32; biases are added and LayerNorm statistics taken in f32, as the JAX
-forward does with ``preferred_element_type=jnp.float32``.  The plain matrix
-products stay ``torch.matmul``.  Attention takes one of four paths
-(``attn_impl``): ``"fusedqkv"`` (``ops.attention_qkv``, kernel B1, the
-default on the GPU), ``"flash"`` and ``"oneshot"`` (``ops.flash_attention``,
-kernels B6 and B7; the GPU default from 1,024 tokens is ``"flash"``), or
-``"einsum"``, the plain torch version of B1 (the CPU default).
-``AC_ATTN_IMPL`` in the environment forces the path, as in the JAX package.
-The two residual LayerNorms per layer run through kernel B10
+forward does with ``preferred_element_type=jnp.float32``.  The two
+residual LayerNorms per layer run through kernel B10
 (``ops.layernorm.add_layer_norm``) when ``use_fused_ln`` is on, which it is
 by default on a CUDA device (``_FUSED_LN_ON_CUDA``).
 
 ``quantization="int8"`` quantizes the float32 weights once and runs the
-int8 forward (``models/encoder_int8.py``: kernels B2 and B3 on the GPU);
-``"auto"`` resolves by ``resolve_quantization``.  A checkpoint's int8
-export can stand in for a missing base checkpoint
-(``Encoder.from_quantized_export``).
+int8 forward (``models/encoder_int8.py``: kernels B2 and B3 on the GPU) for
+BERT, DistilBERT, RoBERTa and ELECTRA without an embedding projection; for
+the other families it logs a warning and the encoder runs the float
+forward (``check_int8_arch``, the JAX package's rule), decided from the
+config before any weight is made.  ``"auto"`` resolves by
+``resolve_quantization``.  A checkpoint's int8 export can stand in for a
+missing base checkpoint (``Encoder.from_quantized_export``).
 
-Weights load from a local HuggingFace-layout BERT checkpoint
-(``config.json`` + ``model.safetensors``).  A model name with no local
-checkpoint builds the named BERT architecture offline with deterministic
-random weights from a numpy RNG, equal to the JAX package's bit for bit
-(``init_params``), and the built-in vocabulary.  Other encoder families
-come with later slices and raise ``NotImplementedError``.
+Weights load from a local HuggingFace-layout checkpoint (``config.json`` +
+``model.safetensors`` or ``pytorch_model.bin``); the tokenizer is its
+``tokenizer.json`` when that is not WordPiece
+(``models/hf_tokenizer_adapter.py``), else its ``vocab.txt``, else the
+built-in vocabulary.  A model name with no local checkpoint builds the
+named architecture offline with deterministic random weights from a numpy
+RNG, equal to the JAX package's bit for bit (``init_params``), and the
+built-in vocabulary.
 """
 
 from __future__ import annotations
 
 import json
+import logging
+import math
 import os
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Union
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -47,12 +64,15 @@ import torch.nn.functional as F
 
 from .. import io_safetensors
 from .._device import resolve_device
-from ..ops.attention_qkv import attention_from_qkv, attention_from_qkv_ref
+from ..ops.attention_qkv import NEG, attention_from_qkv, attention_from_qkv_ref
 from ..ops.flash_attention import flash_attention, oneshot_attention
 from ..ops.layernorm import add_layer_norm, add_layer_norm_ref
 
+logger = logging.getLogger(__name__)
+
 #: the stacked-layer tree of the JAX package: {"embeddings": {...},
-#: "layers": {name: [L, ...]}} of numpy arrays
+#: "layers": {name: [L, ...]}} of numpy arrays (ModernBERT adds
+#: "final_ln_scale")
 Tree = Dict[str, Dict[str, np.ndarray]]
 #: the port's encoder state: flat names → tensors (see params_from_tree)
 Params = Dict[str, torch.Tensor]
@@ -62,6 +82,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 @dataclass(frozen=True)
 class EncoderConfig:
+    """The JAX package's ``EncoderConfig``, field for field (an int8
+    export's ``encoder_config`` is this dict in either package)."""
     vocab_size: int = 30522
     hidden_size: int = 768
     num_layers: int = 12
@@ -71,19 +93,43 @@ class EncoderConfig:
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
     pad_token_id: int = 0
+    #: bert | distilbert | roberta | modernbert | electra | mpnet | deberta
     arch: str = "bert"
     #: sentence pooling: "cls" or "mean" (masked mean)
     pooling: str = "cls"
-    #: pool after this many layers (0 = all layers)
+    #: pool after this many layers (0 = all layers; ModernBERT runs all)
     pool_layer: int = 0
+    # ModernBERT: every n-th layer attends globally, the others within
+    # ±local_attention/2; RoPE bases of the two kinds of layer
+    global_attn_every_n_layers: int = 3
+    local_attention: int = 128
+    global_rope_theta: float = 160000.0
+    local_rope_theta: float = 10000.0
+    #: ELECTRA / DeBERTa: embedding-table width when it differs from
+    #: hidden_size (0 = same), widened by a learned projection
+    embedding_size: int = 0
+    #: MPNet: buckets of the relative attention bias shared by every layer
+    #: (0 = none) and the distance where the log buckets end
+    relative_attn_buckets: int = 0
+    relative_attn_max_distance: int = 128
+    #: DeBERTa: the span K of each direction (the shared relative table has
+    #: 2K rows; 0 = no relative attention), HF position_buckets (0 = raw
+    #: offsets), the log-bucket max_position, the score terms ("p2c|c2p"),
+    #: the table's LayerNorm, and whether absolute positions are added
+    rel_att_span: int = 0
+    rel_att_buckets: int = 0
+    rel_att_max_pos: int = 0
+    rel_pos_att: str = ""
+    rel_norm: bool = False
+    position_biased_input: bool = True
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
 
 
-#: named BERT architectures for offline (weightless) operation: the exact
-#: dims of the HF models (the JAX package's ``KNOWN_ARCHS``, BERT entries)
+#: named architectures for offline (weightless) operation: the exact dims
+#: of the HF models (the JAX package's ``KNOWN_ARCHS``)
 KNOWN_ARCHS: Dict[str, EncoderConfig] = {
     "prajjwal1/bert-tiny": EncoderConfig(hidden_size=128, num_layers=2, num_heads=2,
                                          intermediate_size=512),
@@ -94,46 +140,80 @@ KNOWN_ARCHS: Dict[str, EncoderConfig] = {
         intermediate_size=4096),
     "bert-large-uncased": EncoderConfig(hidden_size=1024, num_layers=24, num_heads=16,
                                         intermediate_size=4096),
+    "distilbert-base-uncased": EncoderConfig(num_layers=6, type_vocab_size=0,
+                                             arch="distilbert"),
+    "distilbert-base-cased": EncoderConfig(vocab_size=28996, num_layers=6,
+                                           type_vocab_size=0, arch="distilbert"),
+    "answerdotai/ModernBERT-base": EncoderConfig(
+        vocab_size=50368, hidden_size=768, num_layers=22, num_heads=12,
+        intermediate_size=1152, max_position_embeddings=8192,
+        type_vocab_size=0, layer_norm_eps=1e-5, arch="modernbert"),
+    "answerdotai/ModernBERT-large": EncoderConfig(
+        vocab_size=50368, hidden_size=1024, num_layers=28, num_heads=16,
+        intermediate_size=2624, max_position_embeddings=8192,
+        type_vocab_size=0, layer_norm_eps=1e-5, arch="modernbert"),
+    "google/electra-small-discriminator": EncoderConfig(
+        hidden_size=256, num_layers=12, num_heads=4, intermediate_size=1024,
+        embedding_size=128, arch="electra"),
+    "google/electra-base-discriminator": EncoderConfig(arch="electra"),
+    "microsoft/mpnet-base": EncoderConfig(
+        vocab_size=30527, max_position_embeddings=514, type_vocab_size=0,
+        layer_norm_eps=1e-5, pad_token_id=1, arch="mpnet", relative_attn_buckets=32),
+    "sentence-transformers/all-mpnet-base-v2": EncoderConfig(
+        vocab_size=30527, max_position_embeddings=514, type_vocab_size=0,
+        layer_norm_eps=1e-5, pad_token_id=1, arch="mpnet", relative_attn_buckets=32,
+        pooling="mean"),
+    "microsoft/deberta-v3-base": EncoderConfig(
+        vocab_size=128100, type_vocab_size=0, layer_norm_eps=1e-7, arch="deberta",
+        rel_att_span=256, rel_att_buckets=256, rel_att_max_pos=512,
+        rel_pos_att="p2c|c2p", rel_norm=True),
+    "microsoft/deberta-v3-xsmall": EncoderConfig(
+        vocab_size=128100, hidden_size=384, num_layers=12, num_heads=6,
+        intermediate_size=1536, type_vocab_size=0, layer_norm_eps=1e-7, arch="deberta",
+        rel_att_span=256, rel_att_buckets=256, rel_att_max_pos=512,
+        rel_pos_att="p2c|c2p", rel_norm=True),
 }
-
-#: name fragments of the other families the JAX package builds offline, in
-#: the order its ``config_for_model_name`` tests them
-_OTHER_FAMILIES = (("modernbert", "ModernBERT"), ("mpnet", "MPNet"),
-                   ("electra", "ELECTRA"), ("deberta", "DeBERTa"))
 
 
 def config_for_model_name(name: str) -> EncoderConfig:
     """The architecture an offline model name builds: a ``KNOWN_ARCHS``
     entry, else by name fragment as the JAX package resolves it, else
-    bert-base.  The other families raise."""
+    bert-base."""
     if name in KNOWN_ARCHS:
         return KNOWN_ARCHS[name]
     lowered = name.lower()
-    for fragment, family in _OTHER_FAMILIES:
-        if fragment in lowered:
-            raise NotImplementedError(
-                f"offline {family} encoder ({name!r}): the port builds BERT "
-                f"encoders offline; {family} comes with a later slice")
+    if "modernbert" in lowered:
+        return KNOWN_ARCHS["answerdotai/ModernBERT-large" if "large" in lowered
+                           else "answerdotai/ModernBERT-base"]
+    if "mpnet" in lowered:
+        return KNOWN_ARCHS["microsoft/mpnet-base"]
+    if "electra" in lowered:
+        return KNOWN_ARCHS["google/electra-small-discriminator" if "small" in lowered
+                           else "google/electra-base-discriminator"]
+    if "deberta" in lowered:
+        return KNOWN_ARCHS["microsoft/deberta-v3-xsmall" if "xsmall" in lowered
+                           else "microsoft/deberta-v3-base"]
     if "tiny" in lowered:
         return KNOWN_ARCHS["prajjwal1/bert-tiny"]
     if "large" in lowered:
         return KNOWN_ARCHS["bert-large-uncased"]
     if "distil" in lowered:
-        raise NotImplementedError(
-            f"offline distilbert encoder ({name!r}): the port builds BERT "
-            f"encoders offline; distilbert comes with a later slice")
+        return KNOWN_ARCHS["distilbert-base-uncased"]
     return EncoderConfig()
 
 
 def init_params(seed: int, cfg: EncoderConfig) -> Tree:
-    """BERT init as the JAX package draws it: normal(0.02) weights from
+    """The JAX package's offline init: normal(0.02) weights from
     ``np.random.default_rng(seed)`` in the same order, zero biases, unit
     LayerNorms → the stacked-layer tree of float32 numpy arrays, equal to
-    the JAX ``init_params`` array for array."""
-    if cfg.arch != "bert":
-        raise NotImplementedError(f"offline init for arch {cfg.arch!r} comes with "
-                                  f"a later slice")
+    the JAX ``init_params`` array for array (ModernBERT:
+    ``modernbert.init_modernbert_params``)."""
+    if cfg.arch == "modernbert":
+        from .modernbert import init_modernbert_params
+
+        return init_modernbert_params(seed, cfg)
     D, F, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    E = cfg.embedding_size or D
     rng = np.random.default_rng(seed)
 
     def nrm(shape):
@@ -145,10 +225,10 @@ def init_params(seed: int, cfg: EncoderConfig) -> Tree:
     def ones(*shape):
         return np.ones(shape, np.float32)
 
-    emb = {"word": nrm((cfg.vocab_size, D)),
-           "position": nrm((cfg.max_position_embeddings, D)),
-           "token_type": nrm((max(cfg.type_vocab_size, 1), D)),
-           "ln_scale": ones(D), "ln_bias": zeros(D)}
+    emb = {"word": nrm((cfg.vocab_size, E)),
+           "position": nrm((cfg.max_position_embeddings, E)),
+           "token_type": nrm((max(cfg.type_vocab_size, 1), E)),
+           "ln_scale": ones(E), "ln_bias": zeros(E)}
     layers = {
         "q_w": nrm((L, D, D)), "q_b": zeros(L, D),
         "k_w": nrm((L, D, D)), "k_b": zeros(L, D),
@@ -159,6 +239,17 @@ def init_params(seed: int, cfg: EncoderConfig) -> Tree:
         "ffn_out_w": nrm((L, F, D)), "ffn_out_b": zeros(L, D),
         "ffn_ln_scale": ones(L, D), "ffn_ln_bias": zeros(L, D),
     }
+    if E != D:
+        emb["proj_w"] = nrm((E, D))
+        if cfg.arch != "deberta":          # DeBERTa's embed_proj has no bias
+            emb["proj_b"] = zeros(D)
+    if cfg.relative_attn_buckets:          # MPNet's shared relative bias
+        emb["rel_bias"] = nrm((cfg.relative_attn_buckets, cfg.num_heads))
+    if cfg.rel_att_span:                   # DeBERTa's shared relative table
+        emb["rel_emb"] = nrm((2 * cfg.rel_att_span, D))
+        if cfg.rel_norm:
+            emb["rel_ln_scale"] = ones(D)
+            emb["rel_ln_bias"] = zeros(D)
     return {"embeddings": emb, "layers": layers}
 
 
@@ -189,83 +280,195 @@ def _find_local_checkpoint(model_name: str) -> Optional[Path]:
 
 
 def _read_hf_config(path: Path) -> EncoderConfig:
+    """A local checkpoint's ``config.json`` → ``EncoderConfig``, family by
+    ``model_type`` as the JAX package reads it."""
     cfg = json.loads((Path(path) / "config.json").read_text())
     model_type = cfg.get("model_type") or ""
-    if model_type != "bert":
-        raise NotImplementedError(
-            f"encoder model_type {model_type!r}: the port loads BERT encoders; "
-            f"the other families come with a later slice")
+    dims = {}
+    if "distilbert" not in model_type:
+        dims = dict(vocab_size=cfg["vocab_size"], hidden_size=cfg["hidden_size"],
+                    num_layers=cfg["num_hidden_layers"],
+                    num_heads=cfg["num_attention_heads"],
+                    intermediate_size=cfg["intermediate_size"])
+    if "modernbert" in model_type:
+        return EncoderConfig(
+            **dims, max_position_embeddings=cfg.get("max_position_embeddings", 8192),
+            type_vocab_size=0, layer_norm_eps=cfg.get("norm_eps", 1e-5),
+            pad_token_id=cfg.get("pad_token_id", 0), arch="modernbert",
+            global_attn_every_n_layers=cfg.get("global_attn_every_n_layers", 3),
+            local_attention=cfg.get("local_attention", 128),
+            global_rope_theta=cfg.get("global_rope_theta", 160000.0),
+            local_rope_theta=cfg.get("local_rope_theta", 10000.0))
+    if model_type in ("roberta", "xlm-roberta", "camembert"):
+        return EncoderConfig(
+            **dims, max_position_embeddings=cfg.get("max_position_embeddings", 514),
+            type_vocab_size=cfg.get("type_vocab_size", 1),
+            layer_norm_eps=cfg.get("layer_norm_eps", 1e-5),
+            pad_token_id=cfg.get("pad_token_id", 1), arch="roberta")
+    if model_type == "mpnet":
+        return EncoderConfig(
+            **dims, max_position_embeddings=cfg.get("max_position_embeddings", 514),
+            type_vocab_size=0, layer_norm_eps=cfg.get("layer_norm_eps", 1e-5),
+            pad_token_id=cfg.get("pad_token_id", 1), arch="mpnet",
+            relative_attn_buckets=cfg.get("relative_attention_num_buckets", 32),
+            pooling=cfg.get("ac_pooling", "cls"))
+    if model_type == "deberta-v2":
+        # DeBERTa-v2 and v3 (v3 ships model_type "deberta-v2"); v1 is not read
+        if (cfg.get("conv_kernel_size") or 0) > 0:
+            raise ValueError(
+                "DeBERTa-v2 checkpoints with a ConvLayer (conv_kernel_size>0, e.g. "
+                "deberta-v2-xlarge) are not supported; the v3 family (conv-free) is")
+        if cfg.get("relative_attention") and not cfg.get("share_att_key", False):
+            raise ValueError("DeBERTa relative attention without share_att_key is not "
+                             "supported (all published v2/v3 configs share the key)")
+        max_rel = cfg.get("max_relative_positions", -1)
+        if max_rel is None or max_rel < 1:
+            max_rel = cfg.get("max_position_embeddings", 512)
+        buckets = cfg.get("position_buckets") or 0
+        span = (buckets if buckets > 0 else max_rel) if cfg.get("relative_attention") else 0
+        pos_att = cfg.get("pos_att_type") or []
+        if isinstance(pos_att, str):
+            pos_att = [x.strip() for x in pos_att.lower().split("|") if x.strip()]
+        hid = cfg["hidden_size"]
+        emb_size = cfg.get("embedding_size", hid) or hid
+        return EncoderConfig(
+            **dims, max_position_embeddings=cfg.get("max_position_embeddings", 512),
+            type_vocab_size=cfg.get("type_vocab_size", 0),
+            layer_norm_eps=cfg.get("layer_norm_eps", 1e-7),
+            pad_token_id=cfg.get("pad_token_id", 0), arch="deberta",
+            embedding_size=emb_size if emb_size != hid else 0,
+            rel_att_span=span, rel_att_buckets=max(buckets, 0), rel_att_max_pos=max_rel,
+            rel_pos_att="|".join(pos_att),
+            rel_norm="layer_norm" in str(cfg.get("norm_rel_ebd", "none")).lower(),
+            position_biased_input=cfg.get("position_biased_input", True),
+            pooling=cfg.get("ac_pooling", "cls"))
+    if model_type == "electra":
+        hid = cfg["hidden_size"]
+        emb_size = cfg.get("embedding_size", hid)
+        return EncoderConfig(
+            **dims, max_position_embeddings=cfg.get("max_position_embeddings", 512),
+            type_vocab_size=cfg.get("type_vocab_size", 2),
+            layer_norm_eps=cfg.get("layer_norm_eps", 1e-12),
+            pad_token_id=cfg.get("pad_token_id", 0), arch="electra",
+            embedding_size=emb_size if emb_size != hid else 0,
+            pooling=cfg.get("ac_pooling", "cls"))
+    if "distilbert" in model_type:
+        return EncoderConfig(
+            vocab_size=cfg["vocab_size"], hidden_size=cfg["dim"], num_layers=cfg["n_layers"],
+            num_heads=cfg["n_heads"], intermediate_size=cfg["hidden_dim"],
+            max_position_embeddings=cfg.get("max_position_embeddings", 512),
+            type_vocab_size=0, layer_norm_eps=1e-12,
+            pad_token_id=cfg.get("pad_token_id", 0), arch="distilbert")
     return EncoderConfig(
-        vocab_size=cfg["vocab_size"], hidden_size=cfg["hidden_size"],
-        num_layers=cfg["num_hidden_layers"], num_heads=cfg["num_attention_heads"],
-        intermediate_size=cfg["intermediate_size"],
-        max_position_embeddings=cfg.get("max_position_embeddings", 512),
+        **dims, max_position_embeddings=cfg.get("max_position_embeddings", 512),
         type_vocab_size=cfg.get("type_vocab_size", 2),
         layer_norm_eps=cfg.get("layer_norm_eps", 1e-12),
         pad_token_id=cfg.get("pad_token_id", 0), arch="bert",
-        pooling=cfg.get("ac_pooling", "cls"),
-        pool_layer=cfg.get("ac_pool_layer", 0),
-    )
+        pooling=cfg.get("ac_pooling", "cls"), pool_layer=cfg.get("ac_pool_layer", 0))
 
 
 def _load_state_dict(path: Path) -> Dict[str, np.ndarray]:
+    """A checkpoint's tensors as numpy: ``model.safetensors``, else
+    ``pytorch_model.bin`` (``torch.load(weights_only=True)``)."""
     st = Path(path) / "model.safetensors"
-    if not st.exists():
-        raise FileNotFoundError(f"No model.safetensors in {path}")
-    return io_safetensors.load_file(st)
+    if st.exists():
+        return io_safetensors.load_file(st)
+    pt = Path(path) / "pytorch_model.bin"
+    if pt.exists():
+        sd = torch.load(str(pt), map_location="cpu", weights_only=True)
+        return {k: (v.float() if v.is_floating_point() else v).numpy()
+                for k, v in sd.items()}
+    raise FileNotFoundError(f"No model.safetensors or pytorch_model.bin in {path}")
 
 
+#: HF per-layer module names by family
 _LAYER_NAMES = {
-    "q": "attention.self.query", "k": "attention.self.key",
-    "v": "attention.self.value", "o": "attention.output.dense",
-    "attn_ln": "attention.output.LayerNorm",
-    "ffn_in": "intermediate.dense", "ffn_out": "output.dense",
-    "ffn_ln": "output.LayerNorm",
+    "bert": {"q": "attention.self.query", "k": "attention.self.key",
+             "v": "attention.self.value", "o": "attention.output.dense",
+             "attn_ln": "attention.output.LayerNorm", "ffn_in": "intermediate.dense",
+             "ffn_out": "output.dense", "ffn_ln": "output.LayerNorm"},
+    "distilbert": {"q": "attention.q_lin", "k": "attention.k_lin", "v": "attention.v_lin",
+                   "o": "attention.out_lin", "attn_ln": "sa_layer_norm",
+                   "ffn_in": "ffn.lin1", "ffn_out": "ffn.lin2",
+                   "ffn_ln": "output_layer_norm"},
+    "mpnet": {"q": "attention.attn.q", "k": "attention.attn.k", "v": "attention.attn.v",
+              "o": "attention.attn.o", "attn_ln": "attention.LayerNorm",
+              "ffn_in": "intermediate.dense", "ffn_out": "output.dense",
+              "ffn_ln": "output.LayerNorm"},
+    "deberta": {"q": "attention.self.query_proj", "k": "attention.self.key_proj",
+                "v": "attention.self.value_proj", "o": "attention.output.dense",
+                "attn_ln": "attention.output.LayerNorm", "ffn_in": "intermediate.dense",
+                "ffn_out": "output.dense", "ffn_ln": "output.LayerNorm"},
 }
+_MODEL_PREFIXES = ("bert.", "distilbert.", "roberta.", "electra.", "mpnet.", "deberta.", "")
 
 
 def _map_hf_weights(sd: Dict[str, np.ndarray], cfg: EncoderConfig) -> Tree:
-    """Map HF BERT tensor names into the JAX package's stacked-layer tree
-    (float32 numpy, weights ``[in, out]``)."""
-    if cfg.arch != "bert":
-        raise NotImplementedError(f"weight mapping for arch {cfg.arch!r} comes "
-                                  f"with a later slice")
+    """Map a HF checkpoint's tensor names into the JAX package's
+    stacked-layer tree (float32 numpy, weights ``[in, out]``)."""
+    if cfg.arch == "modernbert":
+        from .modernbert import map_modernbert_weights
+
+        return map_modernbert_weights(sd, cfg)
 
     def get(name: str) -> np.ndarray:
-        for p in ("bert.", ""):
+        for p in _MODEL_PREFIXES:
             if p + name in sd:
                 return np.asarray(sd[p + name], np.float32)
         raise KeyError(name)
 
     D = cfg.hidden_size
+    E = cfg.embedding_size or D
     emb = {
         "word": get("embeddings.word_embeddings.weight"),
-        "position": get("embeddings.position_embeddings.weight"),
+        "position": (get("embeddings.position_embeddings.weight")
+                     if cfg.arch != "deberta" or cfg.position_biased_input
+                     else np.zeros((1, E), np.float32)),
         "token_type": (get("embeddings.token_type_embeddings.weight")
-                       if cfg.type_vocab_size > 0
-                       else np.zeros((1, D), np.float32)),
+                       if cfg.type_vocab_size > 0 else np.zeros((1, E), np.float32)),
         "ln_scale": get("embeddings.LayerNorm.weight"),
         "ln_bias": get("embeddings.LayerNorm.bias"),
     }
+    if E != D:
+        if cfg.arch == "deberta":           # bias-free embed_proj
+            emb["proj_w"] = get("embeddings.embed_proj.weight").T
+        else:                               # ELECTRA's embeddings_project
+            emb["proj_w"] = get("embeddings_project.weight").T
+            emb["proj_b"] = get("embeddings_project.bias")
+    if cfg.relative_attn_buckets:
+        emb["rel_bias"] = get("encoder.relative_attention_bias.weight")
+    if cfg.rel_att_span:
+        emb["rel_emb"] = get("encoder.rel_embeddings.weight")
+        if cfg.rel_norm:
+            emb["rel_ln_scale"] = get("encoder.LayerNorm.weight")
+            emb["rel_ln_bias"] = get("encoder.LayerNorm.bias")
+    names = _LAYER_NAMES.get(cfg.arch, _LAYER_NAMES["bert"])
+    layer_fmt = ("transformer.layer.{i}.{n}" if cfg.arch == "distilbert"
+                 else "encoder.layer.{i}.{n}")
 
     def stack(n: str, suffix: str, transpose: bool = False) -> np.ndarray:
-        rows = [get(f"encoder.layer.{i}.{_LAYER_NAMES[n]}.{suffix}")
+        rows = [get(layer_fmt.format(i=i, n=names[n]) + "." + suffix)
                 for i in range(cfg.num_layers)]
         return np.stack([r.T for r in rows] if transpose else rows)
 
     layers: Dict[str, np.ndarray] = {}
     # torch Linear stores [out, in]; transpose to [in, out] for x @ W
-    for key in ("q", "k", "v", "o", "ffn_in", "ffn_out"):
+    for key in ("q", "k", "v", "o"):
         layers[f"{key}_w"] = stack(key, "weight", transpose=True)
         layers[f"{key}_b"] = stack(key, "bias")
-    for key in ("attn_ln", "ffn_ln"):
-        layers[f"{key}_scale"] = stack(key, "weight")
-        layers[f"{key}_bias"] = stack(key, "bias")
+    layers["attn_ln_scale"] = stack("attn_ln", "weight")
+    layers["attn_ln_bias"] = stack("attn_ln", "bias")
+    for key in ("ffn_in", "ffn_out"):
+        layers[f"{key}_w"] = stack(key, "weight", transpose=True)
+        layers[f"{key}_b"] = stack(key, "bias")
+    layers["ffn_ln_scale"] = stack("ffn_ln", "weight")
+    layers["ffn_ln_bias"] = stack("ffn_ln", "bias")
     return {"embeddings": emb, "layers": layers}
 
 
 #: per-layer tensors of the port's state dict, as matrices (cast to the
-#: compute dtype on the device) or f32 vectors
+#: compute dtype on the device) or f32 vectors; ModernBERT's in
+#: ``modernbert.MATRICES`` / ``VECTORS``
 _MATRICES = ("qkv_w", "o_w", "ffn_in_w", "ffn_out_w")
 _VECTORS = ("qkv_b", "o_b", "attn_ln_scale", "attn_ln_bias",
             "ffn_in_b", "ffn_out_b", "ffn_ln_scale", "ffn_ln_bias")
@@ -275,26 +478,34 @@ def params_from_tree(tree: Tree, device: Union[str, torch.device] = "cpu",
                      matrix_dtype: torch.dtype = torch.float32) -> Params:
     """The JAX package's stacked-layer tree → the port's flat state dict.
 
-    Names: ``embeddings.{word,position,token_type,ln_scale,ln_bias}`` and
-    ``layers.{i}.{name}`` for ``name`` in ``_MATRICES + _VECTORS``, with
-    Q, K and V concatenated into the fused ``[D, 3D]`` projection.  Matrices
-    are stored in ``matrix_dtype``; everything else stays float32.
+    Names: ``embeddings.{name}`` and ``layers.{i}.{name}`` for ``name`` in
+    ``_MATRICES + _VECTORS``, with Q, K and V concatenated into the fused
+    ``[D, 3D]`` projection (ModernBERT: its own layer names and
+    ``final_ln_scale``).  Matrices are stored in ``matrix_dtype``; everything
+    else stays float32.
     """
     def t(a, dtype=torch.float32) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, np.float32)).to(device=device,
-                                                            dtype=dtype)
+        return torch.from_numpy(np.array(a, np.float32)).to(device=device, dtype=dtype)
 
     lay = tree["layers"]
-    qkv_w = np.concatenate([lay["q_w"], lay["k_w"], lay["v_w"]], axis=2)
-    qkv_b = np.concatenate([lay["q_b"], lay["k_b"], lay["v_b"]], axis=1)
-    per_layer = {"qkv_w": qkv_w, "qkv_b": qkv_b,
-                 **{n: lay[n] for n in _MATRICES + _VECTORS
-                    if n not in ("qkv_w", "qkv_b")}}
+    if "wqkv" in lay:
+        from .modernbert import MATRICES as matrices
+
+        per_layer = dict(lay)
+        extra = {"final_ln_scale": t(tree["final_ln_scale"])}
+    else:
+        matrices = _MATRICES
+        per_layer = {"qkv_w": np.concatenate([lay["q_w"], lay["k_w"], lay["v_w"]], axis=2),
+                     "qkv_b": np.concatenate([lay["q_b"], lay["k_b"], lay["v_b"]], axis=1),
+                     **{n: lay[n] for n in _MATRICES + _VECTORS
+                        if n not in ("qkv_w", "qkv_b")}}
+        extra = {}
     params: Params = {f"embeddings.{k}": t(v) for k, v in tree["embeddings"].items()}
-    for i in range(qkv_w.shape[0]):
+    for i in range(next(iter(per_layer.values())).shape[0]):
         for n, arr in per_layer.items():
-            params[f"layers.{i}.{n}"] = t(arr[i], matrix_dtype if n in _MATRICES
+            params[f"layers.{i}.{n}"] = t(arr[i], matrix_dtype if n in matrices
                                           else torch.float32)
+    params.update(extra)
     return params
 
 
@@ -313,14 +524,20 @@ def _product_f32(x2d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.mm(x2d.float(), w.float())
 
 
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [.., K] @ w [K, N]`` → f32 ``[.., N]`` (``_product_f32``), the
+    weight cast to ``x``'s type."""
+    y = _product_f32(x.reshape(-1, x.shape[-1]), w.to(x.dtype))
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``x @ w + b`` → f32, the product on compute-dtype operands with f32
     sums and an f32 result, then the f32 bias: the caller's cast to the
     compute dtype is the one rounding, as in the JAX package's
     ``einsum(..., preferred_element_type=float32) + b`` (its
     ``models/encoder.py:454-456, 514-515, 523-527``)."""
-    y = _product_f32(x.reshape(-1, x.shape[-1]), w.to(x.dtype))
-    return (y + b.float()).reshape(*x.shape[:-1], w.shape[-1])
+    return _matmul_f32(x, w) + b.float()
 
 
 def _linear_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -328,22 +545,60 @@ def _linear_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return F.gelu(_linear(x, w, b), approximate="none")
 
 
-def embed_tokens(params: Params, input_ids: torch.Tensor, cfg: EncoderConfig,
-                 compute_dtype: torch.dtype) -> torch.Tensor:
-    """Word + position (+ token type 0) embeddings and their LayerNorm →
-    ``[B, S, D]`` in ``compute_dtype``.  Raises past the position table
-    (the JAX package's gather clamps there and reuses its last row)."""
+def _check_positions(S: int, cfg: EncoderConfig):
+    """Raise past the position table (the JAX package's gather clamps there
+    and reuses its last row).  RoBERTa and MPNet number real tokens from
+    ``pad_token_id + 1``; DeBERTa without absolute positions has no table."""
+    if cfg.arch == "deberta" and not cfg.position_biased_input:
+        return
+    last = S - 1 + (cfg.pad_token_id + 1 if cfg.arch in ("roberta", "mpnet") else 0)
+    if last >= cfg.max_position_embeddings:
+        raise ValueError(f"S={S} tokens need position row {last}, past "
+                         f"max_position_embeddings={cfg.max_position_embeddings}: "
+                         f"the position table has no row for them")
+
+
+def embed_tokens(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                 cfg: EncoderConfig, compute_dtype: torch.dtype) -> torch.Tensor:
+    """The embeddings and their LayerNorm, in f32, → ``[B, S, D]`` in
+    ``compute_dtype``, family by family as the JAX package's forward forms
+    them (its ``models/encoder.py:350-381``):
+
+    - DeBERTa: word (+ absolute positions if ``position_biased_input``)
+      (+ token type 0), the bias-free projection, LayerNorm, pad rows zeroed;
+    - RoBERTa and MPNet: positions ``cumsum(ids != pad) * (ids != pad) +
+      pad``;
+    - ELECTRA: LayerNorm at the table's width, then the projection to D.
+    """
     S = input_ids.shape[1]
-    if S > cfg.max_position_embeddings:
-        raise ValueError(f"S={S} tokens > max_position_embeddings="
-                         f"{cfg.max_position_embeddings}: the position table "
-                         f"has no row for them")
-    h = (params["embeddings.word"][input_ids.long()]
-         + params["embeddings.position"][:S][None, :, :])
+    _check_positions(S, cfg)
+    ids = input_ids.long()
+
+    def emb(name: str) -> torch.Tensor:
+        return params[f"embeddings.{name}"]
+
+    h = emb("word")[ids]
+    if cfg.arch == "deberta":
+        if cfg.position_biased_input:
+            h = h + emb("position")[:S][None, :, :]
+        if cfg.type_vocab_size > 0:
+            h = h + emb("token_type")[0][None, None, :]
+        if "embeddings.proj_w" in params:
+            h = h @ emb("proj_w")
+        h = add_layer_norm_ref(h, None, emb("ln_scale"), emb("ln_bias"), cfg.layer_norm_eps)
+        h = h * attention_mask[:, :, None].to(h.dtype)
+        return h.to(compute_dtype)
+    if cfg.arch in ("roberta", "mpnet"):
+        pad = cfg.pad_token_id
+        real = (ids != pad).long()
+        h = h + emb("position")[torch.cumsum(real, dim=1) * real + pad]
+    else:
+        h = h + emb("position")[:S][None, :, :]
     if cfg.type_vocab_size > 0:
-        h = h + params["embeddings.token_type"][0][None, None, :]
-    h = add_layer_norm_ref(h, None, params["embeddings.ln_scale"],
-                           params["embeddings.ln_bias"], cfg.layer_norm_eps)
+        h = h + emb("token_type")[0][None, None, :]
+    h = add_layer_norm_ref(h, None, emb("ln_scale"), emb("ln_bias"), cfg.layer_norm_eps)
+    if "embeddings.proj_w" in params:
+        h = h @ emb("proj_w") + emb("proj_b")
     return h.to(compute_dtype)
 
 
@@ -366,6 +621,10 @@ def pool_and_normalize(hidden: torch.Tensor, attention_mask: torch.Tensor,
 
 
 ATTN_IMPLS = ("fusedqkv", "flash", "oneshot", "einsum")
+
+#: families whose attention is ``relative_attention`` (MPNet, DeBERTa) or
+#: ModernBERT's own, on every device and whatever ``attn_impl`` asks
+OWN_ATTENTION_ARCHS = ("mpnet", "deberta", "modernbert")
 
 
 def attention_fn(attn_impl: str):
@@ -391,6 +650,152 @@ def attention_fn(attn_impl: str):
     return attend
 
 
+def relative_attention(qkv: torch.Tensor, attention_mask: torch.Tensor, H: int, Dh: int,
+                       scale: float, biases: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+    """MPNet's and DeBERTa's attention, plain torch on every device, as the
+    JAX package computes it in ``jnp``: f32 scores ``q·k · scale``, plus
+    each additive score bias in turn (``[B|1, H, S, S]`` f32), plus the pad
+    mask; f32 softmax; probabilities rounded to qkv's type; f32 PV →
+    ``[B, S, D]`` in qkv's type."""
+    B, S, _ = qkv.shape
+    D = H * Dh
+    q, k, v = (qkv[..., j * D:(j + 1) * D].reshape(B, S, H, Dh).float() for j in range(3))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    for bias in biases:
+        logits = logits + bias
+    logits = logits + torch.where(attention_mask[:, None, None, :] > 0, 0.0, NEG).to(logits)
+    probs = torch.softmax(logits, dim=-1).to(qkv.dtype).float()
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, S, D).to(qkv.dtype)
+
+
+def _relative_position_buckets(S: int, num_buckets: int, max_distance: int) -> np.ndarray:
+    """MPNet/T5 bidirectional relative-position bucket matrix ``[S, S]``
+    (HF ``MPNetModel.relative_position_bucket``: the sign takes half the
+    buckets, exact buckets up to max_exact, log-spaced beyond); the JAX
+    package's helper element for element."""
+    ctx = np.arange(S)[:, None]
+    mem = np.arange(S)[None, :]
+    n = -(mem - ctx)
+    half = num_buckets // 2
+    ret = (n < 0).astype(np.int64) * half
+    n = np.abs(n)
+    max_exact = half // 2
+    is_small = n < max_exact
+    large = max_exact + (
+        np.log(np.maximum(n, 1) / max_exact)
+        / np.log(max_distance / max_exact) * (half - max_exact)
+    ).astype(np.int64)
+    large = np.minimum(large, half - 1)
+    return ret + np.where(is_small, n, large)
+
+
+def _deberta_rel_positions(S: int, bucket_size: int, max_position: int) -> np.ndarray:
+    """DeBERTa-v2 (log-bucketed) relative position matrix ``[S, S]``:
+    ``rel[i, j] = bucket(i - j)``, exact inside ±bucket_size/2, then
+    log-spaced with the sign kept (HF ``make_log_bucket_position``, float32
+    math for torch's ceil boundaries); the JAX package's helper element for
+    element."""
+    q = np.arange(S, dtype=np.int64)
+    rel = q[:, None] - q[None, :]
+    if bucket_size > 0 and max_position > 0:
+        sign = np.sign(rel).astype(np.float32)
+        mid = bucket_size // 2
+        abs_pos = np.where((rel < mid) & (rel > -mid), mid - 1, np.abs(rel))
+        log_pos = np.ceil(
+            np.log(abs_pos.astype(np.float32) / mid)
+            / np.log(np.float32((max_position - 1) / mid)) * (mid - 1)
+        ).astype(np.float32) + mid
+        rel = np.where(abs_pos <= mid, rel, (log_pos * sign).astype(np.int64))
+    return rel
+
+
+#: a layer's attention in the post-LN stack: (qkv, mask, layer params) → ctx
+LayerAttention = Callable[[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]],
+                          torch.Tensor]
+
+
+def _mpnet_attention(params: Params, cfg: EncoderConfig, S: int) -> LayerAttention:
+    """MPNet: the bucketed bias ``rel_bias[bucket(i, j)]`` → ``[1, H, S,
+    S]``, computed once and added in every layer."""
+    H, Dh = cfg.num_heads, cfg.head_dim
+    table = params["embeddings.rel_bias"]
+    buckets = torch.from_numpy(_relative_position_buckets(
+        S, cfg.relative_attn_buckets, cfg.relative_attn_max_distance)).to(table.device)
+    bias = table[buckets].permute(2, 0, 1)[None].float()
+    return lambda qkv, mask, p: relative_attention(qkv, mask, H, Dh, 1.0 / math.sqrt(Dh),
+                                                   (bias,))
+
+
+def _deberta_attention(params: Params, cfg: EncoderConfig, S: int,
+                       compute_dtype: torch.dtype) -> LayerAttention:
+    """DeBERTa's disentangled attention: the shared relative table (its
+    LayerNorm, in the compute dtype) projected by each layer's own query and
+    key weights (``share_att_key``); content-to-position scores
+    ``q_i · pos_k[c2p(i, j)]`` and position-to-content scores ``k_j ·
+    pos_q[p2c(j, i)]``, both scaled like the content scores by
+    ``1/sqrt(Dh · (1 + n_pos))`` (HF ``DisentangledSelfAttention``, the JAX
+    package's ``models/encoder.py:406-422, 481-507``).  Only the table rows
+    the ``[S, S]`` index maps reach are projected and multiplied: each score
+    is the same product."""
+    H, Dh, D = cfg.num_heads, cfg.head_dim, cfg.hidden_size
+    terms = [t for t in cfg.rel_pos_att.split("|") if t] if cfg.rel_att_span else []
+    scale = 1.0 / math.sqrt(Dh * (1 + len(terms)))
+    if not cfg.rel_att_span:
+        return lambda qkv, mask, p: relative_attention(qkv, mask, H, Dh, scale)
+    K = cfg.rel_att_span
+    rel = _deberta_rel_positions(S, cfg.rel_att_buckets, cfg.rel_att_max_pos)
+    table = params["embeddings.rel_emb"]
+    if cfg.rel_norm:
+        table = add_layer_norm_ref(table, None, params["embeddings.rel_ln_scale"],
+                                   params["embeddings.rel_ln_bias"], cfg.layer_norm_eps)
+    table = table.to(compute_dtype)
+    cd = compute_dtype
+
+    def index_map(idx: np.ndarray):
+        lo, hi = int(idx.min()), int(idx.max())
+        return lo, hi, torch.from_numpy(idx - lo).to(table.device)
+
+    # c2p[i, j] reads row clamp(rel[i, j] + K); p2c[j, i] reads clamp(-rel[j, i] + K)
+    c2p = index_map(np.clip(rel + K, 0, 2 * K - 1))
+    p2c = index_map(np.clip(-rel + K, 0, 2 * K - 1))
+
+    def scores(x, rows, w, b, idx):
+        """``x [B, S, H, Dh]`` against the projected rows → ``[B, H, S, S]``
+        f32 gathered through the index map."""
+        lo, hi, local = idx
+        pos = (_matmul_f32(rows[lo:hi + 1], w).to(cd) + b.to(cd)).reshape(-1, H, Dh)
+        full = torch.einsum("bshd,khd->bhsk", x.float(), pos.float())
+        return torch.gather(full, -1, local.expand(*full.shape[:3], S))
+
+    def attend(qkv, mask, p):
+        B = qkv.shape[0]
+        q, k = (qkv[..., j * D:(j + 1) * D].reshape(B, S, H, Dh) for j in range(2))
+        w, b = p["qkv_w"], p["qkv_b"]
+        biases = []
+        if "c2p" in cfg.rel_pos_att:
+            biases.append(scores(q, table, w[:, D:2 * D].contiguous(), b[D:2 * D],
+                                 c2p) * scale)
+        if "p2c" in cfg.rel_pos_att:
+            # gathered [j, i] → score [i, j]
+            biases.append(scores(k, table, w[:, :D].contiguous(), b[:D],
+                                 p2c).transpose(-1, -2) * scale)
+        return relative_attention(qkv, mask, H, Dh, scale, biases)
+
+    return attend
+
+
+def layer_attention(params: Params, cfg: EncoderConfig, S: int, attn_impl: str,
+                    compute_dtype: torch.dtype) -> LayerAttention:
+    """The attention every layer of this forward runs: MPNet's and DeBERTa's
+    ``relative_attention``, else ``attention_fn(attn_impl)``."""
+    if cfg.relative_attn_buckets:
+        return _mpnet_attention(params, cfg, S)
+    if cfg.arch == "deberta":
+        return _deberta_attention(params, cfg, S, compute_dtype)
+    attend = attention_fn(attn_impl)
+    return lambda qkv, mask, p: attend(qkv, mask, cfg.num_heads, cfg.head_dim)
+
+
 def encoder_forward(
     params: Params,
     input_ids: torch.Tensor,       # [B, S] int
@@ -402,22 +807,27 @@ def encoder_forward(
 ) -> torch.Tensor:
     """Full encoder forward → last hidden state ``[B, S, D]`` (float32).
 
-    ``attn_impl``: one of ``ATTN_IMPLS`` (``attention_fn``).
+    ``attn_impl``: one of ``ATTN_IMPLS`` (``attention_fn``); MPNet, DeBERTa
+    and ModernBERT run their own attention whatever it names.
     ``use_fused_ln``: the two residual LayerNorms of each layer through
     ``ops.layernorm.add_layer_norm`` (kernel B10 on a GPU); ``None`` follows
     ``_FUSED_LN_ON_CUDA`` on a CUDA device and is off elsewhere.
     """
-    attend = attention_fn(attn_impl)
+    if cfg.arch == "modernbert":
+        from .modernbert import modernbert_forward
+
+        return modernbert_forward(params, input_ids, attention_mask, cfg, compute_dtype)
     if use_fused_ln is None:
         use_fused_ln = _FUSED_LN_ON_CUDA and input_ids.device.type == "cuda"
     add_ln = add_layer_norm if use_fused_ln else add_layer_norm_ref
-    h = embed_tokens(params, input_ids, cfg, compute_dtype)
-    H, Dh, eps = cfg.num_heads, cfg.head_dim, cfg.layer_norm_eps
+    h = embed_tokens(params, input_ids, attention_mask, cfg, compute_dtype)
+    attend = layer_attention(params, cfg, input_ids.shape[1], attn_impl, compute_dtype)
+    eps = cfg.layer_norm_eps
     for i in range(_n_layers(cfg)):
         p = {n: params[f"layers.{i}.{n}"] for n in _MATRICES + _VECTORS}
         x = h
         qkv = _linear(x, p["qkv_w"], p["qkv_b"]).to(compute_dtype)
-        ctx = attend(qkv, attention_mask, H, Dh).to(compute_dtype)
+        ctx = attend(qkv, attention_mask, p).to(compute_dtype)
         attn_out = _linear(ctx, p["o_w"], p["o_b"])
         h = add_ln(attn_out.to(compute_dtype), x, p["attn_ln_scale"],
                    p["attn_ln_bias"], eps)
@@ -470,32 +880,55 @@ def resolve_quantization(quantization: Optional[str],
     return quantization
 
 
-def check_int8_arch(cfg: EncoderConfig):
-    """The int8 forward is BERT's (the JAX package also takes distilbert,
-    roberta and projection-free ELECTRA, which come with a later slice)."""
-    if cfg.arch != "bert":
-        raise NotImplementedError(
-            f"quantization='int8' for arch {cfg.arch!r}: the port's int8 "
-            f"forward runs BERT encoders")
+def int8_arch(cfg: EncoderConfig) -> bool:
+    """Whether the int8 forward runs this family: BERT, DistilBERT, RoBERTa
+    and ELECTRA without an embedding projection (structurally BERT)."""
+    return (cfg.arch in ("bert", "distilbert", "roberta")
+            or (cfg.arch == "electra" and not cfg.embedding_size))
+
+
+def check_int8_arch(cfg: EncoderConfig, quantization: Optional[str]) -> Optional[str]:
+    """The quantization an encoder of ``cfg`` runs, by the JAX package's
+    rule (its ``models/encoder.py:887-898``): ``"int8"`` for a family the
+    int8 forward takes (``int8_arch``); for MPNet, DeBERTa, ModernBERT and
+    projected ELECTRA a logged warning and ``None``, the float forward."""
+    if quantization == "int8" and not int8_arch(cfg):
+        logger.warning(f"quantization='int8' is not supported for arch "
+                       f"'{cfg.arch}'; falling back to the float path")
+        return None
+    return quantization
 
 
 def config_from_dict(d: Dict) -> EncoderConfig:
     """An ``EncoderConfig`` from the JAX package's config fields (an int8
-    export's ``encoder_config``); fields the port lacks are ignored, and a
-    non-BERT arch raises."""
-    if d.get("arch", "bert") != "bert":
-        raise NotImplementedError(
-            f"encoder arch {d.get('arch')!r}: the port loads BERT encoders; "
-            f"the other families come with a later slice")
+    export's ``encoder_config``); unknown fields are ignored."""
     names = EncoderConfig.__dataclass_fields__
     return EncoderConfig(**{k: v for k, v in d.items() if k in names})
 
 
+def load_tokenizer(path: Union[str, Path], vocab_size: int):
+    """A checkpoint directory's tokenizer, chosen as the JAX package chooses
+    it: a non-WordPiece ``tokenizer.json`` (``try_load_hf_tokenizer``), else
+    WordPiece from ``vocab.txt``, else the built-in vocabulary of
+    ``vocab_size`` tokens."""
+    from .hf_tokenizer_adapter import try_load_hf_tokenizer
+    from .tokenizer import WordPieceTokenizer
+
+    tok = try_load_hf_tokenizer(str(path))
+    if tok is not None:
+        return tok
+    try:
+        return WordPieceTokenizer.from_pretrained(str(path))
+    except FileNotFoundError:
+        return WordPieceTokenizer.hermetic(vocab_size)
+
+
 class Encoder:
     """Owns the encoder's weights on the device, its tokenizer, and the
-    attention policy.  With ``quantization="int8"`` the weights are the
-    int8 state (``quantization.quantize_encoder_for_inference``) and
-    ``embed_ids`` runs the int8 forward (``encoder_int8``)."""
+    attention policy.  With ``quantization="int8"`` (on a family the int8
+    forward takes) the weights are the int8 state
+    (``quantization.quantize_encoder_for_inference``) and ``embed_ids``
+    runs the int8 forward (``encoder_int8``)."""
 
     #: sequence-length buckets: short queries pay for 32 tokens, not 512
     SEQ_BUCKETS = (32, 64, 128, 256, 512)
@@ -511,7 +944,7 @@ class Encoder:
         if ckpt is not None:
             self.config = _read_hf_config(ckpt)
             self._read_tree = lambda: _map_hf_weights(_load_state_dict(ckpt), self.config)
-            self.tokenizer = WordPieceTokenizer.from_pretrained(str(ckpt))
+            self.tokenizer = load_tokenizer(ckpt, self.config.vocab_size)
             self.pretrained = True
         else:
             # offline: the named architecture with the JAX package's random
@@ -523,11 +956,11 @@ class Encoder:
                                                   self.config)
             self.tokenizer = WordPieceTokenizer.hermetic(self.config.vocab_size)
             self.pretrained = False
+        self.quantization = check_int8_arch(self.config, self.quantization)
         tree = self._read_tree()
         if self.quantization == "int8":
             from ..quantization import quantize_encoder_for_inference
 
-            check_int8_arch(self.config)
             # from the float32 weights, before any cast: the int8 values
             # and scales are then the JAX package's bit for bit
             self.params = self._on_device(
@@ -563,36 +996,43 @@ class Encoder:
                               device: Optional[Union[str, torch.device]] = None,
                               quantization: Optional[str] = None) -> "Encoder":
         """The encoder a checkpoint's ``quantized/`` export captured, for a
-        machine without the base checkpoint: its config and vocabulary, as
-        the int8 state (int8 quantization) or dequantized float weights."""
+        machine without the base checkpoint: its config and tokenizer (the
+        export's ``tokenizer.json`` or ``vocab.txt``), as the int8 state
+        (int8 quantization on a family that takes it) or dequantized float
+        weights."""
         from ..quantization import load_quantized_encoder_params
+        from .hf_tokenizer_adapter import try_load_hf_tokenizer
         from .tokenizer import WordPieceTokenizer
 
         directory = Path(directory)
         self = cls.__new__(cls)
         self._setup(compute_dtype, device, quantization)
         self.model_name = model_name
-        want = "int8" if self.quantization == "int8" else "float"
-        params, enc_cfg, qcfg = load_quantized_encoder_params(directory, want=want)
+        qcfg = json.loads((directory / "quantize_config.json").read_text())
         if not qcfg.get("encoder_pretrained", False):
-            raise NotImplementedError(
-                f"the export at {directory} holds a random-weight encoder: the "
-                f"offline random-weight encoder comes with a later slice")
-        if not (directory / "vocab.txt").exists():
-            # pretrained rows paired with another vocabulary's ids would
-            # embed confident nonsense
             raise ValueError(
-                f"int8 export at {directory} has no vocab.txt and no real "
-                f"tokenizer is available: refusing to pair pretrained weights "
-                f"with another vocabulary")
-        self.config = config_from_dict(enc_cfg)
+                f"the export at {directory} holds a random-weight encoder: build it "
+                f"again from its model name and seed")
+        self.config = config_from_dict(qcfg["encoder_config"])
+        self.quantization = check_int8_arch(self.config, self.quantization)
+        self.tokenizer = try_load_hf_tokenizer(str(directory))
+        if self.tokenizer is None:
+            if not (directory / "vocab.txt").exists():
+                # pretrained rows paired with another vocabulary's ids would
+                # embed confident nonsense
+                raise ValueError(
+                    f"int8 export at {directory} has no vocab.txt and no real "
+                    f"tokenizer is available: refusing to pair pretrained weights "
+                    f"with another vocabulary")
+            self.tokenizer = WordPieceTokenizer.from_pretrained(str(directory))
+        want = "int8" if self.quantization == "int8" else "float"
+        params, _, _ = load_quantized_encoder_params(directory, want=want)
         self._read_tree = lambda: load_quantized_encoder_params(directory)[0]
         if self.quantization == "int8":
             self.params = self._on_device(params)
         else:
             self.params = params_from_tree(params, device=self.device,
                                            matrix_dtype=self.compute_dtype)
-        self.tokenizer = WordPieceTokenizer.from_pretrained(str(directory))
         self.pretrained = True
         return self
 
@@ -608,10 +1048,14 @@ class Encoder:
         return self._read_tree()
 
     def _attn_impl(self, seq_len: int) -> str:
-        """Attention policy, read on every call: ``self.attn_impl`` if set,
-        else ``AC_ATTN_IMPL`` if set (the JAX package's override), else plain
+        """Attention policy, read on every call: ``"einsum"`` for the
+        families with their own attention (``OWN_ATTENTION_ARCHS``; their
+        forward ignores it), else ``self.attn_impl`` if set, else
+        ``AC_ATTN_IMPL`` if set (the JAX package's override), else plain
         torch on the CPU; on the GPU the flash kernel (B6) from 1,024 tokens
         and the packed-QKV kernel (B1) below, inside its envelope."""
+        if self.config.arch in OWN_ATTENTION_ARCHS:
+            return "einsum"
         if self.attn_impl is not None:
             return self.attn_impl
         forced = os.environ.get("AC_ATTN_IMPL")

@@ -1,9 +1,12 @@
 """Int8 encoder forward: the encoder's four matrix products per layer in
 int8, with float32 epilogues, residual stream and LayerNorms.
 
-Counterpart of ``adaptive_classifier_tpu/models/encoder_int8.py``.
-Weights are per-output-channel symmetric int8 (``quantization.py``);
-activations are quantized per row on the fly.  Per layer, with
+Counterpart of ``adaptive_classifier_tpu/models/encoder_int8.py``, for
+the families it takes (``encoder.int8_arch``: BERT, DistilBERT, RoBERTa
+with its padding-offset positions, and ELECTRA without an embedding
+projection; the embeddings are ``encoder.embed_tokens``'s).  Weights
+are per-output-channel symmetric int8 (``quantization.py``); activations
+are quantized per row on the fly.  Per layer, with
 ``use_fused_ffn``:
 
 - kernel B2 (``ops.matmul_int8.quant_matmul_int8``): the fused QKV
@@ -39,7 +42,7 @@ from ..ops.ffn_int8 import attn_ffn_block_int8, ffn_block_int8
 from ..ops.layernorm import add_layer_norm_ref
 from ..ops.matmul_int8 import int8_matmul, quant_matmul_int8, quant_rows
 from .encoder import (EncoderConfig, Params, _n_layers, attention_fn, embed_tokens,
-                      pool_and_normalize)
+                      int8_arch, pool_and_normalize)
 
 
 def _dyn_quant_rows(x: torch.Tensor):
@@ -72,8 +75,12 @@ def encoder_forward_int8(
     attn_impl: str = "einsum",
     fuse_o_proj: Optional[bool] = None,
 ) -> torch.Tensor:
-    """BERT forward with int8 products → last hidden state ``[B, S, D]``
-    (float32)."""
+    """The int8 forward → last hidden state ``[B, S, D]`` (float32).
+    Raises for a family it does not take (``encoder.check_int8_arch``
+    decides that before an encoder is built)."""
+    if not int8_arch(cfg):
+        raise ValueError(f"the int8 forward does not run arch {cfg.arch!r} "
+                         f"(embedding_size={cfg.embedding_size})")
     attend = attention_fn(attn_impl)
     B, S = input_ids.shape
     D = cfg.hidden_size
@@ -83,7 +90,7 @@ def encoder_forward_int8(
     fuse_o_proj = bool(fuse_o_proj) and use_fused_ffn
     H, Dh, eps = cfg.num_heads, cfg.head_dim, cfg.layer_norm_eps
     cd = compute_dtype
-    h = embed_tokens(qparams, input_ids, cfg, cd)
+    h = embed_tokens(qparams, input_ids, attention_mask, cfg, cd)
     for i in range(_n_layers(cfg)):
         p = lambda name: qparams[f"layers.{i}.{name}"]   # noqa: E731
         x = h

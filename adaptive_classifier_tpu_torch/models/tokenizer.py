@@ -225,21 +225,31 @@ class WordPieceTokenizer:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Batch-encode to padded int32 ``(input_ids, attention_mask)``,
         padded to the batch's longest row rounded up into a bucket."""
-        encoded = [self.encode(t, max_length=max_length) for t in texts]
-        longest = max(len(e) for e in encoded)
-        for b in sorted(pad_to_buckets or ()):
-            if longest <= b:
-                longest = b
-                break
-        longest = min(max(longest, 8), max(max_length, 8))
-        ids = np.full((len(encoded), longest), self.pad_id, dtype=np.int32)
-        mask = np.zeros((len(encoded), longest), dtype=np.int32)
-        for i, e in enumerate(encoded):
-            e = e[:longest]
-            ids[i, : len(e)] = e
-            mask[i, : len(e)] = 1
-        return ids, mask
+        return pad_batch([self.encode(t, max_length=max_length) for t in texts],
+                         self.pad_id, max_length, pad_to_buckets)
 
     @property
     def vocab_size(self) -> int:
         return len(self.vocab)
+
+
+def pad_batch(encoded: Sequence[Sequence[int]], pad_id: int, max_length: int,
+              pad_to_buckets: Optional[Sequence[int]] = None
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """Rows of token ids → padded int32 ``(input_ids, attention_mask)``: the
+    longest row rounded up into the first bucket that holds it, at least 8
+    and at most ``max(max_length, 8)`` tokens, as the JAX package's
+    tokenizers pad."""
+    longest = max(len(e) for e in encoded)
+    for b in sorted(pad_to_buckets or ()):
+        if longest <= b:
+            longest = b
+            break
+    longest = min(max(longest, 8), max(max_length, 8))
+    ids = np.full((len(encoded), longest), pad_id, dtype=np.int32)
+    mask = np.zeros((len(encoded), longest), dtype=np.int32)
+    for i, e in enumerate(encoded):
+        e = e[:longest]
+        ids[i, : len(e)] = e
+        mask[i, : len(e)] = 1
+    return ids, mask

@@ -20,12 +20,17 @@ of ``adaptive_classifier_tpu/quantization.py``.
 - ``save_quantized_encoder``: writes that export, in the ``standard``
   format (``quantize_tree`` of the float32 weights) from a float encoder,
   and as the ``runtime_int8_tree`` (the int8 state, stacked over layers)
-  from an int8 one, with ``quantize_config.json`` and ``vocab.txt``.
+  from an int8 one, with ``quantize_config.json`` and the tokenizer:
+  ``vocab.txt`` for WordPiece, the checkpoint's ``tokenizer.json`` (and
+  ``tokenizer_config.json``) for a ``tokenizer.json`` tokenizer (the JAX
+  package writes a BPE vocabulary into ``vocab.txt``, which no loader reads
+  as BPE).
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 from pathlib import Path
 from typing import Any, Dict, List, Tuple, Union
 
@@ -38,18 +43,6 @@ from .models.encoder import _MATRICES, _VECTORS, Params, Tree, params_from_tree
 
 #: weights smaller than this stay float32 in a ``standard`` export
 _MIN_QUANT_SIZE = 1024
-
-#: the JAX package's encoder-config fields of the other families, at their
-#: defaults (what a BERT encoder's export records for them)
-_OTHER_FAMILY_FIELDS = {
-    "global_attn_every_n_layers": 3, "local_attention": 128,
-    "global_rope_theta": 160000.0, "local_rope_theta": 10000.0,
-    "embedding_size": 0, "relative_attn_buckets": 0,
-    "relative_attn_max_distance": 128, "rel_att_span": 0, "rel_att_buckets": 0,
-    "rel_att_max_pos": 0, "rel_pos_att": "", "rel_norm": False,
-    "position_biased_input": True,
-}
-
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``w [in, out]`` float32 → (int8 ``[in, out]``, row-major as the
@@ -155,8 +148,8 @@ def runtime_int8_tree(params: Params) -> Dict[str, Dict[str, np.ndarray]]:
 
 
 def save_quantized_encoder(encoder, directory: Union[str, Path]) -> Path:
-    """Write ``model_int8.safetensors``, ``quantize_config.json`` and
-    ``vocab.txt`` into ``directory``: the ``standard`` format from a float
+    """Write ``model_int8.safetensors``, ``quantize_config.json`` and the
+    tokenizer's files into ``directory``: the ``standard`` format from a float
     encoder (quantized from its float32 weights, ``Encoder.float_tree``),
     the ``runtime_int8_tree`` from an int8 one (its int8 state as it is;
     quantizing it again would corrupt it)."""
@@ -173,12 +166,18 @@ def save_quantized_encoder(encoder, directory: Union[str, Path]) -> Path:
     (directory / "quantize_config.json").write_text(json.dumps({
         "scheme": "int8_symmetric_per_channel",
         "format": "runtime_int8_tree" if runtime else "standard",
-        "encoder_config": {**encoder.config.__dict__, **_OTHER_FAMILY_FIELDS},
+        "encoder_config": encoder.config.__dict__,
         "encoder_pretrained": bool(encoder.pretrained),
         "manifest": manifest,
     }, indent=2))
+    source = getattr(encoder.tokenizer, "source", None)
     vocab = getattr(encoder.tokenizer, "vocab", None)
-    if vocab:
+    if source is not None:
+        # a tokenizer.json tokenizer: the file itself (and its config)
+        for src in (source, source.parent / "tokenizer_config.json"):
+            if src.exists():
+                shutil.copyfile(src, directory / src.name)
+    elif vocab:
         tokens = [t for t, _ in sorted(vocab.items(), key=lambda kv: kv[1])]
         (directory / "vocab.txt").write_text("\n".join(tokens) + "\n", encoding="utf-8")
     return directory

@@ -120,6 +120,30 @@ Phases, each of which must pass:
    198 topic x emotion pairs in two adds (B1 and B10 on each):
    micro-F1 on the 200 test pairs >= the JAX package's on the CPU - 0.05,
    and the same label sets on >= 0.99 of them after save and load;
+14. the other encoder families at their published widths, random weights:
+   DistilBERT, ELECTRA-base, ELECTRA-small, all-mpnet-base-v2 (MPNet),
+   DeBERTa-v3-base and ModernBERT-base offline, and a RoBERTa checkpoint
+   written at run time (roberta-base's dims, numpy weights from a seed, the
+   committed byte-level BPE fixture ``tests/fixtures/bpe`` as its
+   tokenizer, run by the port's ``ByteLevelBPE`` where the Rust runtime is
+   not installed).  Each under a classifier on phase 7's lexical-off config:
+   ``add_examples`` on banking's 140 train rows, ``predict_batch`` on its 200
+   test rows; B1 once per layer per encoder chunk on DistilBERT, RoBERTa and
+   both ELECTRAs and never on the others, B10 twice per layer per chunk on
+   every family but ModernBERT (none there); the B1 families' embeddings
+   within cosine 0.999 of the plain attention's; every family's bf16
+   embeddings of 32 rows within cosine 0.99 of the port's float32 forward
+   of the same weights on the CPU; ``quantization: "int8"`` on DistilBERT,
+   RoBERTa and ELECTRA-base through B2 and B3 once per layer per chunk,
+   embeddings within cosine 0.99 of bf16, and resolving to float (no B2)
+   on the other four; the RoBERTa and ModernBERT classifiers saved and
+   loaded back (top-1 agreement >= 0.99, score drift < 0.01); top-1
+   agreement of the kernel and plain paths >= 0.99 and of int8 and bf16
+   (the bf16 classifier scoring both forwards' embeddings) >= 0.95 on the
+   rows whose reference margin exceeds ``TIE_MARGIN``, and reported on
+   every row; the RoBERTa rows' BPE ids equal to the Rust runtime's where
+   it is installed; the bf16 forward per ``[256, 32]`` chunk of each
+   family timed in two turns;
 3b. times every kernel, its plain version and the nearest single PyTorch
    call at the shapes the main path gave it, on the main path's inputs, as
    device time (the stream held until the host has queued every timed
@@ -133,8 +157,8 @@ Phases, each of which must pass:
 5. prints the ``kernels`` JSON line, then as its last line
    ``{"ok": true, "device": {...}}``.
 
-Each phase prints its seconds; phases 4, 4i, 4a, 6, 6i, 6m, 6s, 6l, 7, 8, 9 and
-10-13 zero the launch counts just before each step and read them just after.
+Each phase prints its seconds; phases 4, 4i, 4a, 6, 6i, 6m, 6s, 6l, 7, 8, 9,
+10-13 and 14 zero the launch counts just before each step and read them just after.
 Timings of ``predict_batch`` (phases 4, 4i and 8) are cold, the embedding
 caches cleared before each call, so that every call runs the encoder; a
 warm figure, served from the device cache, is printed beside them under
@@ -556,27 +580,29 @@ def ln_bound(M, D, dtype):
 
 def time_layernorm(chunks: dict) -> list:
     """B10, its plain version and F.layer_norm(x + r) at the zoo's chunk
-    shapes (M rows of D 512, bf16)."""
+    shapes (M rows of D 512, bf16), and at ``(M, D)`` where given (the
+    encoder families' widths)."""
     from adaptive_classifier_tpu_torch.ops import layernorm as ln
 
     rows = []
-    for where, M in chunks.items():
-        x, r, scale, bias = ln_inputs(500, M, 512, torch.bfloat16)
+    for where, shape in chunks.items():
+        M, D = shape if isinstance(shape, tuple) else (shape, 512)
+        x, r, scale, bias = ln_inputs(500, M, D, torch.bfloat16)
         res = ln_compare(ln.add_layer_norm(x, r, scale, bias, 1e-12),
                          ln.add_layer_norm_ref(x, r, scale, bias, 1e-12), torch.bfloat16)
         if not res["ok"]:
             raise AssertionError(f"add_layer_norm disagrees at {where}'s shape: {res}")
-        row = {"where": where, "M": M, "D": 512, "dtype": "bfloat16",
+        row = {"where": where, "M": M, "D": D, "dtype": "bfloat16",
                "max_abs_err": res["max_abs_err"],
                "ms": kernel_ms(lambda: ln.add_layer_norm(x, r, scale, bias, 1e-12)),
                "plain_ms": kernel_ms(lambda: ln.add_layer_norm_ref(x, r, scale, bias,
                                                                  1e-12)),
                "library_ms": kernel_ms(lambda: torch.nn.functional.layer_norm(
-                   x + r, (512,), scale.to(x.dtype), bias.to(x.dtype), 1e-12)),
+                   x + r, (D,), scale.to(x.dtype), bias.to(x.dtype), 1e-12)),
                "library_call": "F.layer_norm(x + r): two calls (the add, then the "
                                "norm; bf16 scale and bias)"}
         row["ms_repeat"] = kernel_ms(lambda: ln.add_layer_norm(x, r, scale, bias, 1e-12))
-        row["bound_ms"], row["bound_by"] = ln_bound(M, 512, torch.bfloat16)
+        row["bound_ms"], row["bound_by"] = ln_bound(M, D, torch.bfloat16)
         log(f"  time add_layer_norm {json.dumps(row)}")
         rows.append(row)
     return rows
@@ -2340,6 +2366,305 @@ def run_multilabel(launches: Launches, gpu: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the other encoder families
+# ---------------------------------------------------------------------------
+
+#: the offline family encoders at their published widths, then the RoBERTa
+#: checkpoint this phase writes (``roberta_checkpoint``)
+FAMILIES = ("distilbert-base-uncased", "google/electra-base-discriminator",
+            "google/electra-small-discriminator", "sentence-transformers/all-mpnet-base-v2",
+            "microsoft/deberta-v3-base", "answerdotai/ModernBERT-base", "roberta")
+#: attention through kernel B1 (the others run their own attention)
+B1_FAMILIES = ("distilbert", "roberta", "electra")
+#: the int8 forward takes these three; it resolves to float on the others
+INT8_FAMILIES = ("distilbert-base-uncased", "roberta", "google/electra-base-discriminator")
+#: top-1 agreement between two paths is gated on the rows whose reference
+#: margin (top-1 score - top-2 score) exceeds this, and reported on every
+#: row: random weights collapse the embeddings (mean pairwise cosine
+#: 0.88-0.998 here), and a ridge fit on them leaves rows on near-ties where
+#: the last bit of a path decides the order
+TIE_MARGIN = 1e-3
+BPE_FIXTURE = REPO / "tests" / "fixtures" / "bpe"
+#: roberta-base's published dims
+ROBERTA_BASE = {"hidden": 768, "ffn": 3072, "layers": 12, "heads": 12}
+
+
+def roberta_checkpoint(directory: Path, seed: int = 0) -> Path:
+    """A RoBERTa checkpoint at roberta-base's published dims (12 layers,
+    768 wide, 12 heads, FFN 3,072, 514 positions, pad 1, eps 1e-5): HF
+    ``config.json`` and ``model.safetensors`` under HF tensor names, the
+    weights drawn normal(0.02) from ``seed`` with numpy, unit LayerNorms;
+    the vocabulary and ``tokenizer.json`` are the committed BPE fixture's
+    (its size is the one cut)."""
+    from adaptive_classifier_tpu_torch import io_safetensors
+
+    vocab = json.loads((BPE_FIXTURE / "tokenizer.json").read_text())["model"]["vocab"]
+    D, F, L, H = (ROBERTA_BASE[k] for k in ("hidden", "ffn", "layers", "heads"))
+    cfg = {"model_type": "roberta", "architectures": ["RobertaModel"],
+           "vocab_size": len(vocab), "hidden_size": D, "num_hidden_layers": L,
+           "num_attention_heads": H, "intermediate_size": F,
+           "max_position_embeddings": 514, "type_vocab_size": 1, "layer_norm_eps": 1e-5,
+           "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2, "hidden_act": "gelu"}
+    r = np.random.default_rng(seed)
+
+    def nrm(*shape):
+        return r.standard_normal(shape, np.float32) * 0.02
+
+    t = {"embeddings.word_embeddings.weight": nrm(len(vocab), D),
+         "embeddings.position_embeddings.weight": nrm(514, D),
+         "embeddings.token_type_embeddings.weight": nrm(1, D),
+         "embeddings.LayerNorm.weight": np.ones(D, np.float32),
+         "embeddings.LayerNorm.bias": np.zeros(D, np.float32)}
+    for i in range(L):
+        pre = f"encoder.layer.{i}."
+        for name, (n_out, n_in) in (("attention.self.query", (D, D)),
+                                    ("attention.self.key", (D, D)),
+                                    ("attention.self.value", (D, D)),
+                                    ("attention.output.dense", (D, D)),
+                                    ("intermediate.dense", (F, D)),
+                                    ("output.dense", (D, F))):
+            t[pre + name + ".weight"] = nrm(n_out, n_in)
+            t[pre + name + ".bias"] = nrm(n_out)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            t[pre + name + ".weight"] = np.ones(D, np.float32)
+            t[pre + name + ".bias"] = np.zeros(D, np.float32)
+    directory.mkdir(parents=True, exist_ok=True)
+    (directory / "config.json").write_text(json.dumps(cfg, indent=2))
+    io_safetensors.save_file(t, directory / "model.safetensors")
+    for f in ("tokenizer.json", "tokenizer_config.json"):
+        (directory / f).write_bytes((BPE_FIXTURE / f).read_bytes())
+    return directory
+
+
+@contextlib.contextmanager
+def without_rust_tokenizers():
+    """The Rust ``tokenizers`` runtime unimportable inside the block, so a
+    ``tokenizer.json`` checkpoint tokenizes with the port's ``ByteLevelBPE``
+    whether or not the machine has the runtime."""
+    saved = sys.modules.get("tokenizers")
+    sys.modules["tokenizers"] = None
+    try:
+        yield
+    finally:
+        if saved is None:
+            del sys.modules["tokenizers"]
+        else:
+            sys.modules["tokenizers"] = saved
+
+
+def bpe_equals_rust(tokenizer, directory: str, texts) -> bool:
+    """Whether the port's BPE frames ``texts`` as the Rust runtime's
+    adapter does (None where the runtime is not installed)."""
+    import importlib.util
+
+    if importlib.util.find_spec("tokenizers") is None:
+        return None
+    from adaptive_classifier_tpu_torch.models.hf_tokenizer_adapter import HFTokenizerAdapter
+
+    rust = HFTokenizerAdapter(directory)
+    return all(tokenizer.encode(t) == rust.encode(t) for t in texts)
+
+
+def decided_agreement(got, want) -> tuple:
+    """(top-1 agreement on the rows where ``want``'s margin exceeds
+    ``TIE_MARGIN``, those rows, agreement on every row)."""
+    decided = [i for i, w in enumerate(want)
+               if len(w) < 2 or w[0][1] - w[1][1] > TIE_MARGIN]
+    same = [got[i][0][0] == want[i][0][0] for i in range(len(want))]
+    share = float(np.mean([same[i] for i in decided])) if decided else 1.0
+    return share, len(decided), float(np.mean(same))
+
+
+def count_encoder_calls(enc) -> list:
+    """Wraps ``enc.embed_ids`` to record each call's ``[B, S]``: the chunks
+    the encoder ran."""
+    calls, inner = [], enc.embed_ids
+
+    def counted(ids, mask):
+        calls.append(list(ids.shape))
+        return inner(ids, mask)
+
+    enc.embed_ids = counted
+    return calls
+
+
+def family_classifier(model: str, launches: Launches, config: dict) -> dict:
+    """``add_examples`` on banking's 140 train rows, ``predict_batch`` on its
+    200 test rows, with each step's launches and the encoder's chunks."""
+    import adaptive_classifier_tpu_torch as port
+
+    t0 = time.perf_counter()
+    clf = port.AdaptiveClassifier(model, config=dict(config), device="cuda")
+    build_s = time.perf_counter() - t0
+    calls = count_encoder_calls(clf.encoder)
+    texts, labels = intents_rows("train")
+    t0 = time.perf_counter()
+    _, add_counts = launches.run(lambda: clf.add_examples(texts, labels))
+    add_s = time.perf_counter() - t0
+    test_t, test_l = intents_rows("test_base")
+    preds, pred_counts = launches.run(lambda: clf.predict_batch(test_t, k=3))
+    return {"clf": clf, "preds": preds, "test": test_t, "chunks": len(calls),
+            "build_s": build_s, "add_examples_s": add_s,
+            "top1_accuracy_random_weights": accuracy(preds, test_l),
+            "launches": {k: add_counts[k] + pred_counts[k] for k in add_counts}}
+
+
+def expect_launches(name: str, run: dict, cfg, int8: bool) -> dict:
+    """The launch counts the families' forwards must show: B1 once a layer a
+    chunk on the B1 families (B2 and B3 too in int8), B10 twice on the float
+    post-LN families, nothing on ModernBERT."""
+    L, n = cfg.num_layers, run["chunks"]
+    b1 = cfg.arch in B1_FAMILIES
+    want = {"attention_qkv": L * n if b1 else 0,
+            "matmul_int8": L * n if int8 else 0, "ffn_int8": L * n if int8 else 0,
+            "add_layer_norm": 0 if int8 or cfg.arch == "modernbert" else 2 * L * n}
+    got = {k: run["launches"][k] for k in want}
+    if got != want or n == 0:
+        raise AssertionError(f"phase 14 {name}: launches {got} over {n} chunks, "
+                             f"expected {want}")
+    return got
+
+
+def run_families(launches: Launches, gpu: str) -> dict:
+    """Phase 14: each family encoder at its published width under a
+    classifier on phase 7's lexical-off config (``run_family``), the RoBERTa
+    checkpoint tokenized by the port's ``ByteLevelBPE`` (its ids held to the
+    Rust runtime's where that is installed), then the bf16 forward per
+    ``[256, 32]`` chunk of every family timed in two turns."""
+    config = dict(MANY, embedding_cache_size=0)
+    rows, encoders = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        roberta = str(roberta_checkpoint(Path(tmp) / "roberta"))
+        write_s = time.perf_counter() - t0
+        for name in FAMILIES:
+            model = roberta if name == "roberta" else name
+            with without_rust_tokenizers() if name == "roberta" else contextlib.nullcontext():
+                rows[name], encoders[name] = run_family(name, model, launches, config)
+            log(f"  family {name} {json.dumps(rows[name])}")
+            torch.cuda.empty_cache()
+        texts = intents_rows("train")[0] + intents_rows("test_base")[0]
+        same = bpe_equals_rust(encoders["roberta"].tokenizer, roberta, texts)
+        rows["roberta"]["bpe_ids_equal_rust_runtime"] = same
+        if same is False:
+            raise AssertionError("phase 14 roberta: the port's BPE and the Rust runtime "
+                                 "tokenize banking's rows differently")
+    r = np.random.default_rng(0)
+    for name in rows:
+        rows[name]["bf16_forward_ms_256x32"] = []
+    for _ in range(2):
+        for name, enc in encoders.items():
+            ids = r.integers(5, enc.config.vocab_size, (256, 32)).astype(np.int32)
+            mask = np.ones((256, 32), np.int32)
+            rows[name]["bf16_forward_ms_256x32"].append(
+                cuda_ms(lambda: enc.embed_ids(ids, mask), iters=10, warmup=2))
+    del encoders
+    torch.cuda.empty_cache()
+    return {"rows": rows, "roberta_write_s": write_s, "tie_margin": TIE_MARGIN, "gpu": gpu}
+
+
+def run_family(name: str, model: str, launches: Launches, config: dict) -> tuple:
+    """One family of phase 14 → (its report row, its bf16 encoder): the
+    launch counts; the B1 families' kernel path against plain attention;
+    the card's bf16 embeddings of 32 rows against the port's float32
+    forward of the same weights on the CPU; int8 through B2 / B3 where the
+    family takes it (the bf16 classifier's state scoring the int8
+    embeddings, as phase 4i loads one checkpoint both ways), a float
+    resolution (no B2) where it does not; save → load for RoBERTa and
+    ModernBERT."""
+    import adaptive_classifier_tpu_torch as port
+    from adaptive_classifier_tpu_torch.models.encoder import Encoder
+
+    run = family_classifier(model, launches, config)
+    clf = run.pop("clf")
+    enc, cfg = clf.encoder, clf.encoder.config
+    row = {"arch": cfg.arch, "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+           "heads": cfg.num_heads, "ffn": cfg.intermediate_size, "vocab": cfg.vocab_size,
+           "tokenizer": type(enc.tokenizer).__name__,
+           **{k: v for k, v in run.items() if k not in ("preds", "test")}}
+    row["launches"] = expect_launches(name, run, cfg, int8=False)
+    if name == "roberta" and row["tokenizer"] != "ByteLevelBPE":
+        raise AssertionError(f"phase 14 roberta: tokenized by {row['tokenizer']}")
+    test_t, sample = run["test"], run["test"][:32]
+    emb = enc.embed(test_t).float()
+    n = emb.shape[0]
+    row["mean_pairwise_cosine"] = ((emb @ emb.T).sum().item() - n) / (n * (n - 1))
+    if cfg.arch in B1_FAMILIES:
+        enc.attn_impl = "einsum"
+        plain_emb = enc.embed(test_t)
+        plain_preds = clf.predict_batch(test_t, k=3)
+        enc.attn_impl = None
+        cos = row_cosines(emb, plain_emb).min().item()
+        agree, decided, agree_all = decided_agreement(plain_preds, run["preds"])
+        row["kernel_vs_plain"] = {"min_cosine": cos, "top1_agreement": agree,
+                                  "decided_rows": decided, "top1_agreement_all_rows": agree_all}
+        if not (cos >= 0.999 and agree >= 0.99):
+            raise AssertionError(f"phase 14 {name}: kernel vs plain attention "
+                                 f"{row['kernel_vs_plain']}")
+    ref = Encoder(model, device="cpu", compute_dtype="float32", seed=clf.seed)
+    ids, mask = enc.tokenizer(sample, max_length=512, pad_to_buckets=enc.SEQ_BUCKETS)
+    row["bf16_vs_cpu_f32_min_cosine"] = row_cosines(
+        enc.embed_ids(ids, mask).float().cpu(), ref.embed_ids(ids, mask)).min().item()
+    del ref
+    if not row["bf16_vs_cpu_f32_min_cosine"] >= 0.99:
+        raise AssertionError(f"phase 14 {name}: bf16 vs CPU f32 {row}")
+    if name in INT8_FAMILIES:
+        r8 = family_classifier(model, launches, {**config, "quantization": "int8"})
+        enc8 = r8.pop("clf").encoder
+        if enc8.quantization != "int8":
+            raise AssertionError(f"phase 14 {name}: int8 resolved to {enc8.quantization}")
+        clf.encoder = enc8
+        preds8 = clf.predict_batch(test_t, k=3)
+        clf.encoder = enc
+        agree8, decided8, all8 = decided_agreement(preds8, run["preds"])
+        row["int8"] = {"launches": expect_launches(name, r8, cfg, int8=True),
+                       "chunks": r8["chunks"],
+                       "min_cosine": row_cosines(enc8.embed(test_t), emb).min().item(),
+                       "top1_agreement": agree8, "decided_rows": decided8,
+                       "top1_agreement_all_rows": all8,
+                       "top1_agreement_own_build": decided_agreement(r8["preds"],
+                                                                     run["preds"])[2],
+                       "top1_accuracy_random_weights": r8["top1_accuracy_random_weights"]}
+        if not (row["int8"]["min_cosine"] > 0.99 and agree8 >= 0.95):
+            raise AssertionError(f"phase 14 {name}: int8 vs bf16 {row['int8']}")
+    else:
+        port.reset_launch_counts()
+        enc8 = Encoder(model, device="cuda", quantization="int8")
+        enc8.embed(sample)
+        torch.cuda.synchronize()
+        row["int8"] = {"resolved": enc8.quantization,
+                       "matmul_int8": port.launch_counts["matmul_int8"]}
+        if row["int8"] != {"resolved": None, "matmul_int8": 0}:
+            raise AssertionError(f"phase 14 {name}: int8 request {row['int8']}")
+    del enc8
+    if name in ("roberta", "answerdotai/ModernBERT-base"):
+        row["save_load"] = family_save_load(clf, run, launches)
+    return row, enc
+
+
+def family_save_load(clf, run: dict, launches: Launches) -> dict:
+    """The classifier saved and loaded back on the card: top-1 agreement
+    >= 0.99 and largest score drift < 0.01 on its test rows."""
+    import adaptive_classifier_tpu_torch as port
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        clf.save(d)
+        save_s = time.perf_counter() - t0
+        back = port.AdaptiveClassifier.load(d, device="cuda")
+    got, counts = launches.run(lambda: back.predict_batch(run["test"], k=3))
+    agree = float(np.mean([a[0][0] == b[0][0] for a, b in zip(got, run["preds"])]))
+    drift = max(abs(s - dict(b)[l]) for a, b in zip(got, run["preds"])
+                for l, s in a if l in dict(b))
+    out = {"top1_agreement": agree, "max_score_drift": drift, "save_s": save_s,
+           "tokenizer": type(back.encoder.tokenizer).__name__}
+    if not (agree >= 0.99 and drift < MAX_SCORE_DRIFT):
+        raise AssertionError(f"phase 14 save/load: {out}")
+    del back
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr, flush=True)
@@ -2485,11 +2810,18 @@ def main() -> int:
     multilabel = run_multilabel(launches, gpu)
     phase_done("13", t0)
 
+    log("phase 14: the other encoder families (DistilBERT, ELECTRA, MPNet, DeBERTa-v3, "
+        "ModernBERT, RoBERTa with its BPE)")
+    t0 = time.perf_counter()
+    families = run_families(launches, gpu)
+    phase_done("14", t0)
+
     log("phase 3b: kernel timing at the main path's shapes")
     t0 = time.perf_counter()
     timings = time_attention({
         **{t: r["shape"] for t, r in runs.items()},
-        "bert-base B=32 S=512": (np.ones((32, 512), np.int32), 12, 64, torch.bfloat16)})
+        "bert-base B=32 S=512": (np.ones((32, 512), np.int32), 12, 64, torch.bfloat16),
+        "ELECTRA-small B=256 S=32": (np.ones((256, 32), np.int32), 4, 64, torch.bfloat16)})
     s7, s8 = p7["shapes"], p8["shapes"]
     knn_times = time_knn({
         "knn_sims": {
@@ -2511,7 +2843,9 @@ def main() -> int:
     flash_times = time_flash({
         **{f"{t} chunk": r["shape"] for t, r in runs.items()},
         "bert-base B=32 S=512": (np.ones((32, 512), np.int32), 12, 64, torch.bfloat16)})
-    ln_times = time_layernorm({f"{t} chunk": r["chunk_rows"] for t, r in fused_ln.items()})
+    ln_times = time_layernorm({**{f"{t} chunk": r["chunk_rows"] for t, r in fused_ln.items()},
+                               "ELECTRA-small chunk": (8192, 256),
+                               "bert-base-width family chunk": (8192, 768)})
     phase_done("3b", t0)
     del p7, p8
     torch.cuda.empty_cache()
@@ -2679,6 +3013,12 @@ def main() -> int:
         "12": {pool: documents[pool]["top1"] for pool in POOLS},
         "13": {k: multilabel[k] for k in ("micro_f1", "exact_set_accuracy",
                                           "add_examples_s")}}))
+    log("  encoder families: bf16 forward ms per [256, 32] chunk (two turns), tokenizer, "
+        "min cosine kernel vs plain / bf16 vs CPU f32 / int8 vs bf16 " + json.dumps({
+            name: [r["bf16_forward_ms_256x32"], r["tokenizer"],
+                   r.get("kernel_vs_plain", {}).get("min_cosine"),
+                   r["bf16_vs_cpu_f32_min_cosine"], r["int8"].get("min_cosine")]
+            for name, r in families["rows"].items()}))
     log(f"  phase 6i resolved {json.dumps(build_int8['resolved'])} zoo "
         f"{json.dumps(build_int8['zoo'])} top-1 {build_int8['top1_accuracy']}")
     log(gpu)

@@ -54,6 +54,9 @@ def _inputs(dev, seed, dtype, B, S, H, Dh, masked_row=None):
     (torch.bfloat16, 256, 64, 8, 64),
     (torch.bfloat16, 8, 512, 8, 64),
     (torch.bfloat16, 5, 40, 6, 32),
+    # ELECTRA-small's width: D 256, 4 heads of 64
+    (torch.bfloat16, 256, 32, 4, 64),
+    (torch.float32, 8, 128, 4, 64),
 ])
 def test_attention_kernel_matches_plain(cuda, dtype, B, S, H, Dh):
     qkv, mask = _inputs(cuda, 0, dtype, B, S, H, Dh)
@@ -949,7 +952,10 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
 
 _LN_CASES = [(torch.float32, 8192, 512), (torch.bfloat16, 32768, 512),
              (torch.bfloat16, 1000, 512), (torch.float32, 333, 768),
-             (torch.bfloat16, 64, 128)]
+             (torch.bfloat16, 64, 128),
+             # ELECTRA-small's D 256 and DeBERTa-v3-xsmall's D 384
+             (torch.bfloat16, 8192, 256), (torch.bfloat16, 8192, 384),
+             (torch.float32, 1000, 384)]
 
 
 def _bf16_step(w):
@@ -1262,3 +1268,30 @@ def test_launch_counts_stay_exact_under_two_threads(cuda):
         t.join(timeout=300)
     torch.cuda.synchronize()
     assert port.launch_counts["knn_sims"] == 2 * n
+
+
+@pytest.mark.parametrize("name,kernels", [
+    ("distilbert-base-uncased", {"attention_qkv": 6, "add_layer_norm": 12}),
+    ("answerdotai/ModernBERT-base", {"attention_qkv": 0, "add_layer_norm": 0}),
+])
+def test_family_forward_on_the_gpu_matches_the_cpu(cuda, monkeypatch, name, kernels):
+    """An offline family encoder's bf16 forward on the card (DistilBERT
+    through B1 and B10, ModernBERT in plain torch) against the port's
+    float32 forward of the same weights on the CPU: every embedding within
+    cosine 0.99 (bf16 against f32), the kernels launched once per layer
+    (B1) and twice (B10), or never."""
+    from adaptive_classifier_tpu_torch.models.encoder import Encoder
+
+    monkeypatch.delenv("AC_ATTN_IMPL", raising=False)
+    enc = Encoder(name, device="cuda")
+    ref = Encoder(name, device="cpu", compute_dtype="float32")
+    data = json.loads((REPO / "data/intents.json").read_text())
+    texts = [t for rows in data["test"].values() for t in rows][:16]
+    ids, mask = enc.tokenizer(texts, max_length=512, pad_to_buckets=enc.SEQ_BUCKETS)
+    port.reset_launch_counts()
+    got = enc.embed_ids(ids, mask)
+    torch.cuda.synchronize()
+    assert {k: port.launch_counts[k] for k in kernels} == kernels
+    want = ref.embed_ids(ids, mask)
+    cos = torch.nn.functional.cosine_similarity(got.float().cpu(), want, dim=1)
+    assert cos.min().item() >= 0.99, cos
