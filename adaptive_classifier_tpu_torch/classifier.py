@@ -5,9 +5,10 @@ with ridge and MLP heads (the first batch, and later batches with new
 classes), ``save``, ``load`` and ``from_pretrained`` (a local directory),
 ``predict_batch``, ``predict``, ``predict_proba`` (temperature-calibrated
 after ``calibrate``), ``predict_document`` for texts longer than the
-encoder window, the robust / strategic entry points (which answer as
-``predict`` does: strategic mode is not ported), and the memory's editing
-surface (``clear_memory``, ``merge_classifiers``).  Texts are tokenized
+encoder window, strategic mode (``enable_strategic_mode``: the robust,
+strategic and dual predictions, the strategic-aware ridge refit, and
+``evaluate_strategic_robustness``; ``strategic.py``), and the memory's
+editing surface (``clear_memory``, ``merge_classifiers``).  Texts are tokenized
 (and, with the lexical channel on, hashed into TF-IDF features) on the
 host; the encoder forward, channel composition, prototype similarities,
 head logits and fusion run on the device, and one packed ``[N, 2k]`` block
@@ -34,6 +35,7 @@ ahead of any gather of it.  ``add_examples`` must not run beside a predict
 from __future__ import annotations
 
 import contextlib
+import logging
 import math
 import threading
 from pathlib import Path
@@ -51,6 +53,14 @@ from .models import head as head_lib
 from .models.encoder import Encoder
 from .models.head import HeadParams
 from .ops import fusion, kmeans
+from .strategic import (
+    CostFunctionFactory,
+    StrategicCostFunction,
+    StrategicEvaluator,
+    StrategicOptimizer,
+)
+
+logger = logging.getLogger(__name__)
 
 Predictions = List[List[Tuple[str, float]]]
 
@@ -74,8 +84,6 @@ class AdaptiveClassifier:
         encoder: Optional[Encoder] = None,
     ):
         self.config = ModelConfig(config)
-        if self.config.enable_strategic_mode:
-            raise NotImplementedError("strategic mode comes with a later slice")
         self.model_name = model_name
         self.seed = seed
         self.device = resolve_device(device)
@@ -119,6 +127,13 @@ class AdaptiveClassifier:
         self._emb_cache = None
         self._dev_cache = None
         self._cache_lock = threading.Lock()
+        #: strategic mode's parts; None unless enable_strategic_mode with
+        #: cost coefficients
+        self.strategic_cost_function: Optional[StrategicCostFunction] = None
+        self.strategic_optimizer: Optional[StrategicOptimizer] = None
+        self.strategic_evaluator: Optional[StrategicEvaluator] = None
+        if self.config.enable_strategic_mode:
+            self._initialize_strategic_components()
 
     @classmethod
     def load(cls, save_dir: Union[str, Path],
@@ -151,8 +166,7 @@ class AdaptiveClassifier:
 
     @property
     def strategic_mode(self) -> bool:
-        """Always false: the constructor refuses ``enable_strategic_mode``."""
-        return False
+        return self.config.enable_strategic_mode and self.strategic_cost_function is not None
 
     def enable_profiling(self):
         """Attach stage timers (``tokenize``, ``encoder_forward``,
@@ -387,6 +401,9 @@ class AdaptiveClassifier:
             elif new_classes:
                 self._ensure_head_capacity()
             self._train_adaptive_head()
+            if self.strategic_mode and \
+                    self.train_steps % self.config.strategic_training_frequency == 0:
+                self._perform_strategic_training()
 
     @staticmethod
     def _typo_variant(text: str, seed: int) -> str:
@@ -487,6 +504,11 @@ class AdaptiveClassifier:
             self.head_params = training.ridge_head_params(
                 emb, lbl, valid, self._class_capacity, lam=self.config.ridge_lambda,
                 keep_from=self.head_params, sample_weight=row_weight)
+            if self.strategic_mode and self.config.strategic_ridge_rounds > 0:
+                # the strategic defense is part of the closed-form refit, so
+                # every later refit rebuilds it
+                self.head_params = self._strategic_ridge_refit(
+                    emb, lbl, valid, base_weight=row_weight)
         else:
             self.last_fit = training.fit_head(
                 self.head_params, emb, lbl, valid, self._active_mask(),
@@ -523,6 +545,84 @@ class AdaptiveClassifier:
         w2 = torch.ones((cap2,), device=dev)
         w2[n:n + m] = self.config.head_typo_weight
         return e2, l2, torch.arange(cap2, device=dev) < (n + m), w2
+
+    def _strategic_ridge_refit(self, emb, lbl, valid,
+                               base_weight: Optional[torch.Tensor] = None) -> HeadParams:
+        """The strategic-aware closed-form ridge fit.
+
+        The attacker's reachable set is the candidate sweep, and a move never
+        changes the true label.  So the solve first takes, besides the real
+        rows, every extreme (±2.0) sweep move of a class-stratified subsample
+        of at most 128 rows, labelled as its row and weighted
+        ``strategic_ridge_ext_weight`` (the real rows keep ``base_weight``).
+        Then, up to ``strategic_ridge_rounds`` times: the best response of
+        every real row against the solved head, and if any flips its
+        argmax, a re-solve with those points added under their true labels
+        (every row at weight 1 in these solves, as the JAX package solves
+        them).  The rounds stop at the first with no flip."""
+        cost_fn = self.strategic_cost_function
+        rounds = self.config.strategic_ridge_rounds
+        cap = self._class_capacity
+        lam = self.config.ridge_lambda
+        D = emb.shape[1]
+        dev = emb.device
+        n = int(valid.sum())
+        if n == 0:
+            return self.head_params
+        x = emb[:n].to(torch.float32)        # valid rows are front-sorted
+        y = lbl[:n]
+        y_np = y.cpu().numpy()
+
+        # the action-space block: each extreme move of each subsampled row
+        K = cost_fn.num_candidates
+        n_sweep = min(K - 1, D * 10)
+        deltas = np.linspace(-2.0, 2.0, 10)
+        moves = [(j // 10, float(deltas[j % 10])) for j in range(n_sweep)
+                 if abs(deltas[j % 10]) == 2.0]
+        n_ext = len(moves)
+        per_move = min(n, 128)
+        sub = np.arange(n)
+        if n > per_move:
+            order = np.argsort(y_np, kind="stable")   # class-interleaved
+            sub = np.sort(order[np.linspace(0, n - 1, per_move).astype(int)])
+        sub_t = torch.from_numpy(sub).to(dev)
+        ext = x[sub_t].repeat(n_ext, 1)
+        for i, (feat, dval) in enumerate(moves):
+            ext[i * per_move:(i + 1) * per_move, feat] += dval
+        ext_lbl = y[sub_t].repeat(n_ext)
+
+        n_aug = n + per_move * n_ext
+        cap_aug = self.config.train_capacity(n_aug + n * rounds)
+        e_aug = torch.zeros((cap_aug, D), device=dev)
+        e_aug[:n], e_aug[n:n_aug] = x, ext
+        l_aug = torch.zeros((cap_aug,), dtype=lbl.dtype, device=dev)
+        l_aug[:n], l_aug[n:n_aug] = y, ext_lbl
+        w_aug = torch.ones((cap_aug,), device=dev)
+        w_aug[n:n_aug] = self.config.strategic_ridge_ext_weight
+        if base_weight is not None:
+            w_aug[:n] = base_weight[:n]
+        filled = n_aug
+        rows = torch.arange(cap_aug, device=dev)
+        params = training.ridge_head_params(
+            e_aug, l_aug, rows < filled, cap, lam=lam, keep_from=self.head_params,
+            sample_weight=w_aug)
+
+        # best-response rounds on top
+        y_dev = y.to(torch.int64)
+        for r in range(rounds):
+            logits_fn = self._masked_logits_fn(params)
+            br = cost_fn.compute_best_response_chunked(
+                x, lambda z: torch.softmax(logits_fn(z), dim=-1),
+                generator=self._generator(r))
+            flips = int((torch.argmax(logits_fn(br), dim=-1) != y_dev).sum())
+            if flips == 0:
+                break
+            e_aug[filled:filled + n] = br
+            l_aug[filled:filled + n] = y
+            filled += n
+            params = training.ridge_head_params(
+                e_aug, l_aug, rows < filled, cap, lam=lam, keep_from=params)
+        return params
 
     def _fit_fusion_alpha(self, emb, lbl, valid):
         """Fit the prototype/head fusion share on a 2-fold split of the
@@ -748,9 +848,12 @@ class AdaptiveClassifier:
     # ------------------------------------------------------------------
     def predict(self, text: str, k: int = 5) -> List[Tuple[str, float]]:
         """Top-k labels for one text, with the full-distribution fusion of
-        the JAX package's ``predict`` (per-label history weights)."""
+        the JAX package's ``predict`` (per-label history weights); in
+        strategic mode the dual blend (``_predict_dual_batch``)."""
         if not text:
             raise ValueError("Empty input text")
+        if self.strategic_mode:
+            return self._predict_dual_batch([text], k)[0]
         return self._predict_regular_batch([text], k)[0]
 
     def _predict_regular_batch(self, texts: List[str], k: int) -> Predictions:
@@ -874,10 +977,17 @@ class AdaptiveClassifier:
     def _predict_from_embeddings_batch(self, embs, k: int = 5, robust: bool = False,
                                        strategic: bool = False) -> Predictions:
         """Top-k fusion of ``[B, D]`` embeddings (host arrays or tensors) at
-        the config's ``prototype_weight`` / ``neural_weight`` (the robust
-        and strategic weights apply in strategic mode only, which is not
-        ported), with the recalibration bias."""
-        pw, hw = self.config.prototype_weight, self.config.neural_weight
+        the config's ``prototype_weight`` / ``neural_weight``, or in
+        strategic mode its robust or strategic weights, with the
+        recalibration bias."""
+        if self.strategic_mode and robust:
+            pw = self.config.strategic_robust_proto_weight
+            hw = self.config.strategic_robust_head_weight
+        elif self.strategic_mode and strategic:
+            pw = self.config.strategic_prediction_proto_weight
+            hw = self.config.strategic_prediction_head_weight
+        else:
+            pw, hw = self.config.prototype_weight, self.config.neural_weight
         if not isinstance(embs, torch.Tensor):
             embs = torch.tensor(np.asarray(embs, np.float32))
         emb = embs.to(self.device, torch.float32)
@@ -895,19 +1005,82 @@ class AdaptiveClassifier:
                  if i >= 0 and int(i) in id2l][:k]
                 for srow, irow in zip(scores_np, ids_np)]
 
-    # the strategic entry points: strategic mode is not ported, and without
-    # it the JAX package answers each of them as predict does
+    # ------------------------------------------------------------------
+    # strategic mode
+    # ------------------------------------------------------------------
+    def _initialize_strategic_components(self):
+        """The cost function, optimizer and evaluator from the config.
+        Without coefficients strategic mode stays off with a warning; a
+        cost configuration the factory refuses (``ValueError``) turns it off
+        with an error, as the JAX package does."""
+        if not self.config.cost_coefficients:
+            logger.warning("Strategic mode enabled but no cost coefficients provided")
+            return
+        try:
+            cost_fn = CostFunctionFactory.create_cost_function(
+                cost_type=self.config.cost_function_type,
+                cost_coefficients=self.config.cost_coefficients)
+        except ValueError as e:
+            logger.error(f"Failed to initialize strategic components: {e}")
+            self.config.enable_strategic_mode = False
+            return
+        cost_fn.num_candidates = self.config.strategic_num_candidates
+        self.strategic_cost_function = cost_fn
+        self.strategic_optimizer = StrategicOptimizer(cost_fn)
+        self.strategic_evaluator = StrategicEvaluator(cost_fn)
+
+    def _classifier_probs_fn(self) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The head's softmax over the active classes (inactive slots at the
+        masked logit), or uniform over them without a head."""
+        active = self._active_mask()
+        if self.head_params is None:
+            n = max(len(self.label_to_id), 1)
+            uniform = active.to(torch.float32) / n
+            return lambda x: uniform[None, :].expand(x.shape[0], -1)
+        logits_fn = self._masked_logits_fn()
+        return lambda x: torch.softmax(logits_fn(x), dim=-1)
+
+    def _masked_logits_fn(self, params: Optional[HeadParams] = None
+                          ) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The head's eval-mode logits, inactive slots at ``NEG_INF``."""
+        active = self._active_mask()
+        params = params if params is not None else self.head_params
+
+        def f(x):
+            logits = head_lib.head_forward(params, x)
+            return torch.where(active[None, :], logits,
+                               torch.full_like(logits, head_lib.NEG_INF))
+
+        return f
+
     def predict_robust(self, text: str, k: int = 5) -> List[Tuple[str, float]]:
+        """Prototype-heavy prediction for inputs that may be manipulated."""
         return self.predict_robust_batch([text], k)[0]
 
     def predict_strategic(self, text: str, k: int = 5) -> List[Tuple[str, float]]:
+        """Prediction on the input's simulated best response."""
         return self.predict_strategic_batch([text], k)[0]
 
-    def predict_robust_batch(self, texts: List[str], k: int = 5) -> Predictions:
-        return self._predict_regular_batch(texts, k)
-
     def predict_strategic_batch(self, texts: List[str], k: int = 5) -> Predictions:
-        return self._predict_regular_batch(texts, k)
+        """The best response of every text's embedding against the head (one
+        candidate sweep per chunk of rows), scored at the strategic fusion
+        weights; ``predict`` without strategic mode.  An error on the device
+        propagates (the JAX package answers with the regular path instead)."""
+        if not self.strategic_mode:
+            return self._predict_regular_batch(texts, k)
+        with torch.inference_mode():
+            emb = self._embed_device(texts)
+            br = self.strategic_cost_function.compute_best_response_chunked(
+                emb, self._classifier_probs_fn(), generator=self._next_generator())
+        return self._predict_from_embeddings_batch(br, k, strategic=True)
+
+    def predict_robust_batch(self, texts: List[str], k: int = 5) -> Predictions:
+        """The texts' embeddings scored at the robust (prototype-heavy)
+        fusion weights; ``predict`` without strategic mode.  An error on the
+        device propagates."""
+        if not self.strategic_mode:
+            return self._predict_regular_batch(texts, k)
+        return self._predict_from_embeddings_batch(self._embed_device(texts), k, robust=True)
 
     @staticmethod
     def _blend_dual(regular, strategic, rw: float, sw: float, k: int):
@@ -930,6 +1103,87 @@ class AdaptiveClassifier:
         rw = self.config.strategic_blend_regular_weight
         sw = self.config.strategic_blend_strategic_weight
         return [self._blend_dual(r, s, rw, sw, k) for r, s in zip(regular, strategic)]
+
+    def _perform_strategic_training(self):
+        """The periodic strategic pass over every stored example.  A no-op
+        for a ridge head, whose every refit already holds the defense
+        (``_strategic_ridge_refit``); an MLP head takes
+        ``_strategic_training_step``."""
+        if not self.strategic_mode or self.head_params is None:
+            return
+        if self.config.head_type == "ridge":
+            return
+        n_total = sum(len(t) for t in self.memory.texts.values())
+        if n_total == 0:
+            return
+        n_cap = self.config.train_capacity(n_total)
+        emb, lbl, valid = gather_training_set(self.memory.state, n_cap)
+        self.head_params = self._strategic_training_step(emb, lbl, valid)
+
+    def _strategic_shuffle_seed(self) -> int:
+        """The seed of the strategic pass's row shuffles, drawn from the
+        classifier's own stream, so successive passes shuffle differently."""
+        g = self._next_generator()
+        return int(torch.randint(0, np.iinfo(np.int32).max, (1,), generator=g,
+                                 device=g.device).item())
+
+    def _strategic_training_step(self, emb, labels, valid) -> HeadParams:
+        """5 epochs of batches of 16 (the tail batch padded by repeating
+        rows) under the strategic loss, AdamW at half the learning rate,
+        gradients clipped to norm 1; the shuffles come from
+        ``np.random.default_rng(_strategic_shuffle_seed())``."""
+        params = training.tree_map(lambda p: p.detach().clone(), self.head_params)
+        opt = training.adamw_init(params)
+        lr = self.config.learning_rate * 0.5
+        lam = self.config.strategic_lambda
+        optimizer = self.strategic_optimizer
+        active = self._active_mask()
+        bs = 16
+        n = int(valid.sum())
+        x_all, y_all = emb[:n], labels[:n]
+        rng = np.random.default_rng(self._strategic_shuffle_seed())
+        for _ in range(5):
+            order = rng.permutation(n)
+            for s in range(0, n, bs):
+                idx = order[s:s + bs]
+                if len(idx) == 0:
+                    continue
+                if len(idx) < bs:       # the tail batch at a fixed shape
+                    idx = np.resize(idx, bs)
+                rows = torch.from_numpy(idx).to(emb.device)
+                x, y = x_all[rows], y_all[rows]
+                leaves = training.tree_leaves(params)
+                for p in leaves:
+                    p.requires_grad_(True)
+                with torch.enable_grad():
+                    def forward(z, p_=params):
+                        lg = head_lib.head_forward(p_, z)
+                        return torch.where(active[None, :], lg,
+                                           torch.full_like(lg, head_lib.NEG_INF))
+
+                    loss = optimizer.strategic_loss(forward, x, y, lam,
+                                                    self._next_generator())
+                    grads = torch.autograd.grad(loss, leaves)
+                for p in leaves:
+                    p.requires_grad_(False)
+                by_leaf = {id(p): g for p, g in zip(leaves, grads)}
+                grads = training.clip_global_norm(
+                    training.tree_map(lambda p: by_leaf[id(p)], params), 1.0)
+                params, opt = training.adamw_update(params, grads, opt, lr)
+        return params
+
+    def evaluate_strategic_robustness(self, test_texts: List[str], test_labels: List[str],
+                                      gaming_levels: List[float] = [0.0, 0.5, 1.0]
+                                      ) -> Dict[str, float]:
+        """Accuracy of the head under simulated gaming at each level
+        (``StrategicEvaluator.evaluate_robustness``)."""
+        if not self.strategic_mode:
+            raise ValueError("Strategic mode not enabled")
+        emb = self._embed_device(test_texts)
+        labels = torch.tensor([self.label_to_id[l] for l in test_labels], device=self.device)
+        return self.strategic_evaluator.evaluate_robustness(
+            self._masked_logits_fn(), emb, labels, gaming_levels,
+            generator=self._next_generator())
 
     def predict_proba(self, texts: Union[str, List[str]], calibrated: bool = False
                       ) -> Tuple[np.ndarray, List[str]]:

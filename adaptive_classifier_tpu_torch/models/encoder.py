@@ -1053,7 +1053,9 @@ class Encoder:
         forward ignores it), else ``self.attn_impl`` if set, else
         ``AC_ATTN_IMPL`` if set (the JAX package's override), else plain
         torch on the CPU; on the GPU the flash kernel (B6) from 1,024 tokens
-        and the packed-QKV kernel (B1) below, inside its envelope."""
+        and the packed-QKV kernel (B1) below, inside its envelope (head_dim
+        <= 128, head_dim % 8 == 0, S % 8 == 0).  Outside it the plain
+        attention runs, as the JAX package's plain ``jnp`` path does there."""
         if self.config.arch in OWN_ATTENTION_ARCHS:
             return "einsum"
         if self.attn_impl is not None:
@@ -1067,9 +1069,7 @@ class Encoder:
             return "flash"
         dh = self.config.head_dim
         if dh > 128 or dh % 8 or seq_len % 8:
-            raise NotImplementedError(
-                f"head_dim={dh}, S={seq_len} is outside the packed-QKV kernel's "
-                f"envelope (head_dim <= 128, head_dim % 8 == 0, S % 8 == 0)")
+            return "einsum"
         return "fusedqkv"
 
     def embed_ids(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:

@@ -3,8 +3,10 @@
 Counterpart of ``adaptive_classifier_tpu/models/tokenizer.py``: BERT's
 basic + WordPiece algorithm over a local checkpoint's ``vocab.txt`` or the
 built-in offline vocabulary (``hermetic``), padded to sequence-length
-buckets.  Pure Python; the binding to the optional C++
-library under ``native/`` comes with a later slice of the port.
+buckets.  A batch's ASCII texts go through the C++ library under
+``native/`` (``native.NativeWordPiece``, built at first use), the others
+through the Python code here; the ids are the same either way.  Without a
+C++ compiler every text takes the Python path.
 """
 
 from __future__ import annotations
@@ -66,6 +68,22 @@ class WordPieceTokenizer:
         self.cls_id = vocab[cls_token]
         self.sep_id = vocab[sep_token]
         self.pad_id = vocab[pad_token]
+        #: the C++ path (built lazily); it knows only the default specials
+        #: and word limit
+        self._native = None
+        self._native_tried = (unk_token, cls_token, sep_token, max_input_chars_per_word) \
+            != ("[UNK]", "[CLS]", "[SEP]", 100)
+
+    def _get_native(self):
+        """The ``NativeWordPiece`` of this vocabulary, or None where the
+        library cannot be built."""
+        if not self._native_tried:
+            self._native_tried = True
+            from .. import native
+
+            if native.native_available():
+                self._native = native.NativeWordPiece(self.vocab, self.do_lower_case)
+        return self._native
 
     @classmethod
     def from_pretrained(cls, path: str) -> "WordPieceTokenizer":
@@ -224,9 +242,20 @@ class WordPieceTokenizer:
         pad_to_buckets: Optional[Sequence[int]] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Batch-encode to padded int32 ``(input_ids, attention_mask)``,
-        padded to the batch's longest row rounded up into a bucket."""
-        return pad_batch([self.encode(t, max_length=max_length) for t in texts],
-                         self.pad_id, max_length, pad_to_buckets)
+        padded to the batch's longest row rounded up into a bucket.  ASCII
+        texts are encoded by the C++ library in one call, the others here."""
+        encoded: List[Optional[List[int]]] = [None] * len(texts)
+        native = self._get_native() if max_length >= 2 else None
+        if native is not None:
+            rows = [i for i, t in enumerate(texts) if t.isascii()]
+            if rows:
+                ids, lens = native.encode_batch([texts[i] for i in rows], max_length)
+                for j, i in enumerate(rows):
+                    encoded[i] = ids[j, :lens[j]].tolist()
+        for i, e in enumerate(encoded):
+            if e is None:
+                encoded[i] = self.encode(texts[i], max_length=max_length)
+        return pad_batch(encoded, self.pad_id, max_length, pad_to_buckets)
 
     @property
     def vocab_size(self) -> int:

@@ -16,9 +16,10 @@ and resolve every request's future.
   admission, so the queue cannot grow without bound.
 - **multi-tenancy**: ``MultiTenantServer`` serves several classifiers on
   one device behind one queue; a batch never mixes models.
-- **predict modes**: ``regular`` (``predict_batch``), ``robust``,
-  ``strategic`` and ``dual``; without strategic mode, which is not ported,
-  the last three answer as ``predict`` does.
+- **predict modes**: ``regular`` (``predict_batch``), ``robust``
+  (``predict_robust_batch``), ``strategic`` (``predict_strategic_batch``)
+  and ``dual`` (``_predict_dual_batch``); without strategic mode the last
+  three answer as ``predict`` does.
 
 While one worker waits on the device, another collects, tokenizes and
 fans out results.  Every worker launches on the device's current stream,

@@ -39,7 +39,12 @@ Phases, each of which must pass:
    and top-1 agreement with the plain attention; the bf16 forward of one
    chunk timed with the parent commit's linear layers and the current ones
    in turns; the ten kernels with the most device time in one
-   hallucination-detector chunk's forward (``torch.profiler``);
+   hallucination-detector chunk's forward (``torch.profiler``); the C++
+   WordPiece tokenizer (``native/*.cpp``, built with g++ at first use): its
+   build, the rows it encoded on each task's ``predict_batch`` (> 0, every
+   ASCII text), its ids and masks equal to the Python WordPiece's on every
+   data/*.json text, and the host's tokenization and ``lexical.transform``
+   timed apart;
 4i. serves the same classifiers with ``quantization: "int8"``: B2, B3 and
    B1 once per layer per chunk, every embedding within cosine 0.99 of the
    bf16 forward's, accuracy >= manifest - 0.03, top-1 agreement >= 0.95
@@ -76,9 +81,26 @@ Phases, each of which must pass:
    lossy replay store): the frozen-probe branch, the old classes' head
    logits bit for bit (``torch.equal``), old-class top-1 drop <= the JAX
    package's on the CPU + 0.03;
+6t. strategic mode on the production config at full width (embedding
+   512 + 32,768): a regular classifier takes data/sentiment.json's 659 train
+   rows in one add, a strategic one (linear cost 0.15 a feature) in
+   scripts/eval_strategic.py's chunks, each add running the strategic ridge
+   refit; the clean and attacked test rows' top-1 (regular, dual, robust)
+   and the gaming accuracy at 0.0 / 0.5 / 1.0 for both; the clean top-1s,
+   the accuracy at 0.0 and 1.0 and the robustness score within 0.03 of the
+   JAX package's on the CPU (scripts/jax_reference_strategic.py); B1 and
+   B10 on every add, prediction and evaluation;
 7. grows a 1,024-class classifier (960 + 64 classes): kernel B4 carries
    the recalibration and every ``predict_batch`` chunk, with top-1
    agreement >= 0.99 against the plain versions on the same embeddings;
+7t. the same 1,024-class set with strategic mode: B4 launched by
+   ``predict_strategic_batch`` and ``predict_robust_batch`` on 256 queries;
+   the port's own recomputation on CPU copies of the embeddings and head:
+   every candidate's utility within 1e-3 of the median best utility, the
+   same best response on >= 0.99 of the rows that lead their runner-up by
+   more than twice the largest utility difference, the card's pick a CPU
+   best response within that margin on >= 0.99 of rows, and the strategic
+   top-1 equal on >= 0.99 (the all-row share of equal candidates reported);
 8. builds a 16,384-class classifier: kernel B5 carries ``predict_batch``
    (agreement >= 0.99 with the plain path), B4 ``predict`` and
    ``predict_proba``;
@@ -104,7 +126,10 @@ Phases, each of which must pass:
    (d) phase 7's 2,048 queries to its 1,024-class classifier through a
    2-worker server: top-1 agreement >= 0.99 with phase 7, B4 on every
    served batch.  Requests/s, p50 and p99 latency and the mean batch are
-   reported for each;
+   reported for each; (e) the 6t strategic classifier serves its 200 clean
+   rows in the ``robust``, ``strategic`` and ``dual`` modes from 8 threads:
+   top-1 agreement >= 0.99 and scores within 1e-3 of the direct calls, B1
+   and B10 launched;
 11. ``calibrate`` on hallucination-detector's even test rows (T, NLL and
    ECE before and after), ``predict_proba(calibrated=True)`` on the odd
    ones summing to 1 within 1e-5; the card's temperature within one step
@@ -157,8 +182,9 @@ Phases, each of which must pass:
 5. prints the ``kernels`` JSON line, then as its last line
    ``{"ok": true, "device": {...}}``.
 
-Each phase prints its seconds; phases 4, 4i, 4a, 6, 6i, 6m, 6s, 6l, 7, 8, 9,
-10-13 and 14 zero the launch counts just before each step and read them just after.
+Each phase prints its seconds; phases 4, 4i, 4a, 6, 6i, 6m, 6s, 6l, 6t, 7, 7t,
+8, 9, 10-13 and 14 zero the launch counts just before each step and read them
+just after.
 Timings of ``predict_batch`` (phases 4, 4i and 8) are cold, the embedding
 caches cleared before each call, so that every call runs the encoder; a
 warm figure, served from the device cache, is printed beside them under
@@ -1090,12 +1116,21 @@ def run_task(task: str, manifest: dict, gpu: str) -> dict:
     n_chunks = math.ceil(len(texts) / chunk)
     layers = cfg.pool_layer if 0 < cfg.pool_layer < cfg.num_layers else cfg.num_layers
 
-    # the main path, with the launch counts zeroed just before and read just after
+    # the main path, with the launch counts (and the C++ tokenizer's encode
+    # counts) zeroed just before and read just after
+    from adaptive_classifier_tpu_torch import native
+
     port.reset_launch_counts()
+    native.reset_encode_counts()
     t0 = time.perf_counter()
     preds = clf.predict_batch(texts, k=1)
     first_s = time.perf_counter() - t0
     launches = dict(port.launch_counts)
+    native_rows = native.encode_counts["rows"]
+    n_ascii = sum(t.isascii() for t in texts)
+    if not native_rows >= n_ascii > 0:
+        raise AssertionError(f"{task}: the C++ tokenizer encoded {native_rows} rows of "
+                             f"{n_ascii} ASCII texts ({native.BuildInfo.error})")
 
     if launches["attention_qkv"] != layers * n_chunks:
         raise AssertionError(f"{task}: attention kernel launched "
@@ -1119,11 +1154,32 @@ def run_task(task: str, manifest: dict, gpu: str) -> dict:
     batch_s = predict_batch_seconds(clf, texts, k=1)
     warm_s = predict_batch_seconds(clf, texts, k=1, cold=False)
 
-    # host share: tokenization and lexical features of the same chunks
+    # host share: tokenization and lexical features of the same chunks, then
+    # each alone (tokenization through the C++ library, then in Python)
     t0 = time.perf_counter()
     for s in range(0, len(texts), chunk):
         clf._tokenize_chunk(texts[s:s + chunk], chunk)
     host_s = time.perf_counter() - t0
+    padded = [texts[s:s + chunk] + [""] * max(0, chunk - len(texts[s:s + chunk]))
+              for s in range(0, len(texts), chunk)]
+    tok = clf.encoder.tokenizer
+    python_tok = type(tok)(tok.vocab, do_lower_case=tok.do_lower_case)
+    python_tok._native_tried = True
+    host_split = {}
+    for name, fn in (
+            ("tokenize", lambda part: tok(part, max_length=clf.config.max_length,
+                                          pad_to_buckets=clf.encoder.SEQ_BUCKETS)),
+            ("tokenize_python", lambda part: python_tok(
+                part, max_length=clf.config.max_length,
+                pad_to_buckets=clf.encoder.SEQ_BUCKETS)),
+            ("lexical_transform", (lambda part: clf.lexical.transform(part))
+             if clf.lexical is not None else None)):
+        if fn is None:
+            continue
+        t0 = time.perf_counter()
+        for part in padded:
+            fn(part)
+        host_split[name] = (time.perf_counter() - t0) * 1e3
     ids, mask = clf.encoder.tokenizer(
         texts[:chunk] + [""] * max(0, chunk - len(texts)),
         max_length=clf.config.max_length, pad_to_buckets=clf.encoder.SEQ_BUCKETS)
@@ -1162,11 +1218,21 @@ def run_task(task: str, manifest: dict, gpu: str) -> dict:
            "requests_per_s": len(texts) / batch_s,
            "predict_batch_ms_warm_cache": warm_s * 1e3,
            "host_tokenize_lexical_ms": host_s * 1e3,
+           "host_tokenize_ms": host_split["tokenize"],
+           "host_tokenize_python_ms": host_split["tokenize_python"],
+           "host_lexical_transform_ms": host_split.get("lexical_transform"),
+           "native_encoded_rows": native_rows, "ascii_texts": n_ascii,
            "encoder_forward_ms": encoder_ms,
            "encoder_forward_ms_parent_vs_current_linear": linear_ab, "gpu": gpu}
     if ops is not None:
         out["encoder_forward_top_device_ops"] = ops
     log(f"  task {json.dumps(out)}")
+    log(f"  {task} host tokenization {host_split['tokenize']:.2f} ms "
+        f"(C++ library, {native_rows} rows of {len(texts)} encoded there; Python alone "
+        f"{host_split['tokenize_python']:.2f} ms)")
+    log(f"  {task} host lexical.transform "
+        + (f"{host_split['lexical_transform']:.2f} ms" if "lexical_transform" in host_split
+           else "(no lexical channel)"))
     shape = (mask, cfg.num_heads, cfg.head_dim, clf.encoder.compute_dtype)
     del clf
     torch.cuda.empty_cache()
@@ -1944,9 +2010,9 @@ POOLS = ("mean", "max", "vote")
 
 
 def serve(server, texts, k: int = 3, clients: int = 8, seed: int = 0, model=None,
-          mid_stream=None, timeout: float = 300.0) -> dict:
+          mid_stream=None, timeout: float = 300.0, mode: str = "regular") -> dict:
     """``texts`` submitted in a seeded shuffled order from ``clients``
-    threads; ``mid_stream()`` (a submission of its own) is called once half
+    threads, in predict ``mode``; ``mid_stream()`` (a submission of its own) is called once half
     the requests are in.  Every future is waited on with a timeout, so an
     exception or a hang fails the phase.  → answers in ``texts`` order,
     per-request latencies, wall seconds, the server's batch figures for
@@ -1965,7 +2031,7 @@ def serve(server, texts, k: int = 3, clients: int = 8, seed: int = 0, model=None
             for i in idx:
                 t0 = time.perf_counter()
                 kw = {"model": model} if model else {}
-                fut = server.submit_predict(texts[i], k=k, **kw)
+                fut = server.submit_predict(texts[i], k=k, mode=mode, **kw)
                 fut.add_done_callback(
                     lambda f, i=i, t0=t0: latency.__setitem__(i, time.perf_counter() - t0))
                 pending.append((i, fut))
@@ -2665,6 +2731,401 @@ def family_save_load(clf, run: dict, launches: Launches) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4's C++ tokenizer check; phases 6t, 7t, 10e: strategic mode
+# ---------------------------------------------------------------------------
+
+def data_texts() -> list:
+    """Every text of data/*.json."""
+    def walk(obj):
+        if isinstance(obj, str):
+            yield obj
+        elif isinstance(obj, dict):
+            for v in obj.values():
+                yield from walk(v)
+        elif isinstance(obj, list):
+            for v in obj:
+                yield from walk(v)
+
+    return [t for f in sorted((REPO / "data").glob("*.json"))
+            for t in walk(json.loads(f.read_text()))]
+
+
+def check_native_tokenizer() -> dict:
+    """ac-base-v2's tokenizer with the C++ library against the same
+    tokenizer in Python alone: ids and masks equal on every data/*.json
+    text, in chunks of 256 padded to the sequence buckets."""
+    from adaptive_classifier_tpu_torch import native
+    from adaptive_classifier_tpu_torch.models.encoder import Encoder
+    from adaptive_classifier_tpu_torch.models.tokenizer import WordPieceTokenizer
+
+    tok = WordPieceTokenizer.from_pretrained(str(ENCODER))
+    python_tok = WordPieceTokenizer.from_pretrained(str(ENCODER))
+    python_tok._native_tried = True
+    if tok._get_native() is None:
+        raise AssertionError(f"phase 4: the C++ tokenizer did not build "
+                             f"({native.BuildInfo.error})")
+    texts = data_texts()
+    native.reset_encode_counts()
+    for s in range(0, len(texts), 256):
+        part = texts[s:s + 256]
+        got = tok(part, max_length=512, pad_to_buckets=Encoder.SEQ_BUCKETS)
+        want = python_tok(part, max_length=512, pad_to_buckets=Encoder.SEQ_BUCKETS)
+        if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+            raise AssertionError(f"phase 4: C++ and Python tokenizers differ on data "
+                                 f"texts {s}..{s + len(part)}")
+    return {"texts": len(texts), "native_rows": native.encode_counts["rows"],
+            "ids_and_masks_equal": True, "library": str(native.BuildInfo.path),
+            "build_s": native.BuildInfo.seconds, "compiled": native.BuildInfo.compiled}
+
+
+#: the JAX package's figures for phase 6t's flow on the CPU (same rows, same
+#: config, float inputs on both sides), from
+#:   JAX_PLATFORMS=cpu python scripts/jax_reference_strategic.py
+#: gated within STRATEGIC_BAND: the clean top-1 of both strategic modes and
+#: of the regular classifier, the accuracy at gaming levels 0.0 and 1.0 and
+#: the robustness score (deterministic in the JAX package); level 0.5 draws
+#: its gaming rows and the adversarial top-1 is reported only
+JAX_STRATEGIC = {
+    "regular": {"clean_top1": 0.8, "gaming": {
+        "accuracy_gaming_0.0": 0.7999999523162842, "accuracy_gaming_1.0": 0.7549999952316284,
+        "robustness_score": 0.04499995708465576}},
+    "strategic": {"clean_top1_dual": 0.8, "clean_top1_robust": 0.69, "gaming": {
+        "accuracy_gaming_0.0": 0.7999999523162842, "accuracy_gaming_1.0": 0.7999999523162842,
+        "robustness_score": 0.0}}}
+STRATEGIC_BAND = 0.03
+STRATEGIC_KERNELS = ("attention_qkv", "add_layer_norm")
+
+# scripts/eval_strategic.py's attack, copied
+_CHARGED = (
+    r"\b(delight|wonderful|warm|smart|funny|gorgeous|satisfying|remarkable|"
+    r"beautifully|generous|irresistible|perfect|triumph|love|brilliant|"
+    r"powerful|genuinely|breathtaking|charm|best|masterclass|exceeded|"
+    r"flawlessly|fantastic|superb|excellent|great|amazing|joy|stunning|"
+    r"reliable|inspiring|unforgettable|extraordinary|fresh|cozy|tedious|"
+    r"bloated|wooden|thud|thin|rushed|incoherent|hollow|cynical|insulting|"
+    r"clumsy|forced|predictable|disastrous|grating|muddled|lazy|misery|"
+    r"broke|cheap|useless|scratched|crashes|false|waste|dead|loud|late|"
+    r"rude|cold|bland|stale|disorganized|slog|cliches|flat|forgettable|"
+    r"terrible|awful|horrible|worst|boring)\b")
+
+
+def attack(text: str, rng) -> str:
+    """Typos on the charged words and a distractor clause."""
+    import re
+
+    def typo(word):
+        if len(word) < 4:
+            return word
+        i = rng.randrange(1, len(word) - 2)
+        return word[:i] + word[i + 1] + word[i] + word[i + 2:]
+
+    out = re.sub(_CHARGED, lambda m: typo(m.group(0)), text)
+    return out + " , " + rng.choice([
+        "for what it is worth", "according to some people", "in my honest opinion",
+        "believe it or not", "at the end of the day"])
+
+
+def sentiment_rows():
+    """(train, clean, adversarial) rows of (text, label) of
+    data/sentiment.json, as scripts/eval_strategic.py builds them."""
+    import random
+
+    blob = json.loads((REPO / "data" / "sentiment.json").read_text())
+    rng = random.Random(42)
+    train = [(t, lbl) for lbl in ("positive", "negative") for t in blob["train"][lbl]]
+    clean = [(t, lbl) for lbl in ("positive", "negative") for t in blob["test"][lbl]]
+    return train, clean, [(attack(t, rng), lbl) for t, lbl in clean]
+
+
+def row_accuracy(preds, rows) -> float:
+    return float(np.mean([bool(p) and p[0][0] == lbl for p, (_, lbl) in zip(preds, rows)]))
+
+
+def count_rounds(clf) -> list:
+    """Wraps the cost function's chunked best response: one call per round
+    of ``_strategic_ridge_refit``."""
+    calls, inner = [], clf.strategic_cost_function.compute_best_response_chunked
+
+    def counted(x, f, *args, **kwargs):
+        calls.append(int(x.shape[0]))
+        return inner(x, f, *args, **kwargs)
+
+    clf.strategic_cost_function.compute_best_response_chunked = counted
+    return calls
+
+
+def run_strategic(launches: Launches, gpu: str) -> tuple:
+    """Phase 6t: strategic mode on the production config at full width
+    (ac-base-v2, embedding 512 + 32,768), on data/sentiment.json as
+    scripts/jax_reference_strategic.py runs it; → (figures, the strategic
+    classifier)."""
+    import adaptive_classifier_tpu_torch as port
+
+    train, clean, adv = sentiment_rows()
+    texts, labels = [t for t, _ in train], [lbl for _, lbl in train]
+    regular = port.AdaptiveClassifier(str(ENCODER), config=dict(PRODUCTION), device="cuda")
+    t0 = time.perf_counter()
+    _, reg_add = launches.run(lambda: regular.add_examples(texts, labels))
+    regular_s = time.perf_counter() - t0
+    strategic = port.AdaptiveClassifier(str(ENCODER), device="cuda", config={
+        **PRODUCTION, "enable_strategic_mode": True, "cost_function_type": "linear",
+        "cost_coefficients": [0.15] * regular.embedding_dim,
+        "strategic_training_frequency": 2})
+    if not strategic.strategic_mode:
+        raise AssertionError("phase 6t: strategic mode did not come up")
+    rounds = count_rounds(strategic)
+    t0 = time.perf_counter()
+    # the lexical channel resolved on the whole train split, as the JAX
+    # script's _ensure_lexical_ready(texts, labels) resolves it: the regular
+    # classifier's first add ran that very call on the same rows (a
+    # deterministic sweep on the host, slow at this width), so its state is
+    # taken over instead of swept again
+    from adaptive_classifier_tpu_torch.lexical import HashedTfidf
+
+    strategic.lexical = HashedTfidf.from_dict(regular.lexical.to_dict())
+    if not strategic.lexical.ready:
+        raise AssertionError("phase 6t: the lexical channel taken over is not ready")
+    chunk = max(len(train) // 6, 1)
+    adds = []
+    for s in range(0, len(train), chunk):
+        n0 = len(rounds)
+        t1 = time.perf_counter()
+        _, counts = launches.run(lambda: strategic.add_examples(
+            texts[s:s + chunk], labels[s:s + chunk]))
+        adds.append({"rows": len(texts[s:s + chunk]), "s": time.perf_counter() - t1,
+                     "refit_rounds": len(rounds) - n0, "launches": counts})
+    strategic_s = time.perf_counter() - t0
+    if not all(a["refit_rounds"] >= 1 for a in adds):
+        raise AssertionError(f"phase 6t: an add ran no strategic refit {adds}")
+    steps = {"regular add": reg_add, **{f"strategic add {i}": a["launches"]
+                                        for i, a in enumerate(adds)}}
+
+    def answers(name, fn, rows):
+        strategic._clear_embedding_caches()
+        regular._clear_embedding_caches()
+        preds, counts = launches.run(lambda: fn([t for t, _ in rows], 1))
+        steps[name] = counts
+        return row_accuracy(preds, rows)
+
+    out = {"gpu": gpu, "train_rows": len(train), "test_rows": len(clean), "adds": len(adds),
+           "regular": {"clean_top1": answers("regular clean", regular._predict_regular_batch,
+                                             clean),
+                       "adv_top1": answers("regular adv", regular._predict_regular_batch, adv),
+                       "add_examples_s": regular_s},
+           "strategic": {
+               "clean_top1_dual": answers("dual clean", strategic._predict_dual_batch, clean),
+               "clean_top1_robust": answers("robust clean", strategic.predict_robust_batch,
+                                            clean),
+               "adv_top1_dual": answers("dual adv", strategic._predict_dual_batch, adv),
+               "adv_top1_robust": answers("robust adv", strategic.predict_robust_batch, adv),
+               "add_examples_s": strategic_s, "per_add": [
+                   {k: a[k] for k in ("rows", "s", "refit_rounds")} for a in adds]},
+           "resolved": {"regular": [regular.lexical.grams, regular.lexical.weight,
+                                    regular.config.ridge_lambda, regular._fusion_alpha],
+                        "strategic": [strategic.lexical.grams, strategic.lexical.weight,
+                                      strategic.config.ridge_lambda,
+                                      strategic._fusion_alpha]}}
+    clean_t, clean_l = [t for t, _ in clean], [lbl for _, lbl in clean]
+    y = torch.tensor([regular.label_to_id[lbl] for lbl in clean_l], device="cuda")
+    regular._clear_embedding_caches()
+    out["regular"]["gaming"], steps["regular gaming"] = launches.run(
+        lambda: strategic.strategic_evaluator.evaluate_robustness(
+            regular._masked_logits_fn(), regular._embed_device(clean_t), y, [0.0, 0.5, 1.0]))
+    strategic._clear_embedding_caches()
+    t0 = time.perf_counter()
+    out["strategic"]["gaming"], steps["strategic gaming"] = launches.run(
+        lambda: strategic.evaluate_strategic_robustness(clean_t, clean_l, [0.0, 0.5, 1.0]))
+    out["strategic"]["evaluate_s"] = time.perf_counter() - t0
+    check_launched("6t", steps, STRATEGIC_KERNELS)
+    out["launches"] = steps
+    gated = {"regular clean top-1": (out["regular"]["clean_top1"],
+                                     JAX_STRATEGIC["regular"]["clean_top1"]),
+             "dual clean top-1": (out["strategic"]["clean_top1_dual"],
+                                  JAX_STRATEGIC["strategic"]["clean_top1_dual"]),
+             "robust clean top-1": (out["strategic"]["clean_top1_robust"],
+                                    JAX_STRATEGIC["strategic"]["clean_top1_robust"])}
+    for who in ("regular", "strategic"):
+        for key in ("accuracy_gaming_0.0", "accuracy_gaming_1.0", "robustness_score"):
+            gated[f"{who} {key}"] = (out[who]["gaming"][key], JAX_STRATEGIC[who]["gaming"][key])
+    out["gated_against_jax_cpu"] = gated
+    log(f"  strategic {json.dumps(out)}")
+    misses = {k: v for k, v in gated.items() if not abs(v[0] - v[1]) <= STRATEGIC_BAND}
+    if misses:
+        raise AssertionError(f"phase 6t: off the JAX package's CPU figures by more than "
+                             f"{STRATEGIC_BAND}: {misses}")
+    del regular
+    torch.cuda.empty_cache()
+    return out, strategic
+
+
+#: the largest difference allowed between a candidate's utility (max-prob −
+#: cost) on the card and on the CPU, as a share of the median best utility:
+#: float32 head logits summed in another order
+UTILITY_RTOL = 1e-3
+
+
+def run_strategic_many(launches: Launches) -> dict:
+    """Phase 7t: phase 7's 1,024-class set (960 + 64 added) on its
+    lexical-off config with strategic mode; 256 queries through
+    ``predict_strategic_batch`` and ``predict_robust_batch`` (B4 launched),
+    their best responses and strategic top-1 recomputed on the CPU.  Gated:
+    every candidate's utility on the card within ``UTILITY_RTOL`` of the
+    median best utility of the CPU's; the card's candidate equal to the
+    CPU's on >= 0.99 of the rows whose best utility leads the runner-up by
+    more than twice the largest utility difference, and on >= 0.99 of all
+    rows a best response on the CPU within that margin; the strategic
+    top-1 equal to the CPU's on >= 0.99.  The strategic ridge head is flat
+    along the movable features by design (its action-space rows), so most
+    rows' best candidates lie within float32 rounding of each other: the
+    all-row share of equal candidates is reported, not gated."""
+    import adaptive_classifier_tpu_torch as port
+    from adaptive_classifier_tpu_torch import strategic as strat
+    from adaptive_classifier_tpu_torch.models.head import NEG_INF, head_forward
+    from adaptive_classifier_tpu_torch.ops import fusion, knn
+
+    r = np.random.default_rng(0)
+    cfg = dict(MANY, class_capacity_buckets=[1024], train_size_buckets=[2048],
+               enable_strategic_mode=True, cost_function_type="linear",
+               cost_coefficients=[0.15] * 512)
+    clf = port.AdaptiveClassifier(str(ENCODER), config=cfg, device="cuda")
+    rounds = count_rounds(clf)
+    texts, labels = many_class_rows(0, 960, 2, r)
+    t0 = time.perf_counter()
+    _, build = launches.run(lambda: clf.add_examples(texts, labels))
+    texts, labels = many_class_rows(960, 64, 2, r)
+    _, add = launches.run(lambda: clf.add_examples(texts, labels))
+    build_s = time.perf_counter() - t0
+    refit_rounds = len(rounds)
+    queries, qlabels = many_class_queries(256, 1024)
+    strat_preds, strat_counts = launches.run(lambda: clf.predict_strategic_batch(queries, k=1))
+    robust_preds, robust_counts = launches.run(lambda: clf.predict_robust_batch(queries, k=1))
+    for name, counts in (("predict_strategic_batch", strat_counts),
+                         ("predict_robust_batch", robust_counts)):
+        if counts["knn_sims"] < 1:
+            raise AssertionError(f"phase 7t: {name} did not launch B4")
+    emb = torch.from_numpy(clf._get_embeddings(queries))
+    cost_gpu = clf.strategic_cost_function
+    with torch.inference_mode():
+        br_gpu = cost_gpu.compute_best_response_chunked(
+            emb.cuda(), clf._classifier_probs_fn()).cpu()
+        # every candidate's utility on the card
+        cands_gpu = cost_gpu._generate_candidates(emb.cuda())
+        util_gpu = (clf._classifier_probs_fn()(cands_gpu.reshape(-1, emb.shape[1]))
+                    .max(dim=-1).values.reshape(cands_gpu.shape[:2])
+                    - cost_gpu.compute_cost_batch(emb.cuda(), cands_gpu)).cpu()
+        del cands_gpu
+    # the same on CPU copies of the embeddings and the head
+    head = {"hidden": [], "out": {k: v.cpu() for k, v in clf.head_params["out"].items()}}
+    active = clf._active_mask().cpu()
+    st = clf.memory.state
+    proto, valid = st.proto.cpu(), st.valid.cpu()
+    bias = clf._proto_bias_arr()
+    bias = bias.cpu() if bias is not None else None
+    cost = strat.LinearCostFunction(list(clf.config.cost_coefficients))
+    cost.num_candidates = clf.config.strategic_num_candidates
+
+    def masked_logits(z):
+        lg = head_forward(head, z)
+        return torch.where(active[None, :], lg, torch.full_like(lg, NEG_INF))
+
+    with torch.inference_mode():
+        br_cpu = cost.compute_best_response_chunked(
+            emb, lambda z: torch.softmax(masked_logits(z), dim=-1))
+        # every candidate's utility on the CPU, and where the card's pick is
+        cands = cost._generate_candidates(emb)
+        util = (torch.softmax(masked_logits(cands.reshape(-1, emb.shape[1])), dim=-1)
+                .max(dim=-1).values.reshape(cands.shape[:2])
+                - cost.compute_cost_batch(emb, cands))
+        picked = torch.all(cands == br_gpu[:, None, :], dim=-1)
+        if not bool(picked.any(dim=1).all()):
+            raise AssertionError("phase 7t: a best response on the card is no candidate")
+        gpu_pick = picked.to(torch.int8).argmax(dim=1)
+        top2 = util.topk(2, dim=1).values
+        # a row is decided where its best utility leads the runner-up by more
+        # than twice the largest card-vs-CPU utility difference
+        delta = float((util_gpu - util).abs().max())
+        tie = 2 * delta
+        margin = top2[:, 0] - top2[:, 1]
+        regret = top2[:, 0] - util.gather(1, gpu_pick[:, None])[:, 0]
+        sims = knn.masked_sims_ref(br_cpu, proto, valid)
+        _, ids = fusion.fuse_topk(sims, head_forward(head, br_cpu), valid, active,
+                                  clf.config.strategic_prediction_proto_weight,
+                                  clf.config.strategic_prediction_head_weight, 1, True,
+                                  proto_bias=bias)
+    same = np.asarray([torch.equal(a, b) for a, b in zip(br_gpu, br_cpu)])
+    same_br = float(same.mean())
+    decided = (margin > tie).numpy()
+    best_median = float(top2[:, 0].abs().median())
+    same_decided = float(same[decided].mean()) if decided.any() else 0.0
+    optimal = float((regret <= tie).to(torch.float32).mean())
+    cpu_top1 = [clf.id_to_label.get(int(i)) for i in ids[:, 0]]
+    agree = float(np.mean([a == b for a, b in zip(top1(strat_preds), cpu_top1)]))
+    out = {"classes": len(clf.label_to_id), "build_s": build_s, "queries": len(queries),
+           "refit_rounds": refit_rounds, "best_response_same_candidate": same_br,
+           "max_utility_diff_card_vs_cpu": delta,
+           "utility_diff_over_median_best": delta / best_median,
+           "card_pick_is_argmax_of_card_utilities": bool(torch.equal(
+               gpu_pick, util_gpu.argmax(dim=1))),
+           "rows_past_tie_margin": int(decided.sum()),
+           "same_candidate_on_those_rows": same_decided,
+           "card_pick_optimal_on_cpu_within_tie": optimal,
+           "max_cpu_regret_of_card_pick": float(regret.max()),
+           "utility_margin_quantiles": [float(q) for q in torch.quantile(
+               margin.double(), torch.tensor([0.1, 0.5, 0.9], dtype=torch.float64))],
+           "best_utility_median": float(top2[:, 0].median()),
+           "strategic_top1_agreement_with_cpu": agree,
+           "strategic_top1": accuracy(strat_preds, qlabels),
+           "robust_top1": accuracy(robust_preds, qlabels),
+           "moved_rows": float(np.mean([not torch.equal(a, b) for a, b in zip(br_cpu, emb)])),
+           "launches": {"build": build, "new_class_add": add,
+                        "predict_strategic_batch": strat_counts,
+                        "predict_robust_batch": robust_counts}}
+    log(f"  strategic many {json.dumps(out)}")
+    if not (delta <= UTILITY_RTOL * best_median and same_decided >= 0.99
+            and optimal >= 0.99 and agree >= 0.99):
+        raise AssertionError(
+            f"phase 7t: utilities differ from the CPU's by {delta:.3e} "
+            f"({delta / best_median:.2e} of the median best, <= {UTILITY_RTOL}); best "
+            f"responses equal the CPU's on {same_decided:.4f} of the {int(decided.sum())} "
+            f"rows decided past twice that ({same_br:.4f} of all), the card's pick is a "
+            f"CPU best response within it on {optimal:.4f}, "
+            f"strategic top-1 agrees on {agree:.4f} (0.99 each)")
+    del clf
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_serving_strategic(clf, launches: Launches, gpu: str) -> dict:
+    """Phase 10e: the 6t strategic classifier behind
+    ``BatchingClassifierServer`` (2 workers), 8 client threads sending the
+    200 clean test rows in each of the modes ``robust``, ``strategic`` and
+    ``dual``: answers against the direct calls."""
+    import adaptive_classifier_tpu_torch as port
+
+    _, clean, _ = sentiment_rows()
+    texts = [t for t, _ in clean]
+    direct = {"robust": clf.predict_robust_batch, "strategic": clf.predict_strategic_batch,
+              "dual": clf._predict_dual_batch}
+    out = {"gpu": gpu}
+    server = port.BatchingClassifierServer(clf, max_batch_size=64, max_wait_ms=2,
+                                           num_workers=2)
+    server.start()
+    try:
+        for mode, fn in direct.items():
+            want = fn(texts, 2)
+            clf._clear_embedding_caches()
+            res, counts = launches.run(lambda: serve(server, texts, k=2, mode=mode))
+            agree, gap = check_served(f"10e {mode}", res["answers"], want)
+            check_launched(f"10e {mode}", {"served": counts}, STRATEGIC_KERNELS)
+            out[mode] = {**res["figures"], "top1_agreement": agree, "max_score_gap": gap,
+                         "launches": counts}
+    finally:
+        server.stop()
+    log(f"  serving strategic {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr, flush=True)
@@ -2717,6 +3178,14 @@ def main() -> int:
     for r in runs.values():
         for name, n in r["summary"]["launches"].items():
             launches.total[name] = launches.total.get(name, 0) + n
+    native_check = check_native_tokenizer()
+    log(f"  C++ tokenizer library built: {native_check['library']} "
+        f"(compiled={native_check['compiled']}, {native_check['build_s']:.2f}s)")
+    log("  C++ tokenizer encodes over phase 4's texts " + json.dumps(
+        {t: [r["summary"]["native_encoded_rows"], r["summary"]["ascii_texts"],
+             r["summary"]["rows"]] for t, r in runs.items()}) + " (encoded, ASCII, rows)")
+    log(f"  C++ tokenizer ids and masks equal the Python WordPiece's on all "
+        f"{native_check['texts']} data/*.json texts")
     phase_done("4", t0)
 
     log("phase 4i: serve the zoo classifiers with quantization int8")
@@ -2771,10 +3240,20 @@ def main() -> int:
     lossy_run = run_lossy_add(launches)
     phase_done("6l", t0)
 
+    log("phase 6t: strategic mode on the production config (sentiment)")
+    t0 = time.perf_counter()
+    strategic_run, strategic_clf = run_strategic(launches, gpu)
+    phase_done("6t", t0)
+
     log("phase 7: 1,024 classes (960 + 64 added), kernel B4")
     t0 = time.perf_counter()
     p7 = run_many(7, launches)
     phase_done("7", t0)
+
+    log("phase 7t: strategic mode at 1,024 classes, kernel B4")
+    t0 = time.perf_counter()
+    strategic_many = run_strategic_many(launches)
+    phase_done("7t", t0)
 
     log("phase 8: 16,384 classes, kernel B5")
     t0 = time.perf_counter()
@@ -2794,6 +3273,13 @@ def main() -> int:
     del p7["clf"]
     torch.cuda.empty_cache()
     phase_done("10", t0)
+
+    log("phase 10e: the server's robust, strategic and dual modes (the 6t classifier)")
+    t0 = time.perf_counter()
+    serving_strategic = run_serving_strategic(strategic_clf, launches, gpu)
+    del strategic_clf
+    torch.cuda.empty_cache()
+    phase_done("10e", t0)
 
     log("phase 11: calibration (hallucination-detector)")
     t0 = time.perf_counter()
@@ -3019,6 +3505,26 @@ def main() -> int:
                    r.get("kernel_vs_plain", {}).get("min_cosine"),
                    r["bf16_vs_cpu_f32_min_cosine"], r["int8"].get("min_cosine")]
             for name, r in families["rows"].items()}))
+    log("  strategic mode (6t: top-1 clean / adversarial; gaming accuracy 0.0 / 0.5 / "
+        "1.0) " + json.dumps({
+            "regular": [strategic_run["regular"]["clean_top1"],
+                        strategic_run["regular"]["adv_top1"]]
+            + [strategic_run["regular"]["gaming"][f"accuracy_gaming_{x}"]
+               for x in (0.0, 0.5, 1.0)],
+            "dual": [strategic_run["strategic"]["clean_top1_dual"],
+                     strategic_run["strategic"]["adv_top1_dual"]],
+            "robust": [strategic_run["strategic"]["clean_top1_robust"],
+                       strategic_run["strategic"]["adv_top1_robust"]]
+            + [strategic_run["strategic"]["gaming"][f"accuracy_gaming_{x}"]
+               for x in (0.0, 0.5, 1.0)]}))
+    log("  strategic mode (6t add_examples s regular / strategic; 7t best responses and "
+        "top-1 equal the CPU's; 10e served agreement) " + json.dumps({
+            "6t": [strategic_run["regular"]["add_examples_s"],
+                   strategic_run["strategic"]["add_examples_s"]],
+            "7t": [strategic_many["best_response_same_candidate"],
+                   strategic_many["strategic_top1_agreement_with_cpu"]],
+            "10e": {m: [r["top1_agreement"], r["max_score_gap"], r["requests_per_s"]]
+                    for m, r in serving_strategic.items() if m != "gpu"}}))
     log(f"  phase 6i resolved {json.dumps(build_int8['resolved'])} zoo "
         f"{json.dumps(build_int8['zoo'])} top-1 {build_int8['top1_accuracy']}")
     log(gpu)

@@ -237,6 +237,17 @@ def test_add_examples_validates_and_raises_for_later_slices():
         clf.add_examples(["a", "b"], ["x", "y"])
         assert clf.label_to_id == {"x": 0, "y": 1}
         assert len(clf.head_params["hidden"]) == (2 if config["head_type"] == "mlp" else 0)
-    # strategic mode is a later slice
-    with pytest.raises(NotImplementedError, match="later slice"):
-        AdaptiveClassifier(TINY, device="cpu", config={"enable_strategic_mode": True})
+    # strategic mode constructs and builds the JAX package's classifier
+    # (tests/test_torch_strategic.py holds it further)
+    config = {"head_type": "ridge", "compute_dtype": "float32", "embedding_cache_size": 0,
+              "enable_strategic_mode": True, "cost_function_type": "linear",
+              "cost_coefficients": [0.15] * 128}
+    clf, jclf = both(TINY, config)
+    assert clf.strategic_mode and jclf.strategic_mode
+    texts, labels = intents_rows("train")
+    clf.add_examples(texts[::4], labels[::4])
+    jclf.add_examples(texts[::4], labels[::4])
+    assert_same_state(clf, jclf)
+    queries, _ = intents_rows("test_base")
+    assert_same_predictions(clf.predict_strategic_batch(queries[::5], k=3),
+                            jclf.predict_strategic_batch(queries[::5], k=3))

@@ -167,13 +167,14 @@ def test_attention_kernel_one_pass_instantiation(cuda):
 
 
 def test_unported_kernels_raise_on_the_gpu(cuda, monkeypatch):
-    """Every kernel is ported: S >= 1024 takes the flash kernel (B6), and
-    what no kernel takes still raises."""
+    """Every kernel is ported: S >= 1024 takes the flash kernel (B6), and a
+    length outside B1's envelope the plain attention, as the JAX package
+    takes its plain ``jnp`` attention there."""
     monkeypatch.delenv("AC_ATTN_IMPL", raising=False)
     clf = port.AdaptiveClassifier.load(REPO / "checkpoints/zoo/banking-intents")
     assert clf.encoder._attn_impl(1024) == "flash"
-    with pytest.raises(NotImplementedError, match="envelope"):
-        clf.encoder._attn_impl(60)
+    assert clf.encoder._attn_impl(64) == "fusedqkv"
+    assert clf.encoder._attn_impl(60) == "einsum"
 
 
 def test_zoo_predict_batch_on_the_gpu(cuda, monkeypatch):
@@ -1295,3 +1296,113 @@ def test_family_forward_on_the_gpu_matches_the_cpu(cuda, monkeypatch, name, kern
     want = ref.embed_ids(ids, mask)
     cos = torch.nn.functional.cosine_similarity(got.float().cpu(), want, dim=1)
     assert cos.min().item() >= 0.99, cos
+
+
+def _bert_checkpoint(directory: Path, hidden: int, heads: int, layers: int,
+                     ffn: int, seed: int = 0) -> Path:
+    """A BERT checkpoint written at run time: HF ``config.json`` and
+    ``model.safetensors`` under HF tensor names, weights normal(0.02) from
+    ``seed`` with numpy, unit LayerNorms, mean pooling, and
+    ``checkpoints/ac-base-v2``'s vocabulary."""
+    from adaptive_classifier_tpu_torch import io_safetensors
+
+    vocab = (REPO / "checkpoints/ac-base-v2/vocab.txt").read_text(encoding="utf-8")
+    V = len(vocab.splitlines())
+    r = np.random.default_rng(seed)
+
+    def nrm(*shape):
+        return r.standard_normal(shape, np.float32) * 0.02
+
+    D = hidden
+    t = {"embeddings.word_embeddings.weight": nrm(V, D),
+         "embeddings.position_embeddings.weight": nrm(512, D),
+         "embeddings.token_type_embeddings.weight": nrm(2, D),
+         "embeddings.LayerNorm.weight": np.ones(D, np.float32),
+         "embeddings.LayerNorm.bias": np.zeros(D, np.float32)}
+    for i in range(layers):
+        pre = f"encoder.layer.{i}."
+        for name, (n_out, n_in) in (("attention.self.query", (D, D)),
+                                    ("attention.self.key", (D, D)),
+                                    ("attention.self.value", (D, D)),
+                                    ("attention.output.dense", (D, D)),
+                                    ("intermediate.dense", (ffn, D)),
+                                    ("output.dense", (D, ffn))):
+            t[pre + name + ".weight"] = nrm(n_out, n_in)
+            t[pre + name + ".bias"] = nrm(n_out)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            t[pre + name + ".weight"] = np.ones(D, np.float32)
+            t[pre + name + ".bias"] = np.zeros(D, np.float32)
+    cfg = {"model_type": "bert", "architectures": ["BertModel"], "vocab_size": V,
+           "hidden_size": D, "num_hidden_layers": layers, "num_attention_heads": heads,
+           "intermediate_size": ffn, "max_position_embeddings": 512,
+           "type_vocab_size": 2, "layer_norm_eps": 1e-12, "pad_token_id": 0,
+           "hidden_act": "gelu", "ac_pooling": "mean"}
+    directory.mkdir(parents=True, exist_ok=True)
+    (directory / "config.json").write_text(json.dumps(cfg, indent=2))
+    (directory / "vocab.txt").write_text(vocab, encoding="utf-8")
+    io_safetensors.save_file(t, directory / "model.safetensors")
+    return directory
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_outside_the_kernel_envelope_on_the_gpu(cuda, tmp_path, monkeypatch, dtype):
+    """A BERT checkpoint of hidden 312 and 12 heads (head_dim 26, the
+    TinyBERT-4L-312 shape) runs on the card through the plain attention
+    (B1 never launched, B10 twice per layer): every embedding
+    within cosine 0.999 of the port's float32 forward on the CPU."""
+    from adaptive_classifier_tpu_torch.models.encoder import _FUSED_LN_ON_CUDA, Encoder
+
+    monkeypatch.delenv("AC_ATTN_IMPL", raising=False)
+    path = str(_bert_checkpoint(tmp_path / "tinybert-312", 312, 12, 4, 1200))
+    enc = Encoder(path, device="cuda", compute_dtype=dtype)
+    ref = Encoder(path, device="cpu", compute_dtype="float32")
+    assert enc.config.head_dim == 26 and enc._attn_impl(32) == "einsum"
+    data = json.loads((REPO / "data/intents.json").read_text())
+    texts = [t for rows in data["test"].values() for t in rows][:32]
+    ids, mask = enc.tokenizer(texts, max_length=512, pad_to_buckets=enc.SEQ_BUCKETS)
+    port.reset_launch_counts()
+    got = enc.embed_ids(ids, mask)
+    torch.cuda.synchronize()
+    assert port.launch_counts["attention_qkv"] == 0
+    assert port.launch_counts["add_layer_norm"] == (2 * 4 if _FUSED_LN_ON_CUDA else 0)
+    want = ref.embed_ids(ids, mask)
+    cos = torch.nn.functional.cosine_similarity(got.float().cpu(), want, dim=1)
+    assert cos.min().item() >= 0.999, cos
+
+
+def test_strategic_mode_on_the_gpu_matches_the_cpu(cuda, monkeypatch):
+    """A strategic ridge classifier (ac-base-v2, float32, lexical channel
+    off) built on the card and on the CPU from the intents train rows: the
+    same best-response rounds in each add, and the strategic, robust and
+    dual top-1 labels of the test rows agree on >= 0.99 of them; B1 and B10
+    launched by the strategic predictions."""
+    monkeypatch.delenv("AC_ATTN_IMPL", raising=False)
+    data = json.loads((REPO / "data/intents.json").read_text())
+    rows = [(t, lbl) for lbl, ts in data["train"].items() for t in ts]
+    tests = [t for lbl in data["train"] for t in data["test"][lbl]]
+    config = {"head_type": "ridge", "ridge_lambda": 1.0, "compute_dtype": "float32",
+              "enable_strategic_mode": True, "cost_function_type": "linear",
+              "cost_coefficients": [0.15] * 512}
+    answers, rounds = {}, {}
+    for dev in ("cuda", "cpu"):
+        clf = port.AdaptiveClassifier(str(REPO / "checkpoints/ac-base-v2"), device=dev,
+                                      config=dict(config))
+        calls, inner = [], clf.strategic_cost_function.compute_best_response_chunked
+        clf.strategic_cost_function.compute_best_response_chunked = \
+            lambda x, f, *a, **k: calls.append(1) or inner(x, f, *a, **k)
+        half = len(rows) // 2
+        for part in (rows[:half], rows[half:]):
+            clf.add_examples([t for t, _ in part], [lbl for _, lbl in part])
+        rounds[dev] = len(calls)
+        clf._clear_embedding_caches()
+        port.reset_launch_counts()
+        answers[dev] = {m: [p[0][0] for p in getattr(clf, m)(tests, 1)]
+                        for m in ("predict_strategic_batch", "predict_robust_batch",
+                                  "_predict_dual_batch")}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert port.launch_counts["attention_qkv"] > 0
+            assert port.launch_counts["add_layer_norm"] > 0
+    assert rounds["cuda"] == rounds["cpu"]
+    for m, got in answers["cuda"].items():
+        assert np.mean([a == b for a, b in zip(got, answers["cpu"][m])]) >= 0.99, m

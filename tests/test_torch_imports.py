@@ -44,7 +44,8 @@ def test_port_imports_without_jax():
                 "ops.matmul_int8", "ops.ffn_int8", "ops.flash_attention",
                 "ops.layernorm", "models.encoder_int8", "models.tokenizer",
                 "quantization", "memory", "training", "lexical", "convert",
-                "models.bpe", "models.hf_tokenizer_adapter", "models.modernbert"):
+                "models.bpe", "models.hf_tokenizer_adapter", "models.modernbert",
+                "strategic", "native"):
         assert f"adaptive_classifier_tpu_torch.{mod}" in out["imported"]
     leaked = [m for m in out["loaded"]
               if m == "adaptive_classifier_tpu" or m.startswith("adaptive_classifier_tpu.")]

@@ -9,8 +9,10 @@ the JAX package (CPU).
   ``predict_batch``;
 - ``Encoder._attn_impl``: ``AC_ATTN_IMPL`` forces the path as in the JAX
   package (the port's own ``attn_impl`` wins over it), the flash kernel from
-  1,024 tokens on a CUDA device, and a sequence past the position table
-  raises (the JAX package's gather clamps there).
+  1,024 tokens on a CUDA device, the plain attention on a CUDA device
+  outside the packed-QKV kernel's envelope (the JAX package's ``"einsum"``
+  there), and a sequence past the position table raises (the JAX
+  package's gather clamps there).
 """
 
 import json
@@ -144,6 +146,33 @@ def test_attn_impl_policy(monkeypatch):
     monkeypatch.setenv("AC_ATTN_IMPL", "")
     enc.attn_impl = None
     assert enc._attn_impl(128) == "fusedqkv"
+
+
+@pytest.mark.parametrize("hidden,heads,seq_len", [
+    (312, 12, 32),    # head_dim 26: TinyBERT-4L-312's shape
+    (312, 12, 60),
+    (512, 8, 60),     # S % 8 != 0
+    (512, 8, 17),
+    (640, 4, 64),     # head_dim 160 > 128
+])
+def test_attn_impl_outside_the_packed_qkv_envelope(monkeypatch, hidden, heads, seq_len):
+    """On a CUDA device (asked without one) a head_dim or sequence length
+    outside B1's envelope takes the plain attention, as the JAX package
+    takes its plain ``jnp`` attention there on a TPU; inside it B1."""
+    import dataclasses
+
+    monkeypatch.delenv("AC_ATTN_IMPL", raising=False)
+    path = str(REPO / "checkpoints" / "ac-tiny")
+    enc = tenc.Encoder(path, compute_dtype="float32", device="cpu")
+    jenc_ = jenc.Encoder(path, compute_dtype="float32")
+    enc.config = dataclasses.replace(enc.config, hidden_size=hidden, num_heads=heads)
+    jenc_.config = dataclasses.replace(jenc_.config, hidden_size=hidden, num_heads=heads)
+    enc.device = torch.device("cuda")
+    monkeypatch.setattr(jenc.jax, "default_backend", lambda: "tpu")
+    assert enc._attn_impl(seq_len) == jenc_._attn_impl(seq_len) == "einsum"
+    assert enc._attn_impl(1024) == jenc_._attn_impl(1024) == "flash"
+    if hidden // heads <= 128 and (hidden // heads) % 8 == 0:
+        assert enc._attn_impl(64) == jenc_._attn_impl(64) == "fusedqkv"
 
 
 def test_sequence_past_the_position_table_raises():

@@ -2,8 +2,9 @@
 encoder): ``tests/test_serving.py``'s cases on the port's servers, then
 the cross-package ones: served answers equal the JAX package's direct
 ``predict_batch`` on the same classifier state, and the predict modes
-answer as the JAX package does without strategic mode.  Every wait has a
-timeout and every server is stopped in a ``finally`` (or a ``with``)."""
+answer as the JAX package does, without strategic mode and with it.  Every
+wait has a timeout and every server is stopped in a ``finally`` (or a
+``with``)."""
 
 import threading
 import time
@@ -200,8 +201,8 @@ def test_multi_tenant_add_model_and_training():
 
 
 def test_prediction_modes(server_clf):
-    """Strategic mode is not ported: ``robust``, ``strategic`` and ``dual``
-    answer as the JAX package does without it (``_predict_regular_batch``),
+    """Without strategic mode ``robust``, ``strategic`` and ``dual`` answer
+    as the JAX package does without it (``_predict_regular_batch``),
     batches never mix modes, and an unknown mode errors."""
     assert server_clf.strategic_mode is False
     with BatchingClassifierServer(server_clf, max_wait_ms=5) as server:
@@ -218,6 +219,46 @@ def test_prediction_modes(server_clf):
         assert all(f.result(timeout=30) for f in futs)
         with pytest.raises(ValueError, match="unknown mode"):
             server.predict("cat:x", mode="telepathy", timeout=30)
+
+
+def test_prediction_modes_in_strategic_mode():
+    """In strategic mode the served ``robust``, ``strategic`` and ``dual``
+    answers, from several client threads, are the direct calls'
+    (``predict_robust_batch``, ``predict_strategic_batch``,
+    ``_predict_dual_batch``), which are the JAX package's on the same
+    stored examples (labels identical, scores within 1e-4)."""
+    cfg = {"head_type": "ridge", "enable_strategic_mode": True,
+           "cost_function_type": "linear", "cost_coefficients": [0.15] * 128}
+    clf, jclf = _synth(**cfg), _synth(JaxClassifier, **cfg)
+    texts = [f"{a}:{i}" for a in ("cat", "dog", "owl") for i in range(6)]
+    labels = [t.split(":")[0] for t in texts]
+    clf.add_examples(texts, labels)
+    jclf.add_examples(texts, labels)
+    assert clf.strategic_mode and jclf.strategic_mode
+    queries = [f"{a}:q{i}" for a in ("cat", "dog", "owl") for i in range(4)]
+    direct = {"robust": "predict_robust_batch", "strategic": "predict_strategic_batch",
+              "dual": "_predict_dual_batch"}
+    with BatchingClassifierServer(clf, max_wait_ms=5, num_workers=2) as server:
+        for mode, method in direct.items():
+            served = [None] * len(queries)
+
+            def client(rows, mode=mode, served=served):
+                for i in rows:
+                    served[i] = server.submit_predict(queries[i], k=2, mode=mode).result(
+                        timeout=30)
+
+            threads = [threading.Thread(target=client, args=(range(c, len(queries), 3),))
+                       for c in range(3)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+            want = getattr(clf, method)(queries, 2)
+            jwant = getattr(jclf, method)(queries, 2)
+            for got, ref, atol in ((served, want, 1e-6), (want, jwant, 1e-4)):
+                assert [[l for l, _ in r] for r in got] == [[l for l, _ in r] for r in ref]
+                np.testing.assert_allclose([s for r in got for _, s in r],
+                                           [s for r in ref for _, s in r], atol=atol)
 
 
 def test_multi_worker_consistency_and_write_exclusion():
