@@ -9,7 +9,9 @@ search and the int8 encoder's products.  Repeated texts are served from
 embedding caches on the host and on the device.  ``BatchingClassifierServer``
 and ``MultiTenantServer`` gather single requests from many callers into
 device batches; ``MultiLabelAdaptiveClassifier`` gives each text several
-labels.  Imports torch and numpy only; kernels build with nvcc on first
+labels.  ``finetune_encoder`` adapts a classifier's encoder to its stored
+examples; ``pretrain`` trains an encoder with MLM and contrastive steps and
+writes HF-layout checkpoints.  Imports torch and numpy only; kernels build with nvcc on first
 use.  ``launch_counts`` counts each kernel's launches
 (``reset_launch_counts`` zeroes them).
 """

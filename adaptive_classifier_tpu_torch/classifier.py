@@ -7,8 +7,9 @@ classes), ``save``, ``load`` and ``from_pretrained`` (a local directory),
 after ``calibrate``), ``predict_document`` for texts longer than the
 encoder window, strategic mode (``enable_strategic_mode``: the robust,
 strategic and dual predictions, the strategic-aware ridge refit, and
-``evaluate_strategic_robustness``; ``strategic.py``), and the memory's
-editing surface (``clear_memory``, ``merge_classifiers``).  Texts are tokenized
+``evaluate_strategic_robustness``; ``strategic.py``), encoder
+fine-tuning on the stored examples (``finetune_encoder``; ``finetune.py``),
+and the memory's editing surface (``clear_memory``, ``merge_classifiers``).  Texts are tokenized
 (and, with the lexical channel on, hashed into TF-IDF features) on the
 host; the encoder forward, channel composition, prototype similarities,
 head logits and fusion run on the device, and one packed ``[N, 2k]`` block
@@ -1228,6 +1229,92 @@ class AdaptiveClassifier:
         self._temperature_scaler = scaler
         return report
 
+    # ------------------------------------------------------------------
+    # encoder fine-tuning
+    # ------------------------------------------------------------------
+    def finetune_encoder(self, steps: int = 200, lr: float = 3e-5, batch: int = 32,
+                         temperature: float = 0.1, view_mask_prob: float = 0.08,
+                         chunk_steps: int = 50,
+                         augment: Optional[str] = None) -> Dict[str, Any]:
+        """Adapt the encoder to the stored examples with supervised
+        contrastive steps (``finetune.py``), then embed the memory again and
+        refit the head on the new space.  Total steps round up to whole
+        chunks of ``chunk_steps``.  ``augment="typo"`` adds a typo'd copy of
+        every training text (``finetune.typo_augment``).  Returns
+        ``{"steps", "chunk_losses", "final_loss"}``."""
+        from . import finetune as ft
+
+        self._finetune_guard(steps)
+        texts: List[str] = []
+        labels: List[str] = []
+        for lbl, ts in self.memory.texts.items():
+            texts += ts
+            labels += [lbl] * len(ts)
+        if not texts:
+            raise ValueError("no stored examples to fine-tune on")
+        if augment == "typo":
+            import random
+
+            texts, labels = ft.typo_augment(texts, labels, random.Random(self.seed))
+        elif augment is not None:
+            raise ValueError(f"unknown augment {augment!r} (use 'typo')")
+        y = np.asarray([self.label_to_id[l] for l in labels], np.int64)
+        return self._finetune_run(ft.supcon_chunk, texts, y, steps, lr, batch,
+                                  temperature, view_mask_prob, chunk_steps)
+
+    def _finetune_guard(self, steps: int):
+        if steps <= 0:
+            raise ValueError(f"steps must be positive, got {steps}")
+        if self.encoder.quantization == "int8":
+            raise ValueError(
+                "finetune_encoder requires float encoder params; construct the "
+                "classifier with quantization=None and quantize after fine-tuning "
+                "(quantization.py)")
+
+    def _finetune_run(self, chunk_fn, texts: List[str], y: np.ndarray, steps: int,
+                      lr: float, batch: int, temperature: float, view_mask_prob: float,
+                      chunk_steps: int) -> Dict[str, Any]:
+        """Tokenize, run the SupCon chunks on float32 masters, give the
+        encoder the trained weights, then (as the JAX package does) drop
+        both embedding caches, embed the memory again, refit the head, run
+        the strategic pass in strategic mode and drop the fitted
+        temperature.  Shared by the single- and multi-label entry points."""
+        ids, mask = self.encoder.tokenizer(texts, max_length=self.config.max_length,
+                                           pad_to_buckets=self.encoder.SEQ_BUCKETS)
+        vocab = getattr(self.encoder.tokenizer, "vocab", None) or {}
+        mask_id = vocab.get("[MASK]", vocab.get("[UNK]", 1))
+        dev = self.encoder.device
+        params = self.encoder.master_params()
+        opt = training.adamw_init(params)
+        ids_dev = torch.as_tensor(ids).to(dev)
+        attn_dev = torch.as_tensor(mask).to(dev)
+        y_dev = torch.as_tensor(y).to(dev)
+        n_chunks = max((steps + chunk_steps - 1) // chunk_steps, 1)
+        losses = []
+        for _ in range(n_chunks):
+            params, opt, loss = chunk_fn(
+                params, opt, ids_dev, attn_dev, y_dev, self._next_generator(),
+                self.encoder.config, int(mask_id), int(batch), int(chunk_steps),
+                lr=float(lr), temperature=float(temperature),
+                view_mask_prob=float(view_mask_prob))
+            losses.append(float(loss))
+        self.encoder.adopt_trained(params)
+        del params, opt
+        # every cached embedding belongs to the old encoder
+        self._clear_embedding_caches()
+        self.memory.reembed(self._get_embeddings)
+        if self.head_params is not None:
+            self._train_adaptive_head()
+        if self.strategic_mode:
+            # the refit above ran without the robustness pass
+            self._perform_strategic_training()
+        # a temperature fitted on the old fused distribution describes
+        # another model: calibrate again
+        self._temperature_scaler = None
+        return {"steps": n_chunks * chunk_steps,
+                "chunk_losses": [round(l, 4) for l in losses],
+                "final_loss": round(losses[-1], 4)}
+
     def predict_document(self, text: str, k: int = 5, chunk_tokens: Optional[int] = None,
                          overlap: float = 0.25, pool: str = "mean") -> List[Tuple[str, float]]:
         """Classify a text longer than the encoder window: overlapping token
@@ -1275,12 +1362,14 @@ class AdaptiveClassifier:
 
     def merge_classifiers(self, other: "AdaptiveClassifier") -> "AdaptiveClassifier":
         """Take ``other``'s labels and stored examples, then refit the head.
-        Rows are copied when both classifiers embed with the same model
-        (across devices if need be); otherwise ``other``'s texts are
-        embedded again with this classifier's encoder."""
+        Rows are copied when both classifiers embed with the same model and
+        neither encoder is fine-tuned (across devices if need be); otherwise
+        ``other``'s texts are embedded again with this classifier's
+        encoder."""
         if self.embedding_dim != other.embedding_dim:
             raise ValueError("Classifiers have different embedding dimensions")
-        same_space = self.model_name == other.model_name
+        same_space = (self.model_name == other.model_name
+                      and not self.encoder._finetuned and not other.encoder._finetuned)
         next_idx = max(self.id_to_label.keys()) + 1 if self.id_to_label else 0
         for label in other.label_to_id:
             if label not in self.label_to_id:

@@ -38,6 +38,15 @@ config before any weight is made.  ``"auto"`` resolves by
 ``resolve_quantization``.  A checkpoint's int8 export can stand in for a
 missing base checkpoint (``Encoder.from_quantized_export``).
 
+The forward is differentiable on every path that has no kernel: on CUDA
+a bf16 product that autograd records goes through ``_ProductF32``, whose
+backward takes the JAX package's transpose (f32 cotangent, each gradient
+rounded once to its operand's type).  Training (``finetune.py``,
+``pretrain.py``) runs ``attn_impl="einsum"`` and ``use_fused_ln=False``;
+the kernel wrappers refuse autograd.  ``Encoder.master_params`` gives the
+float32 weights a run trains and ``Encoder.adopt_trained`` takes them back
+(``tree_from_params`` inverts ``params_from_tree``).
+
 Weights load from a local HuggingFace-layout checkpoint (``config.json`` +
 ``model.safetensors`` or ``pytorch_model.bin``); the tokenizer is its
 ``tokenizer.json`` when that is not WordPiece
@@ -509,12 +518,39 @@ def params_from_tree(tree: Tree, device: Union[str, torch.device] = "cpu",
     return params
 
 
+def tree_from_params(params: Params) -> Tree:
+    """The inverse of ``params_from_tree``: the port's flat state dict (on
+    any device, any dtype) → the JAX package's stacked-layer tree of float32
+    numpy arrays, the fused QKV projection split back into Q, K and V."""
+    def a(t: torch.Tensor) -> np.ndarray:
+        return t.detach().float().cpu().numpy()
+
+    emb = {k.split(".", 1)[1]: a(v) for k, v in params.items()
+           if k.startswith("embeddings.")}
+    n_layers = 1 + max(int(k.split(".")[1]) for k in params if k.startswith("layers."))
+    names = sorted({k.split(".", 2)[2] for k in params if k.startswith("layers.")})
+    stacked = {n: np.stack([a(params[f"layers.{i}.{n}"]) for i in range(n_layers)])
+               for n in names}
+    tree: Tree = {"embeddings": emb}
+    if "wqkv" in stacked:
+        tree["layers"] = stacked
+        tree["final_ln_scale"] = a(params["final_ln_scale"])
+        return tree
+    D = stacked["qkv_w"].shape[2] // 3
+    layers = {n: v for n, v in stacked.items() if n not in ("qkv_w", "qkv_b")}
+    for j, key in enumerate(("q", "k", "v")):
+        layers[f"{key}_w"] = np.ascontiguousarray(stacked["qkv_w"][:, :, j * D:(j + 1) * D])
+        layers[f"{key}_b"] = np.ascontiguousarray(stacked["qkv_b"][:, j * D:(j + 1) * D])
+    tree["layers"] = layers
+    return tree
+
+
 # ---------------------------------------------------------------------------
 # forward pass
 # ---------------------------------------------------------------------------
 
 
-def _product_f32(x2d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _mm_f32(x2d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x2d @ w`` in float32: the exact products of the operands' values
     summed in f32, never rounded to the operands' type.  On CUDA a bf16
     product takes ``torch.mm(..., out_dtype=torch.float32)``; elsewhere the
@@ -522,6 +558,40 @@ def _product_f32(x2d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x2d.device.type == "cuda" and x2d.dtype != torch.float32:
         return torch.mm(x2d, w, out_dtype=torch.float32)
     return torch.mm(x2d.float(), w.float())
+
+
+class _ProductF32(torch.autograd.Function):
+    """``_mm_f32`` with a backward, for CUDA, where ``torch.mm(...,
+    out_dtype=...)`` has no derivative.  The backward is the JAX package's
+    transpose of ``einsum(..., preferred_element_type=float32)``: the f32
+    cotangent times the other operand (its values exact in f32), summed in
+    f32, each gradient rounded once to its operand's type.  (The cotangent
+    split into three bf16 terms for the tensor cores measured no faster at
+    ac-base-v2's width on an H100: the split's elementwise passes cost what
+    the products saved; PERF.md.)"""
+
+    @staticmethod
+    def forward(ctx, x2d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x2d, w)
+        return _mm_f32(x2d, w)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x2d, w = ctx.saved_tensors
+        g = g.float()
+        gx = torch.mm(g, w.float().t()).to(x2d.dtype) if ctx.needs_input_grad[0] else None
+        gw = torch.mm(x2d.float().t(), g).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
+def _product_f32(x2d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``_mm_f32``, differentiable: a CUDA bf16 product that autograd
+    records goes through ``_ProductF32``; every other call is the plain
+    product (the CPU's upcast is differentiable as it stands)."""
+    if (x2d.device.type == "cuda" and x2d.dtype != torch.float32
+            and torch.is_grad_enabled() and (x2d.requires_grad or w.requires_grad)):
+        return _ProductF32.apply(x2d, w)
+    return _mm_f32(x2d, w)
 
 
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -577,7 +647,10 @@ def embed_tokens(params: Params, input_ids: torch.Tensor, attention_mask: torch.
     def emb(name: str) -> torch.Tensor:
         return params[f"embeddings.{name}"]
 
-    h = emb("word")[ids]
+    # index_select: the same rows as ``table[ids]``, with a scatter-add
+    # backward (advanced indexing's sorts the indices, ~20 ms a training
+    # step at V 30,000 on an H100)
+    h = emb("word").index_select(0, ids.reshape(-1)).reshape(*ids.shape, -1)
     if cfg.arch == "deberta":
         if cfg.position_biased_input:
             h = h + emb("position")[:S][None, :, :]
@@ -978,6 +1051,9 @@ class Encoder:
         #: forces the attention path (one of ``ATTN_IMPLS``; it wins over
         #: ``AC_ATTN_IMPL``); None = policy
         self.attn_impl: Optional[str] = None
+        #: whether the weights are a training run's (``adopt_trained``) or
+        #: an embedded fine-tuned checkpoint's, not the base model's
+        self._finetuned = False
 
     def _on_device(self, params: Params) -> Params:
         """The int8 state on the encoder's device; on a CUDA device with the
@@ -1043,9 +1119,30 @@ class Encoder:
     def float_tree(self) -> Tree:
         """The float32 weights as the JAX package's stacked-layer tree, read
         again from where they came from (the local checkpoint, the offline
-        seed, or the int8 export), not from the device copy, whose matrices
+        seed, the int8 export, or the float32 masters of the last training
+        run, ``adopt_trained``), not from the device copy, whose matrices
         may be bf16 or int8."""
         return self._read_tree()
+
+    def master_params(self) -> Params:
+        """Float32 master weights on the encoder's device, every matrix
+        included (``float_tree``): what a training run updates, as the JAX
+        package trains its float32 params.  An int8 encoder has none."""
+        if self.quantization == "int8":
+            raise ValueError("an int8 encoder has no float master weights to train")
+        return params_from_tree(self.float_tree(), device=self.device,
+                                matrix_dtype=torch.float32)
+
+    def adopt_trained(self, params: Params):
+        """Take a training run's float32 masters as the encoder's weights:
+        they become the source ``float_tree`` reads (so the int8 and HF
+        exports write them), the device copy is rebuilt from them in the
+        compute dtype, and the encoder is marked fine-tuned."""
+        tree = tree_from_params(params)
+        self._read_tree = lambda: tree
+        self.params = params_from_tree(tree, device=self.device,
+                                       matrix_dtype=self.compute_dtype)
+        self._finetuned = True
 
     def _attn_impl(self, seq_len: int) -> str:
         """Attention policy, read on every call: ``"einsum"`` for the

@@ -4,7 +4,8 @@ Counterpart of ``adaptive_classifier_tpu/multilabel.py``: a sigmoid head
 trained with multi-hot BCE over the unique stored texts, an adaptive
 threshold by label count, per-label thresholds by label frequency, a cap
 on the labels returned and a below-threshold backfill up to
-``min_predictions``.
+``min_predictions``, and encoder fine-tuning with multi-hot SupCon
+(``finetune_encoder``).
 """
 
 from __future__ import annotations
@@ -139,9 +140,38 @@ class MultiLabelAdaptiveClassifier(AdaptiveClassifier):
             super().add_examples(flattened_texts, flattened_labels)
         self._update_label_thresholds()
 
-    def finetune_encoder(self, *args, **kwargs):
-        raise NotImplementedError("encoder fine-tuning (the JAX package's finetune.py) "
-                                  "is not ported yet")
+    def finetune_encoder(self, steps: int = 200, lr: float = 3e-5, batch: int = 32,
+                         temperature: float = 0.1, view_mask_prob: float = 0.08,
+                         chunk_steps: int = 50, augment: Optional[str] = None):
+        """Multi-label encoder fine-tuning (``finetune.supcon_chunk_multihot``):
+        over the unique stored texts with multi-hot label rows, so a text
+        stored under {a, b} (two memory rows) is not its own negative;
+        positives are pairs sharing at least one label.  A typo'd copy
+        keeps its source's row."""
+        import random
+
+        from . import finetune as ft
+
+        self._finetune_guard(steps)
+        text_labels: Dict[str, set] = {}
+        for lbl, ts in self.memory.texts.items():
+            for t in ts:
+                text_labels.setdefault(t, set()).add(lbl)
+        if not text_labels:
+            raise ValueError("no stored examples to fine-tune on")
+        texts = list(text_labels)
+        rows = np.zeros((len(texts), max(len(self.label_to_id), 1)), np.float32)
+        for i, t in enumerate(texts):
+            for lbl in text_labels[t]:
+                rows[i, self.label_to_id[lbl]] = 1.0
+        if augment == "typo":
+            texts, idx = ft.typo_augment(texts, list(range(len(texts))),
+                                         random.Random(self.seed))
+            rows = rows[np.asarray(idx)]
+        elif augment is not None:
+            raise ValueError(f"unknown augment {augment!r} (use 'typo')")
+        return self._finetune_run(ft.supcon_chunk_multihot, texts, rows, steps, lr,
+                                  batch, temperature, view_mask_prob, chunk_steps)
 
     def _update_label_thresholds(self):
         """Per-label thresholds by the label's share of stored examples."""

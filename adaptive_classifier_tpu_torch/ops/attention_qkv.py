@@ -25,7 +25,7 @@ import math
 
 import torch
 
-from . import _build, count_launch
+from . import _build, count_launch, refuse_autograd
 
 NEG = -1e9
 
@@ -88,6 +88,7 @@ def attention_from_qkv(
         raise ValueError(f"attention_from_qkv has no path for device {qkv.device}")
     if attention_mask.device != qkv.device:
         raise ValueError(f"mask on {attention_mask.device}, qkv on {qkv.device}")
+    refuse_autograd("attention_from_qkv", qkv)
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
     B, S, _ = qkv.shape

@@ -33,7 +33,7 @@ import math
 
 import torch
 
-from . import _build, count_launch
+from . import _build, count_launch, refuse_autograd
 
 NEG = -1e9
 #: keys per step of the flash recurrence (``TK`` in csrc/flash_attention.cu
@@ -117,6 +117,7 @@ def _launch(entry: str, count: str, q, k, v, attention_mask) -> torch.Tensor:
         raise ValueError(f"{count} has no path for device {dev}")
     if any(t.device != dev for t in (k, v, attention_mask)):
         raise ValueError(f"q, k, v and the mask must share one device ({dev})")
+    refuse_autograd(count, q, k, v)
     if k.stride() != q.stride() or v.stride() != q.stride() or q.stride(-1) != 1:
         raise ValueError(f"q, k, v must share strides with unit stride on Dh, got "
                          f"{q.stride()}, {k.stride()}, {v.stride()}")

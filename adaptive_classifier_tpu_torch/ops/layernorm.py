@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from . import _build, count_launch
+from . import _build, count_launch, refuse_autograd
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel holds a row in registers, at most 8 16-byte vectors a lane
@@ -73,6 +73,7 @@ def add_layer_norm(x: torch.Tensor, resid: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"add_layer_norm has no path for device {x.device}")
     if any(t.device != x.device for t in (resid, scale, bias)):
         raise ValueError(f"x, resid, scale and bias must share one device ({x.device})")
+    refuse_autograd("add_layer_norm", x, resid, scale, bias)
     tensors = (x, resid, scale, bias)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("x, resid, scale and bias must be contiguous")

@@ -9,7 +9,9 @@ seed and the fitted fusion share),
 examples per class), ``model.safetensors`` (``prototype_{label}`` vectors,
 ``adaptive_head_model.*`` tensors in torch ``[out, in]`` layout, optional
 ``proto_calibration_bias``), with the lexical channel on ``lexical.json``,
-a model card ``README.md`` and, unless left out, the int8 encoder export
+a model card ``README.md``, a fine-tuned encoder's weights as an HF-layout
+BERT checkpoint ``encoder/`` (``pretrain.save_hf_checkpoint``; a load
+builds the encoder from it) and, unless left out, the int8 encoder export
 ``quantized/``.  A save is lossy by design (a few examples per class) but
 prototypes and head round-trip exactly, so predictions match the
 classifier that was saved; a checkpoint either package writes loads in
@@ -103,6 +105,26 @@ def save_classifier(clf, save_directory: Union[str, Path],
         card.write_text(generate_model_card(clf), encoding="utf-8")
     saved = {"config": "config.json", "examples": "examples.json",
              "model": "model.safetensors", "model_card": "README.md"}
+
+    if clf.encoder._finetuned:
+        # without its fine-tuned weights, a load would rebuild the base
+        # encoder under prototypes and a head of the fine-tuned space
+        from .pretrain import save_hf_checkpoint
+
+        vocab = getattr(clf.encoder.tokenizer, "vocab", None)
+        if clf.encoder.config.arch != "bert" or not vocab:
+            raise ValueError(
+                f"cannot persist the fine-tuned '{clf.encoder.config.arch}' encoder "
+                f"(the HF export takes arch 'bert' with a WordPiece vocab); saving "
+                f"without it would write a checkpoint whose prototypes and head "
+                f"disagree with the encoder on load")
+        tokens = [t for t, _ in sorted(vocab.items(), key=lambda kv: kv[1])]
+        save_hf_checkpoint(
+            clf.encoder.float_tree(), clf.encoder.config, save_directory / "encoder",
+            tokens, extra_config={"ac_finetuned_from": clf.model_name,
+                                  "ac_pooling": clf.encoder.config.pooling,
+                                  "ac_pool_layer": clf.encoder.config.pool_layer})
+        saved["encoder"] = "encoder/"
 
     if include_quantized:
         if not clf.encoder.params:
@@ -204,7 +226,10 @@ def load_classifier(cls, model_path: Union[str, Path],
     clf = cls(model_name, device=device, config=config_dict.get("config", None),
               seed=config_dict.get("ac_seed", 42), encoder=encoder)
     if model_name == str(model_path / "encoder"):
+        # the base model's name stays the classifier's; the encoder is the
+        # fine-tuned one, and a later save writes it again
         clf.model_name = config_dict["model_name"]
+        clf.encoder._finetuned = True
     if "ac_fusion_alpha" in config_dict:
         clf._fusion_alpha = float(config_dict["ac_fusion_alpha"])
     lex_file = model_path / "lexical.json"

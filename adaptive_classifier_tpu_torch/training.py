@@ -27,6 +27,10 @@ Counterpart of the parts of ``adaptive_classifier_tpu/training.py`` that
   for the stopping rule.  The shuffles and dropout masks come from
   ``_epoch_permutation`` and ``head._keep_mask``, which a test can replace
   with the JAX package's own draws.
+
+``adamw_update``, ``clip_global_norm`` and ``value_and_grad`` (a loss and
+its gradient over a tree of tensors, for ``jax.value_and_grad``) also
+carry the encoder's training steps (``finetune.py``, ``pretrain.py``).
 """
 
 from __future__ import annotations
@@ -79,30 +83,57 @@ def adamw_init(params) -> AdamW:
                  v=tree_map(torch.zeros_like, params), step=0)
 
 
+def _like(tree, leaves: List[torch.Tensor]):
+    """``tree``'s structure with its leaves (``tree_leaves`` order) replaced."""
+    by_leaf = {id(t): new for t, new in zip(tree_leaves(tree), leaves)}
+    return tree_map(lambda t: by_leaf[id(t)], tree)
+
+
 def adamw_update(params, grads, opt: AdamW, lr: float, weight_decay: float = 0.01,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
     """One AdamW step with the decay inside the step, as the JAX package
     writes it: ``p - lr·(m̂ / (sqrt(v̂) + eps) + wd·p)``.  The bias
-    corrections are float32 scalars."""
+    corrections are float32 scalars.  Each operation runs over every leaf
+    at once (``torch._foreach_*``: one launch per operation, not per
+    tensor), element for element the arithmetic of the formula."""
     step = opt.step + 1
     t = np.float32(step)
     bc1 = float(np.float32(1) - np.float32(b1) ** t)
     bc2 = float(np.float32(1) - np.float32(b2) ** t)
-    m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, opt.m, grads)
-    v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, opt.v, grads)
-    new = tree_map(
-        lambda p, m_, v_: p - lr * (m_ / bc1 / (torch.sqrt(v_ / bc2) + eps)
-                                    + weight_decay * p), params, m, v)
-    return new, AdamW(m=m, v=v, step=step)
+    p, g = tree_leaves(params), tree_leaves(grads)
+    m = torch._foreach_add(torch._foreach_mul(tree_leaves(opt.m), b1),
+                           torch._foreach_mul(g, 1 - b1))
+    v = torch._foreach_add(torch._foreach_mul(tree_leaves(opt.v), b2),
+                           torch._foreach_mul(torch._foreach_mul(g, 1 - b2), g))
+    upd = torch._foreach_div(torch._foreach_div(m, bc1), torch._foreach_add(
+        torch._foreach_sqrt(torch._foreach_div(v, bc2)), eps))
+    upd = torch._foreach_add(upd, torch._foreach_mul(p, weight_decay))
+    new = torch._foreach_sub(p, torch._foreach_mul(upd, lr))
+    return _like(params, new), AdamW(m=_like(opt.m, m), v=_like(opt.v, v), step=step)
 
 
 def clip_global_norm(grads, max_norm: float = 1.0):
     """Scale every gradient by ``min(1, max_norm / ‖g‖)`` (global norm),
     on the device."""
     leaves = tree_leaves(grads)
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in leaves))
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(leaves)))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-6), max=1.0)
-    return tree_map(lambda g: g * scale, grads)
+    return _like(grads, torch._foreach_mul(leaves, scale))
+
+
+def value_and_grad(loss_fn: Callable[[Any], torch.Tensor], params) -> Tuple[torch.Tensor, Any]:
+    """``jax.value_and_grad`` for a tree of tensors: the loss of fresh leaf
+    copies of ``params`` and its gradient as a tree of the same shape, a
+    zero tensor for a leaf the loss does not reach."""
+    leaves_tree = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    leaves = tree_leaves(leaves_tree)
+    with torch.enable_grad():
+        loss = loss_fn(leaves_tree)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    by_leaf = {id(t): g for t, g in zip(leaves, grads)}
+    return loss.detach(), tree_map(
+        lambda t: by_leaf[id(t)] if by_leaf[id(t)] is not None else torch.zeros_like(t),
+        leaves_tree)
 
 
 def _masked(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -169,6 +169,32 @@ Phases, each of which must pass:
    every row; the RoBERTa rows' BPE ids equal to the Rust runtime's where
    it is installed; the bf16 forward per ``[256, 32]`` chunk of each
    family timed in two turns;
+15f. fine-tunes the encoder of banking-intents (phase 6's build, calibrated
+   first) with ``finetune_encoder()``'s defaults (200 SupCon steps of 32
+   rows, chunks of 50, lr 3e-5) on ac-base-v2: every chunk loss finite,
+   the word embeddings changed, no B1, B6, B7 or B10 launch inside a
+   chunk and B1 and B10 launched by the re-embedding and the predictions
+   after it; the device ring empty and the host LRU holding only the
+   re-embedded stored texts (the fine-tuned encoder's rows) after the
+   call, the temperature dropped, every prototype within cosine 0.999 of
+   the mean of its texts' new embeddings; top-1 on the 200 test rows >=
+   the JAX package's on the CPU - 0.05; save and load through
+   ``encoder/`` (top-1 agreement >= 0.99, score drift < 0.01); the int8
+   export of the adapted weights, loaded through B2 and B3, within cosine
+   0.99 of the fine-tuned bf16 forward on every row and nearer to it than
+   to the base encoder on the mean; seconds per step and one step traced;
+15m. fine-tunes phase 13's multi-label classifier
+   (``finetune_encoder(steps=20, chunk_steps=10, batch=8)``): finite
+   losses, no kernel inside a chunk, a label set for every test pair;
+   micro-F1 reported beside the JAX package's;
+15p. pretrains an encoder at ac-base-v2's width (8 x 512, V 30,000) from
+   ``init_params(0)`` on every data/*.json text at S 128: 300 MLM steps at
+   batch 256 in chunks of 50 (peak lr 6e-4, warmup 30, cosine), then a
+   50-step contrastive chunk: finite losses, the last MLM chunk's mean <
+   ln V - 2 and below the first's, no kernel inside a step; the HF
+   checkpoint it writes loads through ``Encoder(path)`` as pretrained and
+   embeds within cosine 0.9999 of the in-memory weights on the same path;
+   steps/s and one step of each traced;
 3b. times every kernel, its plain version and the nearest single PyTorch
    call at the shapes the main path gave it, on the main path's inputs, as
    device time (the stream held until the host has queued every timed
@@ -183,8 +209,8 @@ Phases, each of which must pass:
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds; phases 4, 4i, 4a, 6, 6i, 6m, 6s, 6l, 6t, 7, 7t,
-8, 9, 10-13 and 14 zero the launch counts just before each step and read them
-just after.
+8, 9, 10-13, 14 and 15f-15p zero the launch counts just before each step and
+read them just after.
 Timings of ``predict_batch`` (phases 4, 4i and 8) are cold, the embedding
 caches cleared before each call, so that every call runs the encoder; a
 warm figure, served from the device cache, is printed beside them under
@@ -3126,6 +3152,324 @@ def run_serving_strategic(clf, launches: Launches, gpu: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 15f, 15m, 15p: encoder training (fine-tuning, pretraining)
+# ---------------------------------------------------------------------------
+
+#: the JAX package's figures for the flows of phases 15f and 15m on the CPU
+#: (same rows, same checkpoint, its own draws), from
+#:   JAX_PLATFORMS=cpu python scripts/jax_reference_finetune.py
+JAX_FINETUNE_TOP1 = 0.865
+JAX_FINETUNE_MICRO_F1 = 0.5989304812834224
+#: the card's top-1 after fine-tuning against JAX's: the two frameworks draw
+#: their batches and views differently
+FINETUNE_BAND = 0.05
+#: the kernels the float forward launches; none may run inside a training step
+TRAIN_FREE = ("attention_qkv", "add_layer_norm", "flash_attention", "oneshot_attention")
+
+
+def chunk_launches(module, name: str, into: list):
+    """``module.name`` wrapped to record, per call, its seconds and the
+    kernel launches made inside it (a difference of the counts: the
+    surrounding ``Launches.run`` keeps counting)."""
+    import adaptive_classifier_tpu_torch as port
+
+    real = getattr(module, name)
+
+    def chunk(*args, **kwargs):
+        torch.cuda.synchronize()
+        before, t0 = dict(port.launch_counts), time.perf_counter()
+        out = real(*args, **kwargs)
+        float(out[-1])                      # the chunk's mean loss, on the host
+        torch.cuda.synchronize()
+        into.append({"s": time.perf_counter() - t0, "loss": float(out[-1]),
+                     "launches": {k: port.launch_counts[k] - before[k] for k in before}})
+        return out
+
+    return mock.patch.object(module, name, chunk)
+
+
+def check_train_free(phase: str, chunks: list):
+    for i, c in enumerate(chunks):
+        bad = {k: c["launches"][k] for k in TRAIN_FREE if c["launches"][k]}
+        if bad:
+            raise AssertionError(f"phase {phase} chunk {i}: kernels launched inside a "
+                                 f"training step {bad}")
+        if not math.isfinite(c["loss"]):
+            raise AssertionError(f"phase {phase} chunk {i}: loss {c['loss']}")
+
+
+def step_profile(fn) -> dict:
+    """One training step ``fn()`` (its results thrown away), after one
+    call that warms it up: wall ms on the host clock to a synchronize,
+    untraced; then ``top_device_ops`` of the same call, and the device's
+    busy share of the untraced wall time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    prof = top_device_ops(fn, n=8)
+    device_ms = prof["device_ms_total"]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms if device_ms else None, "top": prof.get("top")}
+
+
+def row_cos(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+
+def run_finetune(launches: Launches, gpu: str) -> dict:
+    """Phase 15f: banking-intents grown from its 140 train rows on the
+    production config (as phase 6), calibrated, then ``finetune_encoder()``
+    with its defaults (200 SupCon steps of 32 rows, chunks of 50, lr 3e-5)
+    on ac-base-v2 at full width; then the memory, head, caches and
+    temperature as the JAX package leaves them, top-1 on the 200 test rows
+    against JAX's, save / load through ``encoder/``, and the int8 export of
+    the adapted weights."""
+    import adaptive_classifier_tpu_torch as port
+    from adaptive_classifier_tpu_torch import finetune, training
+    from adaptive_classifier_tpu_torch.models.encoder import Encoder
+
+    clf = port.AdaptiveClassifier(str(ENCODER), config=dict(PRODUCTION), device="cuda")
+    texts, labels = intents_rows("train")
+    t0 = time.perf_counter()
+    launches.run(lambda: clf.add_examples(texts, labels))
+    add_s = time.perf_counter() - t0
+    test_t, test_l = intents_rows("test_base")
+    before = accuracy(clf.predict_batch(test_t, k=1), test_l)
+    # one step of the run below, traced (its results thrown away)
+    ids, mask = clf.encoder.tokenizer(texts, max_length=clf.config.max_length,
+                                      pad_to_buckets=clf.encoder.SEQ_BUCKETS)
+    master = clf.encoder.master_params()
+    step_args = (master, training.adamw_init(master), torch.as_tensor(ids).cuda(),
+                 torch.as_tensor(mask).cuda(),
+                 torch.tensor([clf.label_to_id[l] for l in labels]).cuda(),
+                 torch.Generator(device="cuda").manual_seed(1), clf.encoder.config,
+                 clf.encoder.tokenizer.vocab["[MASK]"], 32, 1)
+    profile = step_profile(lambda: finetune.supcon_chunk(*step_args))
+    del master, step_args
+    clf.calibrate(test_t[::4], test_l[::4])
+    word0 = clf.encoder.params["embeddings.word"].clone()
+    chunks = []
+    t0 = time.perf_counter()
+    with chunk_launches(finetune, "supcon_chunk", chunks):
+        report, counts = launches.run(lambda: clf.finetune_encoder())
+    finetune_s = time.perf_counter() - t0
+    check_train_free("15f", chunks)
+    check_launched("15f", {"finetune_encoder (re-embedding)": counts})
+    if not all(math.isfinite(x) for x in report["chunk_losses"]) or report["steps"] != 200:
+        raise AssertionError(f"phase 15f: report {report}")
+    if torch.equal(word0, clf.encoder.params["embeddings.word"]):
+        raise AssertionError("phase 15f: the word embeddings did not change")
+    if clf._temperature_scaler is not None:
+        raise AssertionError("phase 15f: the fitted temperature survived fine-tuning")
+    # the device ring is empty; the host LRU holds the re-embedded stored
+    # texts only, each the fine-tuned encoder's row
+    ring = clf._dev_cache.stats()["size"] if clf._dev_cache is not None else 0
+    host = clf._emb_cache._data if clf._emb_cache is not None else {}
+    stored = sorted({t for ts in clf.memory.texts.values() for t in ts})
+    fresh = clf._embed_uncached(stored)
+    cached = np.stack([host[(t, clf.config.max_length)] for t in stored])
+    if ring or len(host) != len(stored) or not row_cos(cached, fresh).min() >= 0.9999:
+        raise AssertionError(f"phase 15f: caches after fine-tuning: ring {ring}, host "
+                             f"{len(host)} rows for {len(stored)} stored texts")
+    proto_cos = min(float(row_cos(clf._embed_uncached(ts).mean(0, keepdims=True),
+                                  clf.memory.prototypes[lbl][None])[0])
+                    for lbl, ts in clf.memory.texts.items())
+    if not proto_cos >= 0.999:
+        raise AssertionError(f"phase 15f: a prototype is at cosine {proto_cos} of the mean "
+                             f"of its texts' new embeddings")
+    clf._clear_embedding_caches()
+    preds, pred_counts = launches.run(lambda: clf.predict_batch(test_t, k=3))
+    check_launched("15f", {"predict_batch": pred_counts})
+    after = accuracy([p[:1] for p in preds], test_l)
+    if JAX_FINETUNE_TOP1 is None or not after >= JAX_FINETUNE_TOP1 - FINETUNE_BAND:
+        raise AssertionError(f"phase 15f: top-1 after fine-tuning {after:.4f} < the JAX "
+                             f"package's {JAX_FINETUNE_TOP1} - {FINETUNE_BAND}")
+
+    enc = clf.encoder
+    base = Encoder(str(ENCODER), device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        saved = clf.save(d)
+        files = sorted(p.name for p in Path(d).iterdir())
+        back = port.AdaptiveClassifier.load(d, device="cuda")
+        enc8 = Encoder.from_quantized_export(Path(d) / "quantized", str(ENCODER),
+                                             device="cuda", quantization="int8")
+    got, load_counts = launches.run(lambda: back.predict_batch(test_t, k=3))
+    agree = float(np.mean([a[0][0] == b[0][0] for a, b in zip(got, preds)]))
+    drift = max(abs(s - dict(b)[l]) for a, b in zip(got, preds) for l, s in a if l in dict(b))
+    if "encoder" not in saved or "encoder" not in files or not back.encoder._finetuned \
+            or back.model_name != str(ENCODER):
+        raise AssertionError(f"phase 15f: saved {files}, loaded model {back.model_name}")
+    if not (agree >= 0.99 and drift < MAX_SCORE_DRIFT):
+        raise AssertionError(f"phase 15f save/load: agreement {agree}, drift {drift}")
+    e_ft, e_base = enc.embed(test_t).cpu().numpy(), base.embed(test_t).cpu().numpy()
+    e8, c8 = launches.run(lambda: enc8.embed(test_t).cpu().numpy())
+    check_launched("15f", {"int8 export": c8}, ("matmul_int8", "ffn_int8"))
+    int8_ft, int8_base = row_cos(e8, e_ft), row_cos(e8, e_base)
+    if not (int8_ft.min() > 0.99 and int8_ft.mean() > int8_base.mean()):
+        raise AssertionError(f"phase 15f: int8 export vs fine-tuned min cosine "
+                             f"{int8_ft.min():.5f}, mean {int8_ft.mean():.5f}; vs base "
+                             f"mean {int8_base.mean():.5f}")
+    train_s = sum(c["s"] for c in chunks)
+    out = {"train_rows": len(texts), "test_rows": len(test_t), "top1_before": before,
+           "top1_after": after, "jax_cpu_top1_after": JAX_FINETUNE_TOP1,
+           "add_examples_s": add_s,
+           "chunk_losses": report["chunk_losses"], "steps": report["steps"],
+           "s_per_step": train_s / report["steps"], "finetune_encoder_s": finetune_s,
+           "seq_len": int(ids.shape[1]), "step_profile": profile,
+           "chunk_s": [c["s"] for c in chunks], "min_prototype_cosine": proto_cos,
+           "save_load_top1_agreement": agree, "save_load_max_score_drift": drift,
+           "saved_files": files,
+           "int8_export_vs_finetuned_cosine_min_mean": [float(int8_ft.min()),
+                                                        float(int8_ft.mean())],
+           "int8_export_vs_base_cosine_mean": float(int8_base.mean()),
+           "finetuned_vs_base_cosine_mean": float(row_cos(e_ft, e_base).mean()),
+           "launches": {"chunks": [c["launches"] for c in chunks],
+                        "finetune_encoder": counts, "predict_batch": pred_counts,
+                        "loaded_predict_batch": load_counts, "int8_export": c8},
+           "gpu": gpu}
+    log(f"  fine-tuning {json.dumps(out)}")
+    del clf, back, base, enc8, enc
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_multilabel_finetune(launches: Launches, gpu: str) -> dict:
+    """Phase 15m: phase 13's multi-label classifier, then
+    ``finetune_encoder(steps=20, chunk_steps=10, batch=8)``: finite losses,
+    no kernel inside a step, a label set for every test pair; micro-F1
+    reported beside JAX's."""
+    import adaptive_classifier_tpu_torch as port
+    from adaptive_classifier_tpu_torch import finetune
+
+    clf = port.MultiLabelAdaptiveClassifier(str(ENCODER), config={}, device="cuda")
+    texts, labels = paired_rows("train")
+    for part in (slice(0, None, 2), slice(1, None, 2)):
+        clf.add_examples(texts[part], labels[part])
+    test_t, test_l = paired_rows("test")
+    f1_before = label_set_scores([[l for l, _ in clf.predict_multilabel(t)] for t in test_t],
+                                 test_l)[0]
+    chunks = []
+    with chunk_launches(finetune, "supcon_chunk_multihot", chunks):
+        report, counts = launches.run(lambda: clf.finetune_encoder(steps=20, chunk_steps=10,
+                                                                   batch=8))
+    check_train_free("15m", chunks)
+    check_launched("15m", {"finetune_encoder (re-embedding)": counts})
+    predicted, pred_counts = launches.run(
+        lambda: [[l for l, _ in clf.predict_multilabel(t)] for t in test_t])
+    check_launched("15m", {"predict_multilabel": pred_counts})
+    if len(chunks) != 2 or not all(predicted):
+        raise AssertionError(f"phase 15m: {len(chunks)} chunks; "
+                             f"{sum(not p for p in predicted)} test pairs without a label")
+    f1, exact = label_set_scores(predicted, test_l)
+    out = {"micro_f1_before": f1_before, "micro_f1_after": f1,
+           "jax_cpu_micro_f1_after": JAX_FINETUNE_MICRO_F1, "exact_set_accuracy": exact,
+           "chunk_losses": report["chunk_losses"],
+           "s_per_step": sum(c["s"] for c in chunks) / report["steps"],
+           "launches": {"chunks": [c["launches"] for c in chunks],
+                        "finetune_encoder": counts, "predict_multilabel": pred_counts},
+           "gpu": gpu}
+    log(f"  multi-label fine-tuning {json.dumps(out)}")
+    del clf
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_pretrain(launches: Launches, gpu: str) -> dict:
+    """Phase 15p: MLM pretraining at ac-base-v2's full width (8 x 512, V
+    30,000) from ``init_params(0)``, on every data/*.json text tokenized
+    with its vocabulary at S 128: ``train_chunk`` at batch 256 for 300
+    steps in chunks of 50 (peak lr 6e-4, warmup 30, cosine to 300), then
+    one 50-step ``contrastive_chunk``; the HF checkpoint it writes loaded
+    by ``Encoder(path)``."""
+    from adaptive_classifier_tpu_torch import pretrain, training
+    from adaptive_classifier_tpu_torch.models.encoder import (
+        Encoder, _read_hf_config, embed_texts_device, init_params, params_from_tree,
+        tree_from_params)
+    from adaptive_classifier_tpu_torch.models.tokenizer import WordPieceTokenizer
+
+    cfg = _read_hf_config(ENCODER)
+    tok = WordPieceTokenizer.from_pretrained(str(ENCODER))
+    ids, mask = tok(data_texts(), max_length=128, pad_to_buckets=(128,))
+    ids_all = torch.as_tensor(ids).cuda()
+    attn_all = torch.as_tensor(mask).cuda()
+    mask_id = tok.vocab["[MASK]"]
+    params = params_from_tree(init_params(0, cfg), device="cuda")
+    mlm = pretrain.init_mlm(0, cfg, device="cuda")
+    opt = training.adamw_init({"enc": params, "mlm": mlm})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mlm_chunks, con_chunks = [], []
+
+    def mlm_phase():
+        nonlocal params, mlm, opt
+        with chunk_launches(pretrain, "train_chunk", mlm_chunks):
+            for _ in range(6):
+                params, mlm, opt, _ = pretrain.train_chunk(
+                    params, mlm, opt, ids_all, attn_all, gen, cfg, mask_id, batch=256,
+                    n_steps=50, lr_peak=6e-4, warmup=30, total_steps=300)
+
+    def contrastive_phase():
+        nonlocal params
+        copt = training.adamw_init(params)
+        with chunk_launches(pretrain, "contrastive_chunk", con_chunks):
+            params, _, _ = pretrain.contrastive_chunk(params, copt, ids_all, attn_all, gen,
+                                                      cfg, mask_id, batch=256, n_steps=50)
+
+    launches.run(mlm_phase)
+    launches.run(contrastive_phase)
+    check_train_free("15p", mlm_chunks + con_chunks)
+    # one more step of each, traced (results thrown away)
+    profiles = {
+        "mlm": step_profile(lambda: pretrain.train_chunk(
+            params, mlm, opt, ids_all, attn_all, gen, cfg, mask_id, batch=256, n_steps=1,
+            lr_peak=6e-4, warmup=30, total_steps=300)),
+        "contrastive": step_profile(lambda: pretrain.contrastive_chunk(
+            params, training.adamw_init(params), ids_all, attn_all, gen, cfg, mask_id,
+            batch=256, n_steps=1))}
+    losses = [c["loss"] for c in mlm_chunks]
+    ceiling = math.log(cfg.vocab_size) - 2.0
+    if not (losses[-1] < ceiling and losses[-1] < losses[0]):
+        raise AssertionError(f"phase 15p: MLM chunk losses {losses} (want the last < "
+                             f"ln V - 2 = {ceiling:.3f} and below the first)")
+    texts = intents_rows("test_base")[0]
+    with tempfile.TemporaryDirectory() as d:
+        tokens = [t for t, _ in sorted(tok.vocab.items(), key=lambda kv: kv[1])]
+        pretrain.save_hf_checkpoint(tree_from_params(params), cfg, Path(d) / "ck", tokens,
+                                    extra_config={"ac_pooling": cfg.pooling})
+        enc = Encoder(str(Path(d) / "ck"), device="cuda")
+    got, load_counts = launches.run(lambda: enc.embed(texts).cpu().numpy())
+    check_launched("15p", {"loaded checkpoint embed": load_counts})
+    qids, qmask = tok(texts, max_length=512, pad_to_buckets=enc.SEQ_BUCKETS)
+    with torch.no_grad():
+        # the in-memory masters through the loaded encoder's own path
+        want = embed_texts_device(params, torch.as_tensor(qids).cuda(),
+                                  torch.as_tensor(qmask).cuda(), cfg,
+                                  attn_impl=enc._attn_impl(qids.shape[1])).cpu().numpy()
+    cos = row_cos(got, want)
+    if not (enc.pretrained and cos.min() >= 0.9999):
+        raise AssertionError(f"phase 15p: the saved checkpoint loads pretrained="
+                             f"{enc.pretrained}, min cosine {cos.min():.6f} to the "
+                             f"in-memory params")
+    out = {"corpus_rows": int(ids_all.shape[0]), "seq_len": int(ids_all.shape[1]),
+           "vocab": cfg.vocab_size, "mlm_chunk_losses": losses, "ln_v_minus_2": ceiling,
+           "contrastive_loss": con_chunks[0]["loss"],
+           "mlm_steps_per_s": 300 / sum(c["s"] for c in mlm_chunks),
+           "contrastive_steps_per_s": 50 / con_chunks[0]["s"],
+           "loaded_min_cosine": float(cos.min()), "step_profiles": profiles,
+           "mlm_chunk_s": [c["s"] for c in mlm_chunks],
+           "launches": {"mlm_chunks": [c["launches"] for c in mlm_chunks],
+                        "contrastive_chunk": con_chunks[0]["launches"],
+                        "loaded_embed": load_counts},
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30, "gpu": gpu}
+    log(f"  pretraining {json.dumps(out)}")
+    del params, mlm, opt, enc, ids_all, attn_all
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr, flush=True)
@@ -3301,6 +3645,22 @@ def main() -> int:
     t0 = time.perf_counter()
     families = run_families(launches, gpu)
     phase_done("14", t0)
+
+    log("phase 15f: fine-tune the encoder of banking-intents (production config, "
+        "ac-base-v2)")
+    t0 = time.perf_counter()
+    finetuned = run_finetune(launches, gpu)
+    phase_done("15f", t0)
+
+    log("phase 15m: fine-tune the encoder of the multi-label classifier")
+    t0 = time.perf_counter()
+    finetuned_ml = run_multilabel_finetune(launches, gpu)
+    phase_done("15m", t0)
+
+    log("phase 15p: MLM and contrastive pretraining at ac-base-v2's width")
+    t0 = time.perf_counter()
+    pretrained = run_pretrain(launches, gpu)
+    phase_done("15p", t0)
 
     log("phase 3b: kernel timing at the main path's shapes")
     t0 = time.perf_counter()
@@ -3525,6 +3885,15 @@ def main() -> int:
                    strategic_many["strategic_top1_agreement_with_cpu"]],
             "10e": {m: [r["top1_agreement"], r["max_score_gap"], r["requests_per_s"]]
                     for m, r in serving_strategic.items() if m != "gpu"}}))
+    log("  encoder training (15f: top-1 before / after / JAX after, s per step; 15m: "
+        "micro-F1 before / after / JAX after; 15p: MLM chunk losses, steps/s MLM / "
+        "contrastive) " + json.dumps({
+            "15f": [finetuned["top1_before"], finetuned["top1_after"],
+                    finetuned["jax_cpu_top1_after"], finetuned["s_per_step"]],
+            "15m": [finetuned_ml["micro_f1_before"], finetuned_ml["micro_f1_after"],
+                    finetuned_ml["jax_cpu_micro_f1_after"]],
+            "15p": [pretrained["mlm_chunk_losses"], pretrained["mlm_steps_per_s"],
+                    pretrained["contrastive_steps_per_s"]]}))
     log(f"  phase 6i resolved {json.dumps(build_int8['resolved'])} zoo "
         f"{json.dumps(build_int8['zoo'])} top-1 {build_int8['top1_accuracy']}")
     log(gpu)

@@ -1406,3 +1406,150 @@ def test_strategic_mode_on_the_gpu_matches_the_cpu(cuda, monkeypatch):
     assert rounds["cuda"] == rounds["cpu"]
     for m, got in answers["cuda"].items():
         assert np.mean([a == b for a, b in zip(got, answers["cpu"][m])]) >= 0.99, m
+
+
+def test_kernels_refuse_autograd_on_the_gpu(cuda):
+    """B1, B6, B7 and B10 raise where autograd would record their launch
+    (they have no backward); under ``torch.no_grad`` they launch."""
+    from adaptive_classifier_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        oneshot_attention,
+    )
+    from adaptive_classifier_tpu_torch.ops.layernorm import add_layer_norm
+
+    qkv, mask = _inputs(cuda, 3, torch.bfloat16, 2, 32, 4, 64)
+    qkv.requires_grad_(True)
+    q, k, v = (qkv.detach()[..., j * 256:(j + 1) * 256].unflatten(-1, (4, 64))
+               .requires_grad_(True) for j in range(3))
+    x = torch.randn(64, 512, device=cuda, requires_grad=True)
+    r, scale, bias = torch.randn_like(x), torch.ones(512, device=cuda), torch.zeros(512, device=cuda)
+    calls = [lambda: attention_from_qkv(qkv, mask, 4, 64),
+             lambda: flash_attention(q, k, v, mask), lambda: oneshot_attention(q, k, v, mask),
+             lambda: add_layer_norm(x, r, scale, bias, 1e-12)]
+    port.reset_launch_counts()
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+    assert sum(port.launch_counts.values()) == 0
+    with torch.no_grad():
+        for call in calls:
+            call()
+    torch.cuda.synchronize()
+    assert all(port.launch_counts[n] == 1 for n in (
+        "attention_qkv", "flash_attention", "oneshot_attention", "add_layer_norm"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_supcon_step_on_the_gpu_matches_the_cpu(cuda, dtype):
+    """One SupCon step's loss and gradients (ac-base-v2, the same two views) on
+    the card and on the CPU: loss within 1e-3 relative, each gradient
+    tensor within cosine 0.99 (the key bias's, zero in exact arithmetic,
+    only small); no kernel launched under autograd."""
+    from adaptive_classifier_tpu_torch import finetune, pretrain, training
+    from adaptive_classifier_tpu_torch.models.encoder import Encoder, tree_from_params
+
+    enc = Encoder(str(REPO / "checkpoints/ac-base-v2"), device="cpu")
+    data = json.loads((REPO / "data/intents.json").read_text())
+    rows = [(t, i) for i, ts in enumerate(data["train"].values()) for t in ts][:32]
+    ids, mask = enc.tokenizer([t for t, _ in rows], max_length=512,
+                              pad_to_buckets=enc.SEQ_BUCKETS)
+    ids, mask = torch.as_tensor(ids), torch.as_tensor(mask)
+    labels = torch.tensor([i for _, i in rows])
+    views = pretrain.two_views(torch.Generator().manual_seed(0), ids, mask, 4,
+                               enc.config.vocab_size, 0.08)
+
+    def step(dev):
+        def loss_fn(p):
+            e = torch.cat([pretrain._mean_pool_embed(p, v.to(dev), mask.to(dev), enc.config,
+                                                     compute_dtype=dtype) for v in views])
+            y = torch.cat([labels, labels]).to(dev)
+            return finetune._supcon(e, y[:, None] == y[None, :], 0.1)
+
+        return training.value_and_grad(loss_fn, enc.master_params() if dev == "cpu" else
+                                       {k: v.to(dev) for k, v in enc.master_params().items()})
+
+    want_loss, want = step("cpu")
+    port.reset_launch_counts()
+    got_loss, got = step("cuda")
+    torch.cuda.synchronize()
+    assert sum(port.launch_counts.values()) == 0
+    assert abs(got_loss.item() - want_loss.item()) <= 1e-3 * abs(want_loss.item())
+    got, want = tree_from_params(got), tree_from_params(want)
+    total = np.sqrt(sum(np.sum(np.square(a)) for s in ("embeddings", "layers")
+                        for a in want[s].values()))
+    for section in ("embeddings", "layers"):
+        for name, w in want[section].items():
+            g = got[section][name]
+            if name == "k_b":
+                assert max(np.linalg.norm(w), np.linalg.norm(g)) <= 1e-3 * total
+                continue
+            cos = float((w * g).sum() / (np.linalg.norm(w) * np.linalg.norm(g)))
+            assert cos >= 0.99, (section, name, cos)
+
+
+def test_finetune_encoder_on_the_gpu(cuda, tmp_path, monkeypatch):
+    """finetune_encoder on the card (ac-base-v2, the ridge head without
+    the lexical channel): finite losses, no B1 or B10 launch inside the
+    chunks, both after them (re-embedding); save writes encoder/ and the
+    load on the CPU embeds within cosine 0.999."""
+    from adaptive_classifier_tpu_torch import finetune
+
+    monkeypatch.delenv("AC_ATTN_IMPL", raising=False)
+    data = json.loads((REPO / "data/intents.json").read_text())
+    rows = [(t, lbl) for lbl, ts in data["train"].items() for t in ts]
+    clf = port.AdaptiveClassifier(str(REPO / "checkpoints/ac-base-v2"), device="cuda",
+                                  config={"head_type": "ridge", "ridge_lambda": 1.0})
+    clf.add_examples([t for t, _ in rows], [lbl for _, lbl in rows])
+    inside, real = [], finetune.supcon_chunk
+
+    def counted(*a, **k):
+        port.reset_launch_counts()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        inside.append(dict(port.launch_counts))
+        port.reset_launch_counts()
+        return out
+
+    monkeypatch.setattr(finetune, "supcon_chunk", counted)
+    rep = clf.finetune_encoder(steps=6, chunk_steps=3, batch=16, lr=1e-4)
+    torch.cuda.synchronize()
+    assert len(inside) == 2 and all(sum(c.values()) == 0 for c in inside)
+    assert port.launch_counts["attention_qkv"] > 0 and port.launch_counts["add_layer_norm"] > 0
+    assert all(np.isfinite(rep["chunk_losses"]))
+    clf.save(tmp_path / "ck")
+    assert (tmp_path / "ck" / "encoder" / "model.safetensors").exists()
+    cpu = port.AdaptiveClassifier.load(tmp_path / "ck", device="cpu")
+    texts = [t for t, _ in rows[:16]]
+    a, b = clf._embed_uncached(texts), cpu._embed_uncached(texts)
+    cos = (a * b).sum(1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b, axis=1)
+    assert cos.min() >= 0.999, cos.min()
+
+
+def test_product_backward_on_the_gpu_is_the_f32_products(cuda):
+    """The training forward's product on the card (bf16 operands,
+    ``torch.mm(..., out_dtype=float32)``) and its backward (``_ProductF32``,
+    f32 products): the forward equal to the CPU's upcast product to f32
+    summation, the bf16 gradients equal to the CPU's on >= 0.99 of the
+    entries and, on all, within one bf16 step plus the f32 sums' own
+    difference (1e-5 of the sum of the terms' magnitudes), at a training
+    step's shapes (64 x 32 tokens, D 512, F 2,048)."""
+    from adaptive_classifier_tpu_torch.models.encoder import _product_f32
+
+    g = torch.Generator().manual_seed(0)
+    for K, N in ((512, 1536), (2048, 512)):
+        x = torch.randn(2048, K, generator=g).bfloat16()
+        w = (torch.randn(K, N, generator=g) / K ** 0.5).bfloat16()
+        cot = torch.randn(2048, N, generator=g)
+        grads = {}
+        for dev in ("cuda", "cpu"):
+            xs, ws = (t.to(dev).requires_grad_(True) for t in (x, w))
+            out = _product_f32(xs, ws)
+            out.backward(cot.to(dev))
+            grads[dev] = (out.detach().cpu(), xs.grad.cpu(), ws.grad.cpu())
+        torch.testing.assert_close(grads["cuda"][0], grads["cpu"][0], rtol=1e-5, atol=1e-4)
+        scales = (cot.abs() @ w.float().abs().t(), x.float().abs().t() @ cot.abs())
+        for got, want, scale in zip(grads["cuda"][1:], grads["cpu"][1:], scales):
+            assert got.dtype == torch.bfloat16
+            bound = want.float().abs() * 2.0 ** -7 + 1e-5 * scale
+            assert ((got.float() - want.float()).abs() <= bound).all()
+            assert (got == want).float().mean() >= 0.99

@@ -45,7 +45,7 @@ def test_port_imports_without_jax():
                 "ops.layernorm", "models.encoder_int8", "models.tokenizer",
                 "quantization", "memory", "training", "lexical", "convert",
                 "models.bpe", "models.hf_tokenizer_adapter", "models.modernbert",
-                "strategic", "native"):
+                "strategic", "native", "finetune", "pretrain", "models.wordpiece_trainer"):
         assert f"adaptive_classifier_tpu_torch.{mod}" in out["imported"]
     leaked = [m for m in out["loaded"]
               if m == "adaptive_classifier_tpu" or m.startswith("adaptive_classifier_tpu.")]

@@ -140,8 +140,13 @@ def test_predict_falls_back_to_base(ml_factory):
 
 
 def test_finetune_encoder_is_not_ported(ml_factory):
-    with pytest.raises(NotImplementedError, match="finetune"):
+    """Multi-label fine-tuning is ported (``tests/test_torch_finetune.py``
+    runs it); its guards raise as the JAX package's do: no stored examples,
+    and a step count that is not positive."""
+    with pytest.raises(ValueError, match="no stored examples"):
         ml_factory().finetune_encoder(steps=1)
+    with pytest.raises(ValueError, match="positive"):
+        ml_factory().finetune_encoder(steps=0)
 
 
 # ---------------------------------------------------------------------------
