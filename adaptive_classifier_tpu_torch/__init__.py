@@ -11,8 +11,11 @@ and ``MultiTenantServer`` gather single requests from many callers into
 device batches; ``MultiLabelAdaptiveClassifier`` gives each text several
 labels.  ``finetune_encoder`` adapts a classifier's encoder to its stored
 examples; ``pretrain`` trains an encoder with MLM and contrastive steps and
-writes HF-layout checkpoints.  Imports torch and numpy only; kernels build with nvcc on first
-use.  ``launch_counts`` counts each kernel's launches
+writes HF-layout checkpoints.  ``export_onnx`` writes the encoder as an
+ONNX graph (``onnx_export``); ``to`` moves a classifier between devices;
+``parallel`` shards the memory, the head and the predict and train steps
+over a ``torch.distributed`` device mesh.  Imports torch and numpy only;
+kernels build with nvcc on first use.  ``launch_counts`` counts each kernel's launches
 (``reset_launch_counts`` zeroes them).
 """
 

@@ -9,7 +9,8 @@ encoder window, strategic mode (``enable_strategic_mode``: the robust,
 strategic and dual predictions, the strategic-aware ridge refit, and
 ``evaluate_strategic_robustness``; ``strategic.py``), encoder
 fine-tuning on the stored examples (``finetune_encoder``; ``finetune.py``),
-and the memory's editing surface (``clear_memory``, ``merge_classifiers``).  Texts are tokenized
+the memory's editing surface (``clear_memory``, ``merge_classifiers``),
+``export_onnx`` / ``export_quantized`` and ``to``.  Texts are tokenized
 (and, with the lexical channel on, hashed into TF-IDF features) on the
 host; the encoder forward, channel composition, prototype similarities,
 head logits and fusion run on the device, and one packed ``[N, 2k]`` block
@@ -154,16 +155,32 @@ class AdaptiveClassifier:
         return persistence.from_pretrained(cls, model_id, device=device)
 
     def to(self, device: Union[str, torch.device]) -> "AdaptiveClassifier":
-        """``self`` for the classifier's own device; moving the state to
-        another device is not ported yet."""
-        dev = torch.device(device)
+        """Move the classifier to ``device`` and return it: the memory state,
+        the head, the encoder's weights (an int8 encoder's K-contiguous
+        copies are made again on a GPU), the strategic cost vectors and the
+        temperature scaler follow; the device ring of cached rows is
+        dropped (the next predict makes one on the new device).  Asking for
+        the GPU where there is none raises ``RuntimeError``."""
+        dev = resolve_device(device)
         if dev.type == self.device.type and (
                 dev.index is None or self.device.index is None
                 or dev.index == self.device.index):
             return self
-        raise NotImplementedError(
-            f"moving a classifier from {self.device} to {dev} comes with a later "
-            f"slice; load the checkpoint with device={str(dev)!r} instead")
+        self.encoder.to(dev)
+        self.memory.to(dev)
+        if self.head_params is not None:
+            self.head_params = training.tree_map(lambda t: t.to(dev), self.head_params)
+        if self.strategic_cost_function is not None:
+            cost = self.strategic_cost_function
+            for name, value in vars(cost).items():
+                if isinstance(value, torch.Tensor):
+                    setattr(cost, name, value.to(dev))
+        if self._temperature_scaler is not None:
+            self._temperature_scaler.device = dev
+        with self._cache_lock:
+            self._dev_cache = None
+        self.device = dev
+        return self
 
     @property
     def strategic_mode(self) -> bool:
@@ -862,8 +879,14 @@ class AdaptiveClassifier:
         full distribution, then its top-k."""
         if not self.label_to_id:
             return [[] for _ in texts]
-        pw, hw = self._history_weights()
         kk = min(max(k, 1), self._class_capacity)
+        return self._predict_rows(texts, self._full_fusion(kk), kk, k)
+
+    def _full_fusion(self, kk: int
+                     ) -> Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
+        """The ``predict`` fusion of one chunk's embeddings → (scores, ids
+        ``[B, kk]``), over the state as it stands now."""
+        pw, hw = self._history_weights()
         state = self.memory.state
         active = self._active_mask()
         proto_bias = self._proto_bias_arr()
@@ -875,7 +898,7 @@ class AdaptiveClassifier:
                 kk, has_head, pallas_min_classes=self.config.pallas_knn_min_classes,
                 proto_bias=proto_bias)
 
-        return self._predict_rows(texts, fuse, kk, k)
+        return fuse
 
     def predict_batch(self, texts: List[str], k: int = 5,
                       batch_size: Optional[int] = None) -> Predictions:
@@ -890,21 +913,28 @@ class AdaptiveClassifier:
         if not self.label_to_id:
             return [[] for _ in texts]
         kk = min(max(k, 1), self._class_capacity)
+        pw = 0.7 if self._fusion_alpha is None else float(self._fusion_alpha)
+        return self._predict_rows(texts, self._topk_fusion(kk, pw), kk, k,
+                                  chunk_override=batch_size)
+
+    def _topk_fusion(self, kk: int, proto_weight: float
+                     ) -> Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
+        """The ``predict_batch`` fusion of one chunk's embeddings → (scores,
+        ids ``[B, kk]``), over the state as it stands now."""
         state = self.memory.state
         active = self._active_mask()
         proto_bias = self._proto_bias_arr()
-        pw = 0.7 if self._fusion_alpha is None else float(self._fusion_alpha)
         has_head = self.head_params is not None
 
         def fuse(emb):
             return fusion.fuse_topk_from_emb(
                 emb, state.proto, state.valid, self.head_params, active,
-                pw, 1.0 - pw, kk, has_head,
+                proto_weight, 1.0 - proto_weight, kk, has_head,
                 pallas_min_classes=self.config.pallas_knn_min_classes,
                 proto_bias=proto_bias,
                 fused_min_classes=self.config.fused_topk_min_classes)
 
-        return self._predict_rows(texts, fuse, kk, k, chunk_override=batch_size)
+        return fuse
 
     def _predict_rows(self, texts: List[str],
                       fuse: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
@@ -1425,3 +1455,30 @@ class AdaptiveClassifier:
             include_quantized = include_onnx
         return persistence.save_classifier(self, Path(save_dir),
                                            include_quantized=include_quantized)
+
+    def export_onnx(self, save_directory: Union[str, Path], quantize: bool = True,
+                    quantization_config: Optional[str] = None) -> Path:
+        """Write the encoder as ``model.onnx`` (``onnx_export``: an opset-17
+        graph with ``last_hidden_state`` and a pooled, L2-normalized
+        ``sentence_embedding``), ``model_quantized.onnx`` with
+        ``quantize`` (int8 MatMul weights behind ``DequantizeLinear``), and
+        the int8 encoder bundle under ``quantized/``
+        (``quantization.save_quantized_encoder``), as the JAX package's
+        ``export_onnx`` does.  ``quantization_config`` names an ONNX
+        Runtime CPU target in the reference and means nothing to the
+        artifact: it is accepted and ignored.  ModernBERT, MPNet and
+        DeBERTa raise ``ValueError`` (``export_quantized`` takes them)."""
+        from .onnx_export import export_encoder_onnx
+        from .quantization import save_quantized_encoder
+
+        save_directory = Path(save_directory)
+        export_encoder_onnx(self.encoder, save_directory, quantize=quantize)
+        save_quantized_encoder(self.encoder, save_directory / "quantized")
+        return save_directory
+
+    def export_quantized(self, save_directory: Union[str, Path]) -> Path:
+        """Write only the int8 encoder bundle
+        (``quantization.save_quantized_encoder``)."""
+        from .quantization import save_quantized_encoder
+
+        return save_quantized_encoder(self.encoder, Path(save_directory))

@@ -336,6 +336,15 @@ class PrototypeMemory:
                 embs = np.asarray(embed_fn(all_texts), np.float32)
                 self._add_batch_locked(all_texts, embs, all_labels)
 
+    def to(self, device: Union[str, torch.device]):
+        """Move the device state to ``device``."""
+        with self._write_lock:
+            st = self.state
+            self.device = torch.device(device)
+            self.state = MemoryState(emb=st.emb.to(self.device), count=st.count.to(self.device),
+                                     proto=st.proto.to(self.device),
+                                     pweight=st.pweight.to(self.device))
+
     def clear(self):
         """Forget every label and example; the capacities stay."""
         with self._write_lock:

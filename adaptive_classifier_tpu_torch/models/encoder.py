@@ -942,6 +942,33 @@ _AUTO_INT8_ON_CUDA = False
 _FUSED_LN_ON_CUDA = True
 
 
+def attention_policy(cfg: EncoderConfig, device: torch.device, seq_len: int,
+                     attn_impl: Optional[str] = None) -> str:
+    """The attention path of a forward at ``seq_len`` tokens: ``"einsum"``
+    for the families with their own attention (``OWN_ATTENTION_ARCHS``;
+    their forward ignores it), else ``attn_impl`` if given, else
+    ``AC_ATTN_IMPL`` if set (the JAX package's override), else plain
+    torch on the CPU; on the GPU the flash kernel (B6) from 1,024 tokens
+    and the packed-QKV kernel (B1) below, inside its envelope (head_dim
+    <= 128, head_dim % 8 == 0, S % 8 == 0).  Outside it the plain
+    attention runs, as the JAX package's plain ``jnp`` path does there."""
+    if cfg.arch in OWN_ATTENTION_ARCHS:
+        return "einsum"
+    if attn_impl is not None:
+        return attn_impl
+    forced = os.environ.get("AC_ATTN_IMPL")
+    if forced:
+        return forced
+    if torch.device(device).type == "cpu":
+        return "einsum"
+    if seq_len >= 1024:
+        return "flash"
+    dh = cfg.head_dim
+    if dh > 128 or dh % 8 or seq_len % 8:
+        return "einsum"
+    return "fusedqkv"
+
+
 def resolve_quantization(quantization: Optional[str],
                          device: torch.device) -> Optional[str]:
     """``None`` (float), ``"int8"``, or ``"auto"`` resolved for ``device``."""
@@ -1058,12 +1085,14 @@ class Encoder:
     def _on_device(self, params: Params) -> Params:
         """The int8 state on the encoder's device; on a CUDA device with the
         K-contiguous QKV, O and FFN weights that kernels B2, B3 and B8 read,
-        made once here."""
+        made once here, elsewhere without them."""
+        from ..ops.ffn_int8 import drop_int8_copies, prepare_int8_weights
+
         params = {k: v.to(self.device) for k, v in params.items()}
         if self.device.type == "cuda":
-            from ..ops.ffn_int8 import prepare_int8_weights
-
             prepare_int8_weights(params)
+        else:
+            drop_int8_copies(params)
         return params
 
     @classmethod
@@ -1116,6 +1145,17 @@ class Encoder:
     def hidden_size(self) -> int:
         return self.config.hidden_size
 
+    def to(self, device: Union[str, torch.device]) -> "Encoder":
+        """Move the weights to ``device``; an int8 state gets its
+        K-contiguous copies again on a GPU and drops them elsewhere
+        (``_on_device``)."""
+        self.device = resolve_device(device)
+        if self.quantization == "int8":
+            self.params = self._on_device(self.params)
+        else:
+            self.params = {k: v.to(self.device) for k, v in self.params.items()}
+        return self
+
     def float_tree(self) -> Tree:
         """The float32 weights as the JAX package's stacked-layer tree, read
         again from where they came from (the local checkpoint, the offline
@@ -1145,29 +1185,9 @@ class Encoder:
         self._finetuned = True
 
     def _attn_impl(self, seq_len: int) -> str:
-        """Attention policy, read on every call: ``"einsum"`` for the
-        families with their own attention (``OWN_ATTENTION_ARCHS``; their
-        forward ignores it), else ``self.attn_impl`` if set, else
-        ``AC_ATTN_IMPL`` if set (the JAX package's override), else plain
-        torch on the CPU; on the GPU the flash kernel (B6) from 1,024 tokens
-        and the packed-QKV kernel (B1) below, inside its envelope (head_dim
-        <= 128, head_dim % 8 == 0, S % 8 == 0).  Outside it the plain
-        attention runs, as the JAX package's plain ``jnp`` path does there."""
-        if self.config.arch in OWN_ATTENTION_ARCHS:
-            return "einsum"
-        if self.attn_impl is not None:
-            return self.attn_impl
-        forced = os.environ.get("AC_ATTN_IMPL")
-        if forced:
-            return forced
-        if self.device.type == "cpu":
-            return "einsum"
-        if seq_len >= 1024:
-            return "flash"
-        dh = self.config.head_dim
-        if dh > 128 or dh % 8 or seq_len % 8:
-            return "einsum"
-        return "fusedqkv"
+        """Attention policy, read on every call: ``self.attn_impl`` if set,
+        else ``attention_policy`` for this encoder's family and device."""
+        return attention_policy(self.config, self.device, seq_len, self.attn_impl)
 
     def embed_ids(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
         """Padded token ids and mask (host int32) → normalized ``[B, D]``."""

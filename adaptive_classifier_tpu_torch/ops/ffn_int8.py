@@ -112,7 +112,7 @@ def k_contiguous(w: torch.Tensor) -> torch.Tensor:
 
 #: the int8 weights the kernels read K-contiguous: QKV (B2), O (B8), the
 #: FFN's two (B3, B8)
-_K_CONTIGUOUS_WEIGHTS = ("qkv_w.int8", "o_w.int8", "ffn_in_w.int8", "ffn_out_w.int8")
+K_CONTIGUOUS_WEIGHTS = ("qkv_w.int8", "o_w.int8", "ffn_in_w.int8", "ffn_out_w.int8")
 
 
 def prepare_int8_weights(params) -> None:
@@ -120,8 +120,16 @@ def prepare_int8_weights(params) -> None:
     every layer's QKV, O and FFN weights of an int8 encoder state, so no
     forward makes one."""
     for key, w in params.items():
-        if key.endswith(_K_CONTIGUOUS_WEIGHTS):
+        if key.endswith(K_CONTIGUOUS_WEIGHTS):
             k_contiguous(w)
+
+
+def drop_int8_copies(params) -> None:
+    """Forget the K-contiguous copies of an int8 encoder state: a state off
+    the GPU keeps none."""
+    for key, w in params.items():
+        if key.endswith(K_CONTIGUOUS_WEIGHTS) and hasattr(w, "_ac_k_contiguous"):
+            del w._ac_k_contiguous
 
 
 def _check_smem(name: str, device: torch.device, D: int, F: int, need: int):

@@ -64,6 +64,11 @@ Phases, each of which must pass:
    LayerNorm off / on / on / off (B10 twice per layer with it on, never
    with it off, embeddings within cosine 0.999), the timing behind
    ``_FUSED_LN_ON_CUDA``;
+4z. loads each of the ten zoo classifiers (``ZOO_TASKS``: the two above,
+   sentiment, llm-router, spam, emotions, topic, priority, moderation,
+   category) from ``checkpoints/zoo/<task>`` and serves its test split
+   (rows as scripts/build_classifier_zoo.py orders them) through
+   ``predict_batch``: top-1 >= manifest - 0.03, B1 and B10 launched;
 6. builds banking-intents from data/intents.json with ``add_examples`` on
    the production config (lexical_dim 32768, ridge head, auto knobs), then
    adds its three new classes; accuracy >= manifest - 0.03; 6i does the
@@ -111,6 +116,43 @@ Phases, each of which must pass:
    >= 0.999 against fusedqkv; then ``AdaptiveClassifier("bert-base-uncased")``
    takes add_examples and answers predict_batch (random weights: launch
    counts and answers gated, accuracy reported);
+16o. ``export_onnx`` of banking-intents' encoder (ac-base-v2): the port's
+   ``OnnxLiteModel`` (numpy, on the host) runs ``model.onnx`` on the first
+   32 test rows at S 32; its ``sentence_embedding`` within cosine 0.9999
+   of the port's float32 forward on the card on every row, and 0.99 of
+   the default bf16 forward (B1 8x, B10 16x; the mean reported);
+   ``model_quantized.onnx`` under 0.55 of ``model.onnx``'s size and within
+   cosine 0.99 of it; the ``quantized/`` bundle, as the encoder of a copy
+   of the classifier whose model name has no local checkpoint, loads
+   through ``AdaptiveClassifier.load`` as an int8 classifier that serves
+   the 200 test rows through B2, B3 and B1 (top-1 >= manifest - 0.03,
+   agreement with bf16 >= 0.95);
+16p. the sharded stack (``parallel/``) in an NCCL process group of one
+   rank (``initialize_distributed`` on a ``file://`` rendezvous), mesh
+   (1, 1): (a) ``ShardedAdaptiveClassifier`` and the plain classifier
+   built from banking's 140 train rows on the production config agree on
+   >= 0.99 of the 200 test rows' top-1, scores within 1e-4, the facade's
+   ``predict_batch`` shard-local (B1, B10 and B4, nothing gathered); (b) phase 7's
+   1,024-class index in a ``ShardedPrototypeMemory`` answers
+   ``get_nearest_prototypes`` as the plain memory does on >= 0.99 of 256
+   queries (B4 on each), and ``make_sharded_topk`` on its placed
+   prototypes equals the single-device top-k (B4); (c) tp = 4 emulated on
+   phase 8's [16,384, 512] prototypes: four shard-local searches (B4, the
+   lower-index top-k) merged by ``merge_candidates`` equal B5's top-k on
+   >= 0.99 of 256 rows, scores within 1e-5; (d) one
+   ``make_sharded_train_step`` equals ``reference_train_step`` with the
+   same generator (loss, head and prototypes within 1e-5; B1 and B10), and
+   ``make_sharded_predict`` the single-device ``fusion.fuse_full`` on the
+   stepped state (B1, B10, B4; ids on >= 0.99 of rows, scores within
+   1e-5).  The group is torn down whatever happens;
+16d. ``to("cpu")`` then ``to("cuda")`` on banking-intents (bf16): every
+   state tensor on the named device after each move, the device ring
+   dropped; after the return ``predict_batch`` on the 200 test rows
+   launches B1 and agrees with phase 4z's never-moved classifier (top-1
+   >= 0.99, score gap <= 1e-3).  The same round trip of its int8
+   classifier: no K-contiguous copy on the CPU, every one made again on
+   the card, B2, B3 and B1 launched after the return, and answers equal
+   to its own before the move (top-1 >= 0.99, score gap <= 1e-3);
 10. serves banking-intents through ``BatchingClassifierServer``
    (max_batch_size 64, max_wait_ms 2, 2 workers) from 8 client threads in
    a shuffled order: (a) cold, every future resolved, top-1 agreement
@@ -208,9 +250,9 @@ Phases, each of which must pass:
 5. prints the ``kernels`` JSON line, then as its last line
    ``{"ok": true, "device": {...}}``.
 
-Each phase prints its seconds; phases 4, 4i, 4a, 6, 6i, 6m, 6s, 6l, 6t, 7, 7t,
-8, 9, 10-13, 14 and 15f-15p zero the launch counts just before each step and
-read them just after.
+Each phase prints its seconds; phases 4, 4i, 4a, 4z, 6, 6i, 6m, 6s, 6l, 6t, 7,
+7t, 8, 9, 16o, 16p, 16d, 10-13, 14 and 15f-15p zero the launch counts just
+before each step and read them just after.
 Timings of ``predict_batch`` (phases 4, 4i and 8) are cold, the embedding
 caches cleared before each call, so that every call runs the encoder; a
 warm figure, served from the device cache, is printed beside them under
@@ -3470,6 +3512,442 @@ def run_pretrain(launches: Launches, gpu: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4z: every zoo task; phases 16o, 16p, 16d: ONNX export, the sharded
+# stack on one rank, to()
+# ---------------------------------------------------------------------------
+
+#: the zoo's ten tasks (phase 4z); the phases before it serve ``TASKS``
+ZOO_TASKS = TASKS + ("sentiment", "llm-router", "spam", "emotions", "topic", "priority",
+                     "moderation", "category")
+
+
+def zoo_rows(task: str):
+    """(texts, labels) of any zoo task's test split, in the row order of
+    scripts/build_classifier_zoo.py (``task_rows`` for the first two)."""
+    if task in TASKS:
+        return task_rows(task)
+    data = REPO / "data"
+    if task == "sentiment":
+        sent = json.loads((data / "sentiment.json").read_text())
+        rows = ([(t, "positive") for t in sent["test"]["positive"]]
+                + [(t, "negative") for t in sent["test"]["negative"]])
+    elif task == "llm-router":
+        router = json.loads((data / "router.json").read_text())
+        rows = [(r["q"], r["label"]) for r in router["eval"]]
+    else:
+        blob = json.loads((data / f"{task}.json").read_text())
+        rows = [(t, lbl) for lbl, ts in blob["test"].items() for t in ts]
+    return [t for t, _ in rows], [lbl for _, lbl in rows]
+
+
+def run_zoo(manifest: dict, launches: Launches) -> dict:
+    """Phase 4z: each of the ten zoo classifiers loaded from
+    ``checkpoints/zoo/<task>`` answers ``predict_batch`` on its test split:
+    top-1 >= manifest - 0.03 (phase 4's gate), B1 and B10 launched."""
+    import adaptive_classifier_tpu_torch as port
+
+    out = {}
+    for task in ZOO_TASKS:
+        texts, labels = zoo_rows(task)
+        t0 = time.perf_counter()
+        clf = port.AdaptiveClassifier.load(REPO / "checkpoints" / "zoo" / task,
+                                           device="cuda")
+        load_s = time.perf_counter() - t0
+        preds, counts = launches.run(lambda: clf.predict_batch(texts, k=1))
+        check_launched(f"4z {task}", {"predict_batch": counts})
+        acc = accuracy(preds, labels)
+        floor = manifest["classifiers"][task]["expected_accuracy"] - 0.03
+        out[task] = {"rows": len(texts), "top1_accuracy": acc, "accuracy_floor": floor,
+                     "load_s": load_s, "attention_qkv": counts["attention_qkv"],
+                     "add_layer_norm": counts["add_layer_norm"], "preds": preds}
+        del clf
+    log("  zoo " + json.dumps({t: {k: v for k, v in r.items() if k != "preds"}
+                               for t, r in out.items()}))
+    for task, r in out.items():
+        if not r["top1_accuracy"] >= r["accuracy_floor"]:
+            raise AssertionError(f"4z {task}: top-1 {r['top1_accuracy']:.4f} < "
+                                 f"{r['accuracy_floor']:.4f}")
+    torch.cuda.empty_cache()
+    return out
+
+
+#: ONNX bounds: the float artifact against the port's float32 forward on
+#: the card, and against the default bf16 forward (per row); the quantized
+#: artifact's size share and cosine (JAX tests/test_onnx_export.py:97-116)
+ONNX_F32_COSINE = 0.9999
+ONNX_BF16_COSINE = 0.99
+ONNX_QUANT_SIZE_SHARE = 0.55
+ONNX_QUANT_COSINE = 0.99
+
+
+def run_onnx(manifest: dict, launches: Launches, gpu: str) -> dict:
+    """Phase 16o: ``export_onnx`` of banking-intents' encoder (ac-base-v2);
+    ``OnnxLiteModel`` (numpy, on the host) on its first 32 test rows at S 32
+    against the port's float32 and bf16 forwards on the card; the quantized
+    artifact's size and agreement; the ``quantized/`` bundle loaded through
+    ``AdaptiveClassifier.load`` as an int8 classifier (B2, B3)."""
+    import shutil
+
+    import adaptive_classifier_tpu_torch as port
+    from adaptive_classifier_tpu_torch.models.encoder import Encoder
+    from adaptive_classifier_tpu_torch.onnx_export import OnnxLiteModel
+
+    task = "banking-intents"
+    zoo = REPO / "checkpoints" / "zoo" / task
+    (REPO / ".smoke").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="onnx-", dir=REPO / ".smoke"))
+    try:
+        clf = port.AdaptiveClassifier.load(zoo, device="cuda")
+        t0 = time.perf_counter()
+        clf.export_onnx(work / "export")
+        export_s = time.perf_counter() - t0
+        texts, labels = zoo_rows(task)
+        ids, mask = clf.encoder.tokenizer(texts[:32], max_length=32,
+                                          pad_to_buckets=clf.encoder.SEQ_BUCKETS)
+        feeds = {"input_ids": ids.astype(np.int64), "attention_mask": mask.astype(np.int64)}
+        t0 = time.perf_counter()
+        model = OnnxLiteModel(work / "export" / "model.onnx")
+        parse_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sent = model.run(feeds)["sentence_embedding"]
+        run_s = time.perf_counter() - t0
+        del model
+        sent_q = OnnxLiteModel(work / "export" / "model_quantized.onnx").run(
+            feeds)["sentence_embedding"]
+        f32 = Encoder(str(ENCODER), compute_dtype="float32", device="cuda")
+        cos_f32 = row_cos(sent, f32.embed_ids(ids, mask).cpu().numpy())
+        del f32
+        bf16, counts = launches.run(lambda: clf.encoder.embed_ids(ids, mask))
+        layers = clf.encoder.config.num_layers
+        if counts["attention_qkv"] != layers or counts["add_layer_norm"] != 2 * layers:
+            raise AssertionError(f"16o: the bf16 forward launched {counts}, expected B1 "
+                                 f"{layers}x and B10 {2 * layers}x")
+        cos_bf16 = row_cos(sent, bf16.float().cpu().numpy())
+        cos_q = row_cos(sent, sent_q)
+        sizes = {n: (work / "export" / n).stat().st_size
+                 for n in ("model.onnx", "model_quantized.onnx")}
+        share = sizes["model_quantized.onnx"] / sizes["model.onnx"]
+        bf16_top1 = top1(clf.predict_batch(texts, k=1))
+        del clf
+
+        # the quantized/ bundle as the encoder of a classifier whose model
+        # name has no local checkpoint: the load builds it from the export
+        ckpt = work / "classifier"
+        shutil.copytree(zoo, ckpt, ignore=shutil.ignore_patterns("quantized"))
+        shutil.copytree(work / "export" / "quantized", ckpt / "quantized")
+        cfg = json.loads((ckpt / "config.json").read_text())
+        cfg["model_name"] = "ac-base-v2-from-its-onnx-export"
+        cfg["config"]["quantization"] = "int8"
+        (ckpt / "config.json").write_text(json.dumps(cfg))
+        int8 = port.AdaptiveClassifier.load(ckpt, device="cuda")
+        preds, int8_counts = launches.run(lambda: int8.predict_batch(texts, k=1))
+        check_launched("16o quantized/", {"predict_batch": int8_counts},
+                       kernels=("matmul_int8", "ffn_int8", "attention_qkv"))
+        int8_acc = accuracy(preds, labels)
+        int8_agree = float(np.mean([a == b for a, b in zip(top1(preds), bf16_top1)]))
+        del int8
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    floor = manifest["classifiers"][task]["expected_accuracy"] - 0.03
+    out = {"rows": int(ids.shape[0]), "seq_len": int(ids.shape[1]), "export_s": export_s,
+           "onnx_parse_s": parse_s, "onnx_run_s": run_s, "sizes": sizes,
+           "quantized_size_share": share,
+           "min_cosine_float32_forward": float(cos_f32.min()),
+           "min_cosine_bf16_forward": float(cos_bf16.min()),
+           "mean_cosine_bf16_forward": float(cos_bf16.mean()),
+           "min_cosine_quantized_artifact": float(cos_q.min()),
+           "bf16_launches": counts, "quantized_bundle_launches": int8_counts,
+           "quantized_bundle_top1": int8_acc, "accuracy_floor": floor,
+           "quantized_bundle_agreement_with_bf16": int8_agree, "gpu": gpu}
+    log(f"  onnx {json.dumps(out)}")
+    if not cos_f32.min() >= ONNX_F32_COSINE:
+        raise AssertionError(f"16o: ONNX vs float32 forward cosine {cos_f32.min():.6f}")
+    if not cos_bf16.min() >= ONNX_BF16_COSINE:
+        raise AssertionError(f"16o: ONNX vs bf16 forward cosine {cos_bf16.min():.6f}")
+    if not (share < ONNX_QUANT_SIZE_SHARE and cos_q.min() > ONNX_QUANT_COSINE):
+        raise AssertionError(f"16o: quantized artifact share {share:.4f}, cosine "
+                             f"{cos_q.min():.6f}")
+    if not (int8_acc >= floor and int8_agree >= INT8_AGREEMENT_FLOOR):
+        raise AssertionError(f"16o: the quantized/ bundle's classifier: top-1 {int8_acc:.4f} "
+                             f"(floor {floor:.4f}), agreement with bf16 {int8_agree:.4f}")
+    torch.cuda.empty_cache()
+    return out
+
+
+#: the sharded facade against the plain classifier (JAX
+#: tests/test_parallel.py:280-325): top-1 agreement and score gap
+MIN_SHARDED_AGREEMENT = 0.99
+MAX_SHARDED_SCORE_GAP = 1e-4
+
+
+def score_gap(got, want) -> float:
+    """The largest difference of two prediction lists' top scores."""
+    return max((abs(a[0][1] - b[0][1]) for a, b in zip(got, want) if a and b), default=0.0)
+
+
+def run_parallel(p7: dict, p8: dict, launches: Launches, gpu: str) -> dict:
+    """Phase 16p: the sharded stack in an NCCL process group of one rank on
+    a (1, 1) mesh: (a) ``ShardedAdaptiveClassifier`` against the plain
+    classifier on banking's production build; (b) phase 7's 1,024-class
+    index in a ``ShardedPrototypeMemory``, and ``make_sharded_topk`` on its
+    placed prototypes; (c) tp = 4 emulated on phase 8's prototypes (four
+    shard-local searches through B4, merged by ``merge_candidates``) against
+    B5's single-device top-k; (d) one ``make_sharded_train_step`` against
+    ``reference_train_step`` and one ``make_sharded_predict`` against the
+    single-device fusion.  The group is torn down whatever happens."""
+    import shutil
+
+    import adaptive_classifier_tpu_torch as port
+    from adaptive_classifier_tpu_torch import training
+    from adaptive_classifier_tpu_torch.memory import init_state
+    from adaptive_classifier_tpu_torch.models import head as head_lib
+    from adaptive_classifier_tpu_torch.models.encoder import Encoder, embed_texts_device
+    from adaptive_classifier_tpu_torch.ops import fusion, knn, knn_topk
+    from adaptive_classifier_tpu_torch.parallel import multihost
+    from adaptive_classifier_tpu_torch.parallel.facade import (ShardedAdaptiveClassifier,
+                                                               ShardedPrototypeMemory)
+    from adaptive_classifier_tpu_torch.parallel.mesh import make_mesh
+    from adaptive_classifier_tpu_torch.parallel.sharded import (
+        ShardedTrainState, make_sharded_predict, make_sharded_train_step,
+        reference_train_step, shard_state)
+    from adaptive_classifier_tpu_torch.parallel.sharded_knn import (local_topk,
+                                                                    make_sharded_topk,
+                                                                    merge_candidates)
+
+    out = {"gpu": gpu}
+    (REPO / ".smoke").mkdir(exist_ok=True)
+    rdzv = Path(tempfile.mkdtemp(prefix="rdzv-", dir=REPO / ".smoke")) / "file"
+    try:
+        if not multihost.initialize_distributed(f"file://{rdzv}", num_processes=1,
+                                                process_id=0, backend="nccl"):
+            raise AssertionError("16p: no process group")
+        mesh = make_mesh()
+        out["mesh"] = list(mesh.shape)
+
+        # (a) the facade on the production build of banking-intents
+        texts, labels = intents_rows("train")
+        test_t, test_l = intents_rows("test_base")
+        plain = port.AdaptiveClassifier(str(ENCODER), config=dict(PRODUCTION), device="cuda")
+        shard = ShardedAdaptiveClassifier(str(ENCODER), mesh=mesh, config=dict(PRODUCTION),
+                                          device="cuda")
+        plain.add_examples(texts, labels)
+        _, add_counts = launches.run(lambda: shard.add_examples(texts, labels))
+        want = plain.predict_batch(test_t, k=3)
+        shard.memory._view, shard._head_full = None, None   # the gathered views
+        got, pb_counts = launches.run(lambda: shard.predict_batch(test_t, k=3))
+        check_launched("16p facade", {"add_examples": add_counts})
+        check_launched("16p facade", {"predict_batch": pb_counts},
+                       kernels=ADD_KERNELS + ("knn_sims",))
+        view = shard.memory._view
+        if (view is not None and view._full) or shard._head_full is not None:
+            raise AssertionError("16p (a): the facade's predict_batch gathered the state")
+        agree = float(np.mean([a == b for a, b in zip(top1(got), top1(want))]))
+        gap = score_gap(got, want)
+        out["a_facade"] = {"top1_agreement": agree, "max_score_gap": gap,
+                           "top1_accuracy": accuracy(got, test_l),
+                           "fusion_alpha": [plain._fusion_alpha, shard._fusion_alpha],
+                           "memory_placements": str(shard.memory._placed.emb.placements),
+                           "launches": {"add_examples": add_counts, "predict_batch": pb_counts}}
+        if not (agree >= MIN_SHARDED_AGREEMENT and gap <= MAX_SHARDED_SCORE_GAP):
+            raise AssertionError(f"16p (a): sharded facade agreement {agree:.4f}, gap {gap:.2e}")
+        del plain, shard
+
+        # (b) phase 7's index in a sharded memory
+        src = p7["clf"].memory
+        mem = ShardedPrototypeMemory(src.embedding_dim, config=src.config, device="cuda",
+                                     mesh=mesh)
+        st = src.state
+        mem.state = type(st)(emb=st.emb.clone(), count=st.count.clone(),
+                             proto=st.proto.clone(), pweight=st.pweight.clone())
+        mem.label_to_index = dict(src.label_to_index)
+        mem.index_to_label = dict(src.index_to_label)
+        mem.texts = {l: list(t) for l, t in src.texts.items()}
+        q = p7["shapes"]["emb"][:256].contiguous()
+        qn = q.cpu().numpy()
+        got_b, b_counts = launches.run(
+            lambda: [mem.get_nearest_prototypes(row, k=5) for row in qn])
+        want_b = [src.get_nearest_prototypes(row, k=5) for row in qn]
+        agree_b = float(np.mean([[l for l, _ in a] == [l for l, _ in b]
+                                 for a, b in zip(got_b, want_b)]))
+        (s_sh, i_sh, _), sh_counts = launches.run(lambda: make_sharded_topk(mesh, 5)(
+            q, mem._placed.proto, mem._placed.count.to_local().gt(0)))
+        s_1, i_1 = knn.topk_scores(knn.masked_sims(q, st.proto, st.valid), st.valid, 5)
+        out["b_memory_1024"] = {
+            "queries": len(qn), "agreement": agree_b,
+            "sharded_topk_equal_id_rows": float((i_sh == i_1).all(dim=1).float().mean()),
+            "sharded_topk_max_score_diff": float((s_sh - s_1).abs().max()),
+            "launches": {"get_nearest_prototypes": b_counts, "sharded_topk": sh_counts}}
+        b = out["b_memory_1024"]
+        if not (agree_b >= 0.99 and b_counts["knn_sims"] >= len(qn)
+                and sh_counts["knn_sims"] >= 1 and b["sharded_topk_equal_id_rows"] >= 0.99
+                and b["sharded_topk_max_score_diff"] <= 1e-5):
+            raise AssertionError(f"16p (b): {b}")
+        del mem
+
+        # (c) tp = 4 on one card: four shard-local searches, one merge
+        s8 = p8["shapes"]
+        P, V, k = s8["proto"], s8["valid"], 5
+        q8 = s8["emb"][:256].contiguous()
+        C_l = P.shape[0] // 4
+
+        def emulated():
+            parts = [local_topk(q8, P[i * C_l:(i + 1) * C_l].contiguous(),
+                                V[i * C_l:(i + 1) * C_l].contiguous(), k, offset=i * C_l)
+                     for i in range(4)]
+            return merge_candidates(torch.cat([v for v, _ in parts], 1),
+                                    torch.cat([i for _, i in parts], 1), k)
+
+        (s_c, i_c, _), c_counts = launches.run(emulated)
+        (s_5, i_5), c5_counts = launches.run(lambda: knn_topk.topk_scores_fused(q8, P, V, k))
+        equal_rows = float((i_c == i_5).all(dim=1).float().mean())
+        diff = float((s_c - s_5).abs().max())
+        out["c_emulated_tp4"] = {"classes": P.shape[0], "queries": q8.shape[0],
+                                 "equal_id_rows": equal_rows, "max_score_diff": diff,
+                                 "launches": {"shards": c_counts, "b5": c5_counts}}
+        if not (equal_rows >= 0.99 and diff <= 1e-5 and c_counts["knn_sims"] == 4):
+            raise AssertionError(f"16p (c): {out['c_emulated_tp4']}")
+
+        # (d) one train step and one predict step against one device
+        enc = Encoder(str(ENCODER), device="cuda")
+        cfg = enc.config
+        D, C = cfg.hidden_size, 16
+        ids, mask = enc.tokenizer(texts[:32], max_length=32,
+                                  pad_to_buckets=enc.SEQ_BUCKETS)
+        ids_t, mask_t = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+        names = sorted(set(labels))
+        lbl = torch.tensor([names.index(l) for l in labels[:32]], device="cuda")
+        lbl[5] = -1
+        active = torch.arange(C, device="cuda") < len(names)
+        head = head_lib.init_head(D, C, len(names), hidden_dims=[D, D // 2],
+                                  generator=torch.Generator(device="cuda").manual_seed(7))
+        mem0 = init_state(C, 16, D, "cuda")
+        mem_sh, head_sh = shard_state(mesh, mem0, head)
+        step = make_sharded_train_step(mesh, cfg)
+        (state_sh, loss_sh), d_counts = launches.run(lambda: step(
+            enc.params, ShardedTrainState(head_sh, training.adamw_init(head_sh), mem_sh),
+            ids_t, mask_t, lbl, active, torch.Generator(device="cuda").manual_seed(0)))
+        state_1, loss_1 = reference_train_step(
+            enc.params, ShardedTrainState(head, training.adamw_init(head), mem0), ids_t,
+            mask_t, lbl, active, torch.Generator(device="cuda").manual_seed(0), cfg)
+        check_launched("16p train step", {"step": d_counts})
+        head_diff = max(float((a.full_tensor() - b).abs().max()) for a, b in zip(
+            training.tree_leaves(state_sh.head_params), training.tree_leaves(state_1.head_params)))
+        proto_diff = float((state_sh.memory.proto.full_tensor()
+                            - state_1.memory.proto).abs().max())
+        predict = make_sharded_predict(mesh, cfg, k=3)
+        pw = torch.full((C,), 0.7, device="cuda")
+        (s_p, i_p), p_counts = launches.run(lambda: predict(
+            enc.params, state_sh.head_params, ids_t, mask_t, state_sh.memory.proto,
+            state_sh.memory.count.to_local().gt(0), active, (pw, 1.0 - pw)))
+        with torch.inference_mode():
+            emb = embed_texts_device(enc.params, ids_t, mask_t, cfg, enc.compute_dtype,
+                                     attn_impl="fusedqkv")
+            valid = state_1.memory.count > 0
+            s_r, i_r = fusion.fuse_full(knn.masked_sims_ref(emb, state_1.memory.proto, valid),
+                                        head_lib.head_forward(state_1.head_params, emb),
+                                        valid, active, pw, 1.0 - pw, 3, True)
+        check_launched("16p predict step", {"predict": p_counts},
+                       kernels=("attention_qkv", "add_layer_norm", "knn_sims"))
+        out["d_steps"] = {
+            "loss": [float(loss_sh), float(loss_1)], "head_max_diff": head_diff,
+            "proto_max_diff": proto_diff,
+            "predict_equal_id_rows": float((i_p == i_r).all(dim=1).float().mean()),
+            "predict_max_score_diff": float((s_p - s_r).abs().max()),
+            "launches": {"train_step": d_counts, "predict": p_counts}}
+        d = out["d_steps"]
+        if not (abs(d["loss"][0] - d["loss"][1]) <= 1e-5 and head_diff <= 1e-5
+                and proto_diff <= 1e-5 and d["predict_equal_id_rows"] >= 0.99
+                and d["predict_max_score_diff"] <= 1e-5):
+            raise AssertionError(f"16p (d): {d}")
+    finally:
+        multihost.shutdown_distributed()
+        shutil.rmtree(rdzv.parent, ignore_errors=True)
+    log(f"  parallel {json.dumps(out)}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def device_types(clf) -> set:
+    """The device types of every tensor of a classifier's state."""
+    from adaptive_classifier_tpu_torch import training
+
+    st = clf.memory.state
+    tensors = [st.emb, st.count, st.proto, st.pweight, *clf.encoder.params.values()]
+    if clf.head_params is not None:
+        tensors += training.tree_leaves(clf.head_params)
+    return {t.device.type for t in tensors}
+
+
+def run_to(zoo: dict, launches: Launches) -> dict:
+    """Phase 16d: banking-intents (bf16) moved to the CPU and back with
+    ``to()``: every state tensor on the named device after each move, the
+    device ring dropped, B1 and B10 after the return, answers equal to
+    phase 4z's never-moved classifier (top-1 agreement >= 0.99, top score
+    gap <= 1e-3).  Then its int8 classifier: no K-contiguous copy on the
+    CPU, all made again on the card, B2, B3 and B1 after the return, and
+    answers equal to its own before the move."""
+    import adaptive_classifier_tpu_torch as port
+
+    task = "banking-intents"
+    texts, _ = zoo_rows(task)
+    clf = port.AdaptiveClassifier.load(REPO / "checkpoints" / "zoo" / task, device="cuda")
+    clf.predict_batch(texts[:8], k=1)              # the device ring exists
+    if (clf.to("cpu") is not clf or device_types(clf) != {"cpu"}
+            or clf._dev_cache is not None):
+        raise AssertionError(f"16d: after to('cpu') {device_types(clf)}")
+    if clf.to("cuda") is not clf or device_types(clf) != {"cuda"}:
+        raise AssertionError(f"16d: after to('cuda') {device_types(clf)}")
+    preds, counts = launches.run(lambda: clf.predict_batch(texts, k=1))
+    check_launched("16d", {"predict_batch after the round trip": counts})
+    want = zoo[task]["preds"]
+    agree = float(np.mean([a == b for a, b in zip(top1(preds), top1(want))]))
+    gap = score_gap(preds, want)
+    out = {"rows": len(texts), "top1_agreement": agree, "max_score_gap": gap,
+           "launches": counts}
+    if not (agree >= MIN_SERVED_AGREEMENT and gap <= MAX_SERVED_SCORE_GAP):
+        raise AssertionError(f"16d: {out}")
+    del clf
+
+    # the int8 classifier: its K-contiguous copies stay behind on the way
+    # to the CPU and are made again on the way back
+    from adaptive_classifier_tpu_torch.ops.ffn_int8 import K_CONTIGUOUS_WEIGHTS
+
+    clf = port.AdaptiveClassifier.load(int8_checkpoint(task), device="cuda")
+    params = clf.encoder.params
+    kc = [k for k in params if k.endswith(K_CONTIGUOUS_WEIGHTS)]
+    before = clf.predict_batch(texts, k=1)
+    clf.to("cpu")
+    params = clf.encoder.params
+    if device_types(clf) != {"cpu"} or any(hasattr(w, "_ac_k_contiguous")
+                                           for w in params.values()):
+        raise AssertionError(f"16d int8: after to('cpu') {device_types(clf)}")
+    on_cpu = clf.predict_batch(texts[:8], k=1)
+    clf.to("cuda")
+    params = clf.encoder.params
+    if device_types(clf) != {"cuda"} or not all(hasattr(params[k], "_ac_k_contiguous")
+                                                for k in kc):
+        raise AssertionError(f"16d int8: after to('cuda') {device_types(clf)}")
+    preds8, counts8 = launches.run(lambda: clf.predict_batch(texts, k=1))
+    check_launched("16d int8", {"predict_batch after the round trip": counts8},
+                   kernels=("matmul_int8", "ffn_int8", "attention_qkv"))
+    out["int8"] = {"k_contiguous_weights": len(kc),
+                   "top1_agreement": float(np.mean([a == b for a, b in
+                                                    zip(top1(preds8), top1(before))])),
+                   "max_score_gap": score_gap(preds8, before),
+                   "cpu_top1_agreement_8_rows": float(np.mean(
+                       [a == b for a, b in zip(top1(on_cpu), top1(before[:8]))])),
+                   "launches": counts8}
+    log(f"  to {json.dumps(out)}")
+    i8 = out["int8"]
+    if not (kc and i8["top1_agreement"] >= MIN_SERVED_AGREEMENT
+            and i8["max_score_gap"] <= MAX_SERVED_SCORE_GAP):
+        raise AssertionError(f"16d int8: {i8}")
+    del clf
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr, flush=True)
@@ -3556,6 +4034,11 @@ def main() -> int:
         for r in attn_runs]))
     phase_done("4a", t0)
 
+    log("phase 4z: the ten zoo tasks from checkpoints/zoo")
+    t0 = time.perf_counter()
+    zoo = run_zoo(manifest, launches)
+    phase_done("4z", t0)
+
     log("phase 6: build banking-intents from data on the production config")
     t0 = time.perf_counter()
     build = run_build(manifest, launches)
@@ -3608,6 +4091,21 @@ def main() -> int:
     t0 = time.perf_counter()
     bert = run_bert_base(manifest, launches, gpu)
     phase_done("9", t0)
+
+    log("phase 16o: ONNX export of banking-intents' encoder, the numpy interpreter")
+    t0 = time.perf_counter()
+    onnx_run = run_onnx(manifest, launches, gpu)
+    phase_done("16o", t0)
+
+    log("phase 16p: the sharded stack in an NCCL group of one rank, mesh (1, 1)")
+    t0 = time.perf_counter()
+    parallel_run = run_parallel(p7, p8, launches, gpu)
+    phase_done("16p", t0)
+
+    log("phase 16d: to('cpu') and back to the card")
+    t0 = time.perf_counter()
+    to_run = run_to(zoo, launches)
+    phase_done("16d", t0)
 
     log("phase 10: the batching server (8 clients, 2 workers), the device cache, "
         "two tenants, 1,024 classes")
@@ -3894,6 +4392,24 @@ def main() -> int:
                     finetuned_ml["jax_cpu_micro_f1_after"]],
             "15p": [pretrained["mlm_chunk_losses"], pretrained["mlm_steps_per_s"],
                     pretrained["contrastive_steps_per_s"]]}))
+    log("  zoo tasks (4z: top-1, floor) " + json.dumps(
+        {t: [r["top1_accuracy"], r["accuracy_floor"]] for t, r in zoo.items()}))
+    log("  ONNX (16o: min cosine to the f32 / bf16 forward, mean to bf16, quantized "
+        "size share, quantized/ bundle top-1) " + json.dumps(
+            [onnx_run["min_cosine_float32_forward"], onnx_run["min_cosine_bf16_forward"],
+             onnx_run["mean_cosine_bf16_forward"], onnx_run["quantized_size_share"],
+             onnx_run["quantized_bundle_top1"]]))
+    log("  sharded stack (16p: facade agreement and gap; 1,024-class memory agreement; "
+        "emulated tp=4 equal rows and score diff; train-step loss and head diffs) "
+        + json.dumps([
+            [parallel_run["a_facade"]["top1_agreement"], parallel_run["a_facade"]["max_score_gap"]],
+            parallel_run["b_memory_1024"]["agreement"],
+            [parallel_run["c_emulated_tp4"]["equal_id_rows"],
+             parallel_run["c_emulated_tp4"]["max_score_diff"]],
+            [parallel_run["d_steps"]["loss"], parallel_run["d_steps"]["head_max_diff"]]]))
+    log("  to() round trip (16d: top-1 agreement, score gap; int8 the same) " + json.dumps(
+        [to_run["top1_agreement"], to_run["max_score_gap"],
+         to_run["int8"]["top1_agreement"], to_run["int8"]["max_score_gap"]]))
     log(f"  phase 6i resolved {json.dumps(build_int8['resolved'])} zoo "
         f"{json.dumps(build_int8['zoo'])} top-1 {build_int8['top1_accuracy']}")
     log(gpu)

@@ -45,7 +45,9 @@ def test_port_imports_without_jax():
                 "ops.layernorm", "models.encoder_int8", "models.tokenizer",
                 "quantization", "memory", "training", "lexical", "convert",
                 "models.bpe", "models.hf_tokenizer_adapter", "models.modernbert",
-                "strategic", "native", "finetune", "pretrain", "models.wordpiece_trainer"):
+                "strategic", "native", "finetune", "pretrain", "models.wordpiece_trainer",
+                "onnx_export", "parallel.mesh", "parallel.multihost", "parallel.sharded_knn",
+                "parallel.sharded", "parallel.checkpoint", "parallel.facade"):
         assert f"adaptive_classifier_tpu_torch.{mod}" in out["imported"]
     leaked = [m for m in out["loaded"]
               if m == "adaptive_classifier_tpu" or m.startswith("adaptive_classifier_tpu.")]
@@ -56,13 +58,16 @@ def _sources():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                          REPO / "scripts" / "torch_time_attention.py",
                                          REPO / "scripts" / "torch_time_ffn_int8.py",
-                                         REPO / "scripts" / "torch_time_knn.py"]
+                                         REPO / "scripts" / "torch_time_knn.py",
+                                         REPO / "tests" / "torch_parallel_helpers.py"]
 
 
 #: a package a module may import inside a function, where it is installed:
 #: the Rust tokenizers runtime, which the adapter uses where it is present
-#: and the port's own byte-level BPE replaces where it is not
-OPTIONAL = {"hf_tokenizer_adapter.py": {"tokenizers"}}
+#: and the port's own byte-level BPE replaces where it is not; scipy's erf,
+#: which the ONNX interpreter uses where it is present (``math.erf`` where
+#: it is not)
+OPTIONAL = {"hf_tokenizer_adapter.py": {"tokenizers"}, "onnx_export.py": {"scipy"}}
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))

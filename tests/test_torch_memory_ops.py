@@ -198,8 +198,11 @@ def test_from_pretrained_local_directory_and_to(tmp_path):
     with pytest.raises(ValueError, match="Hub"):
         AdaptiveClassifier.from_pretrained("org/some-model", device="cpu")
     assert back.to("cpu") is back and back.to(torch.device("cpu")) is back
-    with pytest.raises(NotImplementedError, match="later slice"):
-        back.to("cuda")
+    if torch.cuda.is_available():
+        assert back.to("cuda") is back and back.memory.state.proto.is_cuda
+    else:   # the GPU is asked for and there is none: it raises, never stays
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            back.to("cuda")
 
 
 def _legacy_checkpoint(dst: Path) -> Path:
