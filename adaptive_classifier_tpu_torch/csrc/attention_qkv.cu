@@ -19,26 +19,30 @@
 // then multiplied by v with f32 sums.  That is B7's function
 // (flash_attention.cu) on the packed strides.
 //
-// What bounds it on an H100: memory at the zoo's chunks.  At [256, 32] x 8
-// heads (Dh 64, bf16) the inputs and output are 33.6 MB, 0.0100 ms at
-// 3.35 TB/s, against 0.0005 ms of products at the bf16 tensor-core peak; at
-// [256, 128] 0.0401 against 0.0087 ms; about balanced at bert-base's
-// [32, 512] x 12 heads (0.0301 ms of bytes, 0.0261 of products).
+// What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W; the time to
+// move the inputs and output once at 3.35 TB/s against the products at the
+// 989 TFLOP/s bf16 peak): memory at the zoo's chunks.  At [256, 32] x 8
+// heads (Dh 64, bf16) the inputs and output are 33.6 MB, 0.0100 ms against
+// 0.0005 ms of products; at [256, 128] 0.0401 against 0.0087 ms; about
+// balanced at bert-base's [32, 512] x 12 heads (0.0301 ms of bytes, 0.0261
+// of products).
 //
-// bf16 (the card's path): the tensor-core tile loop of attention_tile.cuh
-// (mma.sync bf16 with f32 sums, softmax on the accumulator fragments, p in
-// registers, K/V staged by 16-byte cp.async), so each element of qkv is read
-// once per (batch row, head, query tile) and no score reaches shared or
-// device memory.  Two forms of one function:
-// - one pass, S <= ONE_PASS_MAX_S: every K/V tile of the row is staged at
-//   once (one or two ring slots), a warp keeps all its [16, S] scores in
-//   registers (S/8 x 4 f32 a thread, 64 at S = 128), takes each row's max
-//   and sum, scales by the reciprocal, rounds and multiplies by V.  K is
-//   read and multiplied once.  32-key tiles and 2-warp blocks at S <= 32.
-// - two passes above that (B7's body, attention_tile.cuh two_pass_rows):
-//   the max and a rescaled sum from K, then the scores again with V.
-// Rows that are not 16-byte aligned (an odd base pointer) are staged
-// element by element by the same kernels.
+// bf16 (the card's path), above 64 keys: attention_hopper.cuh, B7's kernel
+// on the packed strides (q, k, v at column offsets 0, D and 2D of each
+// [B, S, 3D] row): TMA loads into a ring on mbarriers, a producer
+// warpgroup, two consumer warpgroups on wgmma, the exact row softmax on the
+// score accumulators with Q K^T computed once up to S 512 (ROWS form to
+// S 256: at S 128 one query tile per (batch row, head), so K and V are read
+// once for it; SPLIT form to 512: the keys split between the two
+// warpgroups), two passes above.  Its tensor maps see qkv as [B, S, H, Dh]
+// at each of the three offsets, so a box clips at its own batch row's S and
+// never reads row b + 1.  Rows TMA cannot take (a base off 16 bytes) are
+// staged element by element by the producer.  At S <= 64 (banking's
+// chunks) one_tile_rows of attention_tile.cuh keeps the row
+// instead: mma.sync bf16 with f32 sums, Q, K and V staged at once by
+// 16-byte cp.async, a warp's [16, S] scores in registers, the softmax on
+// the accumulator fragments (the wgmma form measured 0.0271 against 0.0113
+// ms at [256, 32] x 8 heads on the H100 above: PERF.md §6).
 //
 // f32: the first port's CUDA-core loop below (TF32 is off in this port, and
 // a bf16 mma would not compute the f32 function): one block of 128 threads
@@ -53,6 +57,7 @@
 #include <math.h>
 
 #include "attention_tile.cuh"
+#include "attention_hopper.cuh"
 
 namespace {
 
@@ -226,7 +231,10 @@ template <int DHP>
 cudaError_t launch_f32(const Args& a) {
   const size_t smem = smem_bytes<DHP>();
   auto* kernel = attention_qkv_kernel<float, DHP>;
-  if (a.info) return ac_common::kernel_info(kernel, smem, THREADS, a.info);
+  if (a.info) {
+    a.info[5] = a.info[6] = a.info[7] = 0;
+    return ac_common::kernel_info(kernel, smem, THREADS, a.info);
+  }
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -238,136 +246,17 @@ cudaError_t launch_f32(const Args& a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the tensor-core tile loop of attention_tile.cuh
+// bf16
 // ---------------------------------------------------------------------------
 
 using ac_attn::bf16;
-using ac_attn::kMinBlocks;
 
-// longest row the one-pass form takes: a warp's [16, S] f32 scores in
-// registers, every K/V tile of the row in the ring's two slots at once (it
-// measured 13% faster than the two passes at S 32 and 128 on an H100)
-constexpr int ONE_PASS_MAX_S = 128;
-
-// One pass over NT staged tiles (NT <= the ring's slots).
-template <class Tl, int NT, bool ALIGNED>
-__global__ void __launch_bounds__(Tl::THREADS, kMinBlocks<Tl>)
-qkv_one_pass_kernel(const bf16* __restrict__ qkv, const int* __restrict__ mask,
-                    bf16* __restrict__ out, int S, int H, int Dh, float scale2) {
-  static_assert(NT <= Tl::STAGES, "every tile of the row has a ring slot");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const ac_attn::Smem<Tl> sm(smem_raw);
-  const int q0 = blockIdx.x * Tl::TQ, h = blockIdx.y, b = blockIdx.z;
-  const long long D = (long long)H * Dh, ss = 3 * D;
-  const bf16* q = qkv + (long long)b * S * ss + (long long)h * Dh;
-  const int* mrow = mask + (long long)b * S;
-
-  // Q with tile 0 as the first committed group, then one group a tile
-  ac_attn::zero_pad_cols<Tl>(sm.q, Tl::SMEM_ROWS, Dh);
-  ac_attn::stage_rows<Tl, ALIGNED>(sm.q, q, ss, q0, Tl::TQ, S, Dh);
-  #pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    ac_attn::stage_rows<Tl, ALIGNED>(sm.k(t), q + D, ss, t * Tl::TK, Tl::TK, S, Dh);
-    ac_attn::stage_rows<Tl, ALIGNED>(sm.v(t), q + 2 * D, ss, t * Tl::TK, Tl::TK, S, Dh);
-    ac_attn::stage_bias<Tl>(sm.b(t), mrow, t * Tl::TK, S);
-    ac_attn::cp_async_commit();
-  }
-
-  // every score of the warp's rows, tile t as soon as it has landed
-  uint32_t qf[Tl::DHP / 16][4];
-  float sc[NT][Tl::NKT][4];
-  #pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    ac_attn::cp_async_wait_pending(NT - 1 - t);
-    __syncthreads();
-    if (t == 0) ac_attn::load_q<Tl>(sm.q, qf);
-    ac_attn::tile_scores<Tl>(qf, sm.k(t), sm.b(t), scale2, sc[t]);
-  }
-
-  // the exact row softmax: p = 2^(s - m) / max(l, 1e-30) (rounded to bf16
-  // in tile_pv); the thread's rows g (r = 0) and g + 8 (r = 1)
-  #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float mx = -INFINITY;
-    #pragma unroll
-    for (int t = 0; t < NT; ++t)
-      #pragma unroll
-      for (int n = 0; n < Tl::NKT; ++n)
-        mx = fmaxf(mx, fmaxf(sc[t][n][2 * r], sc[t][n][2 * r + 1]));
-    mx = ac_attn::quad_max(mx);
-    float sum = 0.f;
-    #pragma unroll
-    for (int t = 0; t < NT; ++t)
-      #pragma unroll
-      for (int n = 0; n < Tl::NKT; ++n) {
-        sc[t][n][2 * r] = ac_attn::exp2_approx(sc[t][n][2 * r] - mx);
-        sc[t][n][2 * r + 1] = ac_attn::exp2_approx(sc[t][n][2 * r + 1] - mx);
-        sum += sc[t][n][2 * r] + sc[t][n][2 * r + 1];
-      }
-    const float inv_l = 1.f / fmaxf(ac_attn::quad_sum(sum), 1e-30f);
-    #pragma unroll
-    for (int t = 0; t < NT; ++t)
-      #pragma unroll
-      for (int n = 0; n < Tl::NKT; ++n) {
-        sc[t][n][2 * r] *= inv_l;
-        sc[t][n][2 * r + 1] *= inv_l;
-      }
-  }
-
-  float o[Tl::NDT][4];
-  #pragma unroll
-  for (int n = 0; n < Tl::NDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  #pragma unroll
-  for (int t = 0; t < NT; ++t) ac_attn::tile_pv<Tl>(sc[t], sm.v(t), o);
-  ac_attn::store_rows<Tl, ALIGNED>(sm.q, o, out, b, q0, S, H, h, Dh);
-}
-
-// Two passes (B7's body) on the packed strides.
-template <class Tl, bool ALIGNED>
-__global__ void __launch_bounds__(Tl::THREADS, kMinBlocks<Tl>)
-qkv_two_pass_kernel(const bf16* __restrict__ qkv, const int* __restrict__ mask,
-                    bf16* __restrict__ out, int S, int H, int Dh, float scale2) {
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long long D = (long long)H * Dh, ss = 3 * D;
-  const bf16* q = qkv + (long long)b * S * ss + (long long)h * Dh;
-  ac_attn::two_pass_rows<Tl, ALIGNED>(q, q + D, q + 2 * D, mask + (long long)b * S, out, b,
-                                      h, S, H, Dh, ss, scale2);
-}
-
-template <class Tl, typename Kernel>
-cudaError_t launch_tc(Kernel* kernel, const Args& a) {
-  const size_t smem = Tl::smem_bytes();
-  if (a.info) return ac_common::kernel_info(kernel, smem, Tl::THREADS, a.info);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + Tl::TQ - 1) / Tl::TQ, a.H, a.B);
-  kernel<<<grid, Tl::THREADS, smem, a.stream>>>(
-      static_cast<const bf16*>(a.qkv), a.mask, static_cast<bf16*>(a.out), a.S, a.H, a.Dh,
-      ac_attn::LOG2E / sqrtf((float)a.Dh));
-  return cudaGetLastError();
-}
-
-// 2 warps and one 32-key tile at S <= 32 (no half of a tile is padding);
-// else 4 warps and 64-key tiles, one pass over one or two of them up to
-// ONE_PASS_MAX_S, two passes above
-template <int DHP, bool ALIGNED>
+// B7's kernel on the packed strides (attention_hopper.cuh)
 cudaError_t launch_bf16(const Args& a) {
-  using Short = ac_attn::Tile<DHP, 2, 32>;
-  using Long = ac_attn::Tile<DHP, 4, 64>;
-  if (a.S <= 32) return launch_tc<Short>(qkv_one_pass_kernel<Short, 1, ALIGNED>, a);
-  if (a.S <= 64) return launch_tc<Long>(qkv_one_pass_kernel<Long, 1, ALIGNED>, a);
-  if (a.S <= ONE_PASS_MAX_S) return launch_tc<Long>(qkv_one_pass_kernel<Long, 2, ALIGNED>, a);
-  return launch_tc<Long>(qkv_two_pass_kernel<Long, ALIGNED>, a);
-}
-
-// bf16 rows start on 16 bytes when qkv's and out's bases do (the strides,
-// multiples of Dh, hold whole 16-byte chunks inside the envelope)
-template <int DHP>
-cudaError_t launch_bf16_rows(const Args& a) {
-  auto al = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
-  if (a.Dh % 8 == 0 && al(a.qkv) && (a.info || al(a.out))) return launch_bf16<DHP, true>(a);
-  return launch_bf16<DHP, false>(a);
+  const long long D = (long long)a.H * a.Dh;
+  const bf16* q = static_cast<const bf16*>(a.qkv);
+  return ac_wg::launch({q, q + D, q + 2 * D, a.mask, a.out, a.B, a.S, a.H, a.Dh,
+                        (long long)a.S * 3 * D, 3 * D, a.Dh, a.stream, a.info});
 }
 
 int run(const Args& a, int dtype) {
@@ -380,9 +269,7 @@ int run(const Args& a, int dtype) {
       if (a.Dh <= 64) return (int)launch_f32<64>(a);
       return (int)launch_f32<128>(a);
     case 1:
-      if (a.Dh <= 32) return (int)launch_bf16_rows<32>(a);
-      if (a.Dh <= 64) return (int)launch_bf16_rows<64>(a);
-      return (int)launch_bf16_rows<128>(a);
+      return (int)launch_bf16(a);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -402,9 +289,11 @@ extern "C" int ac_attention_qkv(const void* qkv, const int* mask, void* out,
 }
 
 // The kernel ac_attention_qkv would launch on these arguments (the output
-// taken as 16-byte aligned): info[5] = registers per thread, shared bytes
+// taken as 16-byte aligned): info[8] = registers per thread, shared bytes
 // per block, threads per block, blocks resident per SM, local (spill) bytes
-// per thread.  Launches nothing.
+// per thread, consumer warpgroups (0: no wgmma), the wgmma form (0 none, 1
+// ROWS, 2 SPLIT, 3 TWO_PASS; attention_hopper.cuh), TMA-fed (1) or staged
+// element by element / by cp.async (0).  Launches nothing.
 extern "C" int ac_attention_qkv_info(const void* qkv, int B, int S, int H, int Dh,
                                      int dtype, int* info) {
   return run({qkv, nullptr, nullptr, B, S, H, Dh, nullptr, info}, dtype);

@@ -1,5 +1,6 @@
-// The bf16 tensor-core tile loop of the attention kernels: B6 and B7 in
-// flash_attention.cu, B1 in attention_qkv.cu.  Each warp owns 16 query rows,
+// The bf16 tensor-core tile loop of B6 (flash_attention.cu) and of B1's
+// and B7's short rows (S <= 64, one_tile_rows), and the softmax helpers
+// that attention_hopper.cuh (B1 and B7 above 64 keys) shares.  Each warp owns 16 query rows,
 // and a block of NW warps streams TK-key tiles of K and V past its 16 * NW
 // query rows.
 //
@@ -99,7 +100,6 @@ struct Smem {
 using ac_common::cp_async16;
 using ac_common::cp_async_commit;
 using ac_common::cp_async_wait_all;
-using ac_common::cp_async_wait_pending;
 using ac_common::ldsm_x4;
 using ac_common::smem_addr;
 
@@ -349,17 +349,16 @@ __device__ __forceinline__ void store_rows(bf16* Qs, const float o[Tl::NDT][4],
 }
 
 // ---------------------------------------------------------------------------
-// the exact row softmax in two passes (B7, and B1 above its one-pass rows)
+// the exact row softmax over one staged tile (B1 and B7 at S <= TK)
 // ---------------------------------------------------------------------------
 
-// softmax(s) v for the block's query tile, p = exp(s - m) / max(l, 1e-30)
-// rounded to bf16 before the PV product, with no score block: steps 0 ..
-// nt-1 stage K tile j (pass 1: running max m and rescaled sum l), steps nt
-// .. 2nt-1 K and V tile j - nt (pass 2: the same scores again, normalized,
-// rounded, multiplied by V), through one ring.  q, k, v at their head's
-// offset, rows ss elements apart; out [B, S, H, Dh].
+// softmax(s) v for the block's query tile of a row of at most TK keys, p =
+// exp(s - m) / max(l, 1e-30) rounded to bf16 before the PV product: Q, K, V
+// and the key biases staged at once, every score of a warp's rows in
+// registers.  q, k, v at their head's offset of batch row b, rows ss
+// elements apart; out [B, S, H, Dh].
 template <class Tl, bool ALIGNED>
-__device__ __forceinline__ void two_pass_rows(const bf16* __restrict__ q,
+__device__ __forceinline__ void one_tile_rows(const bf16* __restrict__ q,
                                               const bf16* __restrict__ k,
                                               const bf16* __restrict__ v,
                                               const int* __restrict__ mrow,
@@ -368,44 +367,47 @@ __device__ __forceinline__ void two_pass_rows(const bf16* __restrict__ q,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem<Tl> sm(smem_raw);
   const int q0 = blockIdx.x * Tl::TQ;
-  const int nt = (S + Tl::TK - 1) / Tl::TK;
-
-  auto stage = [&](int i, int slot) {
-    const int k0 = (i < nt ? i : i - nt) * Tl::TK;
-    stage_rows<Tl, ALIGNED>(sm.k(slot), k, ss, k0, Tl::TK, S, Dh);
-    if (i >= nt) stage_rows<Tl, ALIGNED>(sm.v(slot), v, ss, k0, Tl::TK, S, Dh);
-    stage_bias<Tl>(sm.b(slot), mrow, k0, S);
-  };
   zero_pad_cols<Tl>(sm.q, Tl::SMEM_ROWS, Dh);
   stage_rows<Tl, ALIGNED>(sm.q, q, ss, q0, Tl::TQ, S, Dh);
-  stage(0, 0);
+  stage_rows<Tl, ALIGNED>(sm.k(0), k, ss, 0, Tl::TK, S, Dh);
+  stage_rows<Tl, ALIGNED>(sm.v(0), v, ss, 0, Tl::TK, S, Dh);
+  stage_bias<Tl>(sm.b(0), mrow, 0, S);
   cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
 
   uint32_t qf[Tl::DHP / 16][4];
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2] = {1.f, 1.f};
+  float sc[Tl::NKT][4];
+  load_q<Tl>(sm.q, qf);
+  tile_scores<Tl>(qf, sm.k(0), sm.b(0), scale2, sc);
+
+  // p = 2^(s - m) / max(l, 1e-30) (rounded to bf16 in tile_pv); the
+  // thread's rows g (r = 0) and g + 8 (r = 1)
+  #pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+    #pragma unroll
+    for (int n = 0; n < Tl::NKT; ++n) mx = fmaxf(mx, fmaxf(sc[n][2 * r], sc[n][2 * r + 1]));
+    mx = quad_max(mx);
+    float sum = 0.f;
+    #pragma unroll
+    for (int n = 0; n < Tl::NKT; ++n) {
+      sc[n][2 * r] = exp2_approx(sc[n][2 * r] - mx);
+      sc[n][2 * r + 1] = exp2_approx(sc[n][2 * r + 1] - mx);
+      sum += sc[n][2 * r] + sc[n][2 * r + 1];
+    }
+    const float inv_l = 1.f / fmaxf(quad_sum(sum), 1e-30f);
+    #pragma unroll
+    for (int n = 0; n < Tl::NKT; ++n) {
+      sc[n][2 * r] *= inv_l;
+      sc[n][2 * r + 1] *= inv_l;
+    }
+  }
+
   float o[Tl::NDT][4];
   #pragma unroll
   for (int n = 0; n < Tl::NDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  ring_loop(2 * nt, stage, [&](int i, int slot) {
-    if (i == 0) load_q<Tl>(sm.q, qf);
-    float sc[Tl::NKT][4];
-    tile_scores<Tl>(qf, sm.k(slot), sm.b(slot), scale2, sc);
-    if (i < nt) {
-      float corr[2];
-      online_softmax<Tl>(sc, m, l, corr);
-      return;
-    }
-    // p = 2^(s - m) / max(l, 1e-30), as the row's reciprocal times
-    // 2^(s - m), rounded to bf16 in tile_pv
-    if (i == nt) inv_l[0] = 1.f / fmaxf(l[0], 1e-30f), inv_l[1] = 1.f / fmaxf(l[1], 1e-30f);
-    #pragma unroll
-    for (int n = 0; n < Tl::NKT; ++n)
-      #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sc[n][e] = exp2_approx(sc[n][e] - m[e >> 1]) * inv_l[e >> 1];
-    tile_pv<Tl>(sc, sm.v(slot), o);
-  });
+  tile_pv<Tl>(sc, sm.v(0), o);
   store_rows<Tl, ALIGNED>(sm.q, o, out, b, q0, S, H, h, Dh);
 }
 

@@ -20,14 +20,15 @@
 // elements; the head's Dh values contiguous), so the encoder passes slices of
 // its packed [B, S, 3D] QKV tensor with no copy.  Output [B, S, H*Dh].
 //
-// What bounds them on an H100 (bf16, Dh 64; 4 B H S^2 Dh operations against
-// 4 B S H Dh elements and the mask moved): memory at the zoo's chunks, 0.0100
-// ms of bytes against 0.0005 ms of products at [256, 32] x 8 heads, 0.0401
+// What bounds them on an H100 (NVIDIA H100 80GB HBM3, 700 W; bf16, Dh 64;
+// 4 B H S^2 Dh operations at 989 TFLOP/s against 4 B S H Dh elements and
+// the mask moved once at 3.35 TB/s): memory at the zoo's chunks, 0.0100 ms
+// of bytes against 0.0005 ms of products at [256, 32] x 8 heads, 0.0401
 // against 0.0087 at [256, 128]; about balanced at bert-base [32, 512] x 12
-// heads, 0.0301 ms of bytes against 0.0261 of products at 989 TFLOP/s.
+// heads, 0.0301 ms of bytes against 0.0261 of products.
 //
-// bf16 (the card's path; attention_tile.cuh): both products on the tensor
-// cores (mma.sync m16n8k16, f32 accumulation), softmax on the accumulator
+// B6, bf16 (attention_tile.cuh): both products on the tensor cores
+// (mma.sync m16n8k16, f32 accumulation), softmax on the accumulator
 // fragments, K/V tiles staged as bf16 by 16-byte cp.async into a two-slot
 // ring, so the bytes are read once per (batch, head, query tile) with the
 // next tile in flight while the current one is multiplied, and no score or
@@ -39,18 +40,28 @@
 // element by element by the same kernel.  exp is taken as 2^x on scores
 // scaled by log2(e), and each division by max(l, 1e-30) as a product with
 // the row's reciprocal: both within a few f32 ulps of the plain version's
-// values before the bf16 rounding.
-// - B6 rounds exp(s - m) to bf16 straight from the score accumulators into
-//   the A operand of the PV product; l is summed from the f32 values.  Its
-//   recurrence steps over the plain version's 64-key tiles.
-// - B7 needs each row's exact max before it normalizes.  It keeps no score
-//   block: pass 1 streams K for the running max and the rescaled sum l,
-//   pass 2 streams K and V, recomputes the same scores, forms p = exp(s -
-//   m) / max(l, 1e-30) rounded to bf16 in registers and multiplies it by V.
-//   That is 1.5x B6's products and twice its exps, and one design at every
-//   S up to 2,048 (a one-pass variant with the whole [16, S] row in
-//   registers would fit only to S = 128).  l is B6's rescaled sum, so it may
-//   differ from the plain version's sum in the last f32 bits.
+// values before the bf16 rounding.  B6 rounds exp(s - m) to bf16 straight
+// from the score accumulators into the A operand of the PV product; l is
+// summed from the f32 values.  Its recurrence steps over the plain
+// version's 64-key tiles.
+//
+// B7, bf16, above 64 keys (attention_hopper.cuh): TMA loads into a ring on
+// mbarriers, a producer warpgroup, two consumer warpgroups on wgmma,
+// persistent over work units of one (batch row, head).  Each row's exact
+// max comes before it normalizes, with Q K^T computed once up to S 512:
+// the [64, S] scores of a warpgroup's queries in registers to S 256 (at
+// S 128 one query tile per batch row and head), the keys split between the
+// two warpgroups, which exchange their rows' maxima and sums through
+// shared memory, to S 512 (K and V loaded once for all 8 query tiles of a
+// (b, h) at bert-base); above, two passes on the same loop (the running
+// max and rescaled sum, then the scores again with V).  p = exp(s - m) /
+// max(l, 1e-30) rounded to bf16 in registers is the A operand of P V.
+// Rows TMA cannot take (Dh % 8 != 0, an odd base or stride: Dh 20 or 100)
+// are staged element by element by the producer's loading warp into the
+// same layout.  At S <= 64 one_tile_rows of attention_tile.cuh (one staged
+// tile, mma.sync, the exact softmax on the fragments): the wgmma form pads
+// such rows to 128-query, 64-key tiles and measured 2.1x slower there.
+// Times (NVIDIA H100 80GB HBM3, 700 W): PERF.md §6.
 //
 // f32 keeps the first port's CUDA-core loop below: TF32 is off in this
 // port, and a bf16 mma would not compute the f32 function.  B6 layout: one
@@ -65,6 +76,7 @@
 #include <math.h>
 
 #include "attention_tile.cuh"
+#include "attention_hopper.cuh"
 
 namespace {
 
@@ -401,19 +413,6 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   ac_attn::store_rows<Tl, ALIGNED>(sm.q, o, out, b, q0, S, H, h, Dh);
 }
 
-// B7, bf16: the two-pass body of attention_tile.cuh
-template <class Tl, bool ALIGNED>
-__global__ void __launch_bounds__(Tl::THREADS, kMinBlocks<Tl>)
-oneshot_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const int* __restrict__ mask,
-                  bf16* __restrict__ out, int S, int H, int Dh, long long sb, long long ss,
-                  long long sh, float scale2) {
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long long off = (long long)b * sb + (long long)h * sh;
-  ac_attn::two_pass_rows<Tl, ALIGNED>(q + off, k + off, v + off, mask + (long long)b * S,
-                                      out, b, h, S, H, Dh, ss, scale2);
-}
-
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
@@ -430,10 +429,17 @@ struct Args {
 
 using ac_common::kernel_info;
 
+// info[5..7] of the loops of this file: no warpgroups, no wgmma form, no TMA
+template <typename Kernel>
+cudaError_t loop_info(Kernel* kernel, size_t smem, int threads, int* info) {
+  info[5] = info[6] = info[7] = 0;
+  return kernel_info(kernel, smem, threads, info);
+}
+
 template <typename T, int DHP, int ROWS>
 cudaError_t launch_flash(const Args& a) {
   const size_t smem = flash_smem_bytes<DHP, ROWS>();
-  if (a.info) return kernel_info(flash_kernel<T, DHP, ROWS>, smem, THREADS, a.info);
+  if (a.info) return loop_info(flash_kernel<T, DHP, ROWS>, smem, THREADS, a.info);
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, DHP, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -450,7 +456,7 @@ template <typename T, int DHP, int ROWS>
 cudaError_t launch_oneshot(const Args& a) {
   const int SP = (a.S + TK - 1) / TK * TK;
   const size_t smem = oneshot_smem_bytes<DHP, ROWS>(SP);
-  if (a.info) return kernel_info(oneshot_kernel<T, DHP, ROWS>, smem, THREADS, a.info);
+  if (a.info) return loop_info(oneshot_kernel<T, DHP, ROWS>, smem, THREADS, a.info);
   cudaError_t err = cudaFuncSetAttribute(
       oneshot_kernel<T, DHP, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -484,10 +490,10 @@ cudaError_t dispatch_dh(const Args& a, bool oneshot) {
 }
 
 template <class Tl, bool ALIGNED>
-cudaError_t launch_tc(const Args& a, bool oneshot) {
-  auto* kernel = oneshot ? oneshot_tc_kernel<Tl, ALIGNED> : flash_tc_kernel<Tl, ALIGNED>;
+cudaError_t launch_tc(const Args& a) {
+  auto* kernel = flash_tc_kernel<Tl, ALIGNED>;
   const size_t smem = Tl::smem_bytes();
-  if (a.info) return kernel_info(kernel, smem, Tl::THREADS, a.info);
+  if (a.info) return loop_info(kernel, smem, Tl::THREADS, a.info);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -499,19 +505,19 @@ cudaError_t launch_tc(const Args& a, bool oneshot) {
   return cudaGetLastError();
 }
 
-// 4 warps, 64-key tiles; at S <= 32 2 warps and 32-key tiles (one tile,
-// the same recurrence as 64 keys), so no half of a tile is padding
+// B6: 4 warps, 64-key tiles; at S <= 32 2 warps and 32-key tiles (one
+// tile, the same recurrence as 64 keys), so no half of a tile is padding
 template <int DHP, bool ALIGNED>
-cudaError_t dispatch_tc_tiles(const Args& a, bool oneshot) {
-  if (a.S <= 32) return launch_tc<ac_attn::Tile<DHP, 2, 32>, ALIGNED>(a, oneshot);
-  return launch_tc<ac_attn::Tile<DHP, 4, 64>, ALIGNED>(a, oneshot);
+cudaError_t dispatch_tc_tiles(const Args& a) {
+  if (a.S <= 32) return launch_tc<ac_attn::Tile<DHP, 2, 32>, ALIGNED>(a);
+  return launch_tc<ac_attn::Tile<DHP, 4, 64>, ALIGNED>(a);
 }
 
 template <bool ALIGNED>
-cudaError_t dispatch_tc(const Args& a, bool oneshot) {
-  if (a.Dh <= 32) return dispatch_tc_tiles<32, ALIGNED>(a, oneshot);
-  if (a.Dh <= 64) return dispatch_tc_tiles<64, ALIGNED>(a, oneshot);
-  return dispatch_tc_tiles<128, ALIGNED>(a, oneshot);
+cudaError_t dispatch_tc(const Args& a) {
+  if (a.Dh <= 32) return dispatch_tc_tiles<32, ALIGNED>(a);
+  if (a.Dh <= 64) return dispatch_tc_tiles<64, ALIGNED>(a);
+  return dispatch_tc_tiles<128, ALIGNED>(a);
 }
 
 // every q, k, v and out row starts on 16 bytes and holds whole 16-byte chunks
@@ -527,8 +533,11 @@ int run(const Args& a, int dtype, bool oneshot) {
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0: return (int)dispatch_dh<float>(a, oneshot);
-    case 1: return (int)(rows_aligned(a) ? dispatch_tc<true>(a, oneshot)
-                                         : dispatch_tc<false>(a, oneshot));
+    case 1:
+      if (oneshot)
+        return (int)ac_wg::launch({a.q, a.k, a.v, a.mask, a.out, a.B, a.S, a.H, a.Dh, a.sb,
+                                   a.ss, a.sh, a.stream, a.info});
+      return (int)(rows_aligned(a) ? dispatch_tc<true>(a) : dispatch_tc<false>(a));
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -560,8 +569,11 @@ extern "C" int ac_oneshot_attention(const void* q, const void* k, const void* v,
 
 // The kernel ac_flash_attention (oneshot 0) or ac_oneshot_attention (1)
 // would launch on these arguments (the output taken as 16-byte aligned):
-// info[5] = registers per thread, shared bytes per block, threads per block,
-// blocks resident per SM, local (spill) bytes per thread.  Launches nothing.
+// info[8] = registers per thread, shared bytes per block, threads per block,
+// blocks resident per SM, local (spill) bytes per thread, consumer
+// warpgroups (0: no wgmma), the wgmma form (0 none, 1 ROWS, 2 SPLIT, 3
+// TWO_PASS; attention_hopper.cuh), TMA-fed (1) or not (0).  Launches
+// nothing.
 extern "C" int ac_flash_attention_info(const void* q, const void* k, const void* v, int B,
                                        int S, int H, int Dh, long long sb, long long ss,
                                        long long sh, int dtype, int oneshot, int* info) {

@@ -86,6 +86,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// box of the 4-D tensor map at element coordinates (c0 innermost) ->
+// shared memory, as tma_load_2d
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // order this thread's generic-proxy writes to shared memory before later
 // async-proxy reads of it (wgmma operands written by ordinary stores)
 __device__ __forceinline__ void fence_proxy_async() {
@@ -227,21 +239,25 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Tensor map of a row-major f32 matrix [rows, cols] (cols % 4 == 0, ptr
-// 16-byte aligned) read in boxes of box_rows x 32 columns, 128-byte swizzle,
-// zeros outside the matrix.
-//
+// Bind the current device's primary context to the calling host thread.
 // The encoder (libcuda's cuTensorMapEncodeTiled) fails with
 // CUDA_ERROR_INVALID_CONTEXT in a host thread that has no context current.
 // The runtime binds the device's primary context to a thread only at that
 // thread's first call that needs it, and a launch from a new thread (a
 // serving worker) whose tensors all came from PyTorch's allocator cache
-// may reach this point first: cudaSetDevice binds it (CUDA 12).
+// may reach the encoder first: cudaSetDevice binds it (CUDA 12).
+inline cudaError_t bind_device(int* device) {
+  cudaError_t err = cudaGetDevice(device);
+  return err == cudaSuccess ? cudaSetDevice(*device) : err;
+}
+
+// Tensor map of a row-major f32 matrix [rows, cols] (cols % 4 == 0, ptr
+// 16-byte aligned) read in boxes of box_rows x 32 columns, 128-byte swizzle,
+// zeros outside the matrix.
 inline cudaError_t f32_rows_map(CUtensorMap* map, const float* ptr, int rows, int cols,
                                 int box_rows) {
   int device = 0;
-  cudaError_t bound = cudaGetDevice(&device);
-  if (bound == cudaSuccess) bound = cudaSetDevice(device);
+  const cudaError_t bound = bind_device(&device);
   if (bound != cudaSuccess) return bound;
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorSymbolNotFound;

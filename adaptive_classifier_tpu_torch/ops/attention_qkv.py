@@ -12,9 +12,12 @@ rounded to the input type before the PV product.
 - ``attention_from_qkv``: the wrapper.  A CPU tensor takes the plain
   version; a CUDA tensor launches the hand-written kernel in
   ``csrc/attention_qkv.cu`` or raises.  There is no fallback between them.
-  In bf16 the kernel multiplies on the tensor cores (the tile loop of
-  ``csrc/attention_tile.cuh``) in the plain version's order of rounding:
-  each row's exact softmax first, then the probabilities rounded to bf16.
+  In bf16 the kernel multiplies on the tensor cores in the plain version's
+  order of rounding: each row's exact softmax first, then the
+  probabilities rounded to bf16.  Rows of more than 64 keys run B7's
+  kernel on the packed strides (``wgmma`` fed by TMA,
+  ``csrc/attention_hopper.cuh``); shorter rows the ``mma.sync`` tile loop
+  of ``csrc/attention_tile.cuh``.
 - ``kernel_info``: what the kernel would launch on given inputs.
 """
 
@@ -26,6 +29,7 @@ import math
 import torch
 
 from . import _build, count_launch, refuse_autograd
+from .flash_attention import _info_dict
 
 NEG = -1e9
 
@@ -109,15 +113,16 @@ def attention_from_qkv(
 def kernel_info(qkv: torch.Tensor, num_heads: int, head_dim: int) -> dict:
     """What ``attention_from_qkv`` would launch on this CUDA ``qkv``, as the
     CUDA runtime reports the instantiation: registers per thread, shared
-    bytes per block, threads per block, blocks resident per SM and local
-    (spill) bytes per thread.  Launches nothing."""
+    bytes per block, threads per block, blocks resident per SM, local
+    (spill) bytes per thread, consumer warpgroups, the wgmma form
+    (``flash_attention.WGMMA_FORMS``) and whether TMA feeds it.  Launches
+    nothing."""
     if qkv.device.type != "cuda":
         raise ValueError(f"kernel_info needs a CUDA tensor, got {qkv.device}")
     B, S, _ = qkv.shape
-    info = (ctypes.c_int * 5)()
+    info = (ctypes.c_int * 8)()
     with torch.cuda.device(qkv.device):
         err = _build.library().ac_attention_qkv_info(
             qkv.data_ptr(), B, S, num_heads, head_dim, _DTYPE_CODES[qkv.dtype], info)
     _build.check(err, "attention_qkv_info")
-    return dict(zip(("registers", "shared_bytes", "threads", "blocks_per_sm",
-                     "local_bytes"), info))
+    return _info_dict(info)

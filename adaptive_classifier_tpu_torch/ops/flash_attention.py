@@ -14,9 +14,11 @@ additive −1e9 bias on padded keys.  They round differently:
   ``max(l, 1e-30)`` and then rounded to the input type, then the PV product
   in f32.  Rows of at most ``MAX_ONESHOT_S`` keys.
 
-In bf16 both kernels multiply on the tensor cores (``csrc/attention_tile.cuh``:
-bf16 products are exact in f32, so only the order of the sums differs from
-the plain versions); in f32 they multiply on the CUDA cores.
+In bf16 both kernels multiply on the tensor cores, B6 with ``mma.sync``
+(``csrc/attention_tile.cuh``), B7 with ``wgmma`` fed by TMA
+(``csrc/attention_hopper.cuh``): bf16 products are exact in f32, so only the
+order of the sums differs from the plain versions.  In f32 they multiply on
+the CUDA cores.
 
 Each ``*_ref`` is the plain torch version in its kernel's order of rounding:
 the CPU path, and the yardstick the kernel is held to on the GPU.  The
@@ -41,10 +43,28 @@ NEG = -1e9
 #: 32-key tile, the same single step)
 K_TILE = 64
 #: longest row the one-shot kernel takes: in f32 its query tile keeps every
-#: score of its rows in shared memory (the bf16 kernel keeps none)
+#: score of its rows in shared memory (the bf16 kernel keeps them in
+#: registers up to S 512 and takes two passes above)
 MAX_ONESHOT_S = 2048
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: the forms of the bf16 kernel of ``csrc/attention_hopper.cuh`` (B1 above
+#: 64 keys, B7), by the code ``kernel_info`` reads back: "rows" keeps a
+#: warpgroup's [64, S] scores in registers (S <= 256), "split keys" halves
+#: the keys between the two consumer warpgroups (S <= 512), "two passes"
+#: computes the scores twice (S > 512); "none" is a loop without wgmma (B6,
+#: B1's short rows, the f32 kernels)
+WGMMA_FORMS = {0: "none", 1: "rows", 2: "split keys", 3: "two passes"}
+
+
+def _info_dict(info) -> dict:
+    """The instantiation a ``*_info`` entry point reports, by name."""
+    out = dict(zip(("registers", "shared_bytes", "threads", "blocks_per_sm",
+                    "local_bytes", "warpgroups"), info[:6]))
+    out["wgmma_form"] = WGMMA_FORMS[info[6]]
+    out["tma"] = bool(info[7])
+    return out
 
 
 def _heads_f32(q, k, v, attention_mask):
@@ -140,20 +160,20 @@ def kernel_info(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 oneshot: bool) -> dict:
     """What B6 (or B7, with ``oneshot``) would launch on these CUDA inputs,
     as the CUDA runtime reports the instantiation: registers per thread,
-    shared bytes per block, threads per block, blocks resident per SM and
-    local (spill) bytes per thread.  Launches nothing."""
+    shared bytes per block, threads per block, blocks resident per SM,
+    local (spill) bytes per thread, consumer warpgroups, the wgmma form
+    (``WGMMA_FORMS``) and whether TMA feeds it.  Launches nothing."""
     if q.device.type != "cuda":
         raise ValueError(f"kernel_info needs CUDA tensors, got {q.device}")
     B, S, H, Dh = q.shape
     sb, ss, sh, _ = q.stride()
-    info = (ctypes.c_int * 5)()
+    info = (ctypes.c_int * 8)()
     with torch.cuda.device(q.device):
         err = _build.library().ac_flash_attention_info(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), B, S, H, Dh, sb, ss, sh,
             _DTYPE_CODES[q.dtype], int(oneshot), info)
     _build.check(err, "flash_attention_info")
-    return dict(zip(("registers", "shared_bytes", "threads", "blocks_per_sm",
-                     "local_bytes"), info))
+    return _info_dict(info)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -433,8 +433,20 @@ def check_attention() -> dict:
         ("bf16 B=64 S=24", torch.bfloat16, 64, 24, 8, 64, (1,)),
         ("bf16 B=64 S=40", torch.bfloat16, 64, 40, 8, 64, ()),
         ("bf16 B=16 S=72", torch.bfloat16, 16, 72, 8, 64, ()),
-        ("bf16 B=8 S=136 two passes", torch.bfloat16, 8, 136, 8, 64, (1,)),
+        ("bf16 B=8 S=136 three tiles in four", torch.bfloat16, 8, 136, 8, 64, (1,)),
         ("bf16 B=4 S=512 H=12", torch.bfloat16, 4, 512, 12, 64, ()),
+        # the wgmma forms' edges (csrc/attention_hopper.cuh): the last row
+        # kept whole by a warpgroup (S 256), the first and last rows split
+        # between the two (264, 512), the first two-pass row (520), Dh 32
+        # (zero-padded to 64) and 128 (two swizzle atoms), a fully masked
+        # row at S 512
+        ("bf16 B=8 S=256 rows", torch.bfloat16, 8, 256, 8, 64, ()),
+        ("bf16 B=4 S=264 split keys", torch.bfloat16, 4, 264, 8, 64, ()),
+        ("bf16 B=2 S=520 two passes", torch.bfloat16, 2, 520, 8, 64, ()),
+        ("bf16 B=4 S=256 Dh=32", torch.bfloat16, 4, 256, 8, 32, ()),
+        ("bf16 B=2 S=512 Dh=128", torch.bfloat16, 2, 512, 4, 128, ()),
+        ("bf16 B=4 S=128 Dh=128", torch.bfloat16, 4, 128, 4, 128, ()),
+        ("bf16 S=512 fully masked row", torch.bfloat16, 3, 512, 8, 64, (1,)),
     ]
     results = {}
     for i, (name, dtype, B, S, H, Dh, masked) in enumerate(cases):
@@ -480,6 +492,7 @@ def time_attention(shapes) -> list:
                    for j in range(3))
         bias = torch.where(mask > 0, 0.0, -1e9).to(dtype)[:, None, None, :]
         sdpa = torch.nn.functional.scaled_dot_product_attention
+        backend = sdpa_backend(q, k, v, bias)
         ms = kernel_ms(lambda: attention_from_qkv(qkv, mask, H, Dh))
         plain_ms = kernel_ms(lambda: attention_from_qkv_ref(qkv, mask, H, Dh), iters=5)
         library_ms = kernel_ms(lambda: sdpa(q, k, v, attn_mask=bias))
@@ -490,8 +503,12 @@ def time_attention(shapes) -> list:
                "max_abs_err": res["max_abs_err"], "cosine": res["cosine"],
                "bit_equal_share": (got == want).double().mean().item(),
                "ms": ms, "ms_repeat": ms_again, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "instantiation": kernel_info(qkv, H, Dh)}
+               "library_ms": library_ms,
+               "library_call": f"F.scaled_dot_product_attention, additive mask "
+                               f"({backend})",
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "tflops": 4 * B * H * S * S * Dh / (ms * 1e-3) / 1e12,
+               "bound_share": bound_ms / ms, "instantiation": kernel_info(qkv, H, Dh)}
         log(f"  time {json.dumps(row)}")
         rows.append(row)
     return rows
@@ -504,6 +521,9 @@ def head_views(qkv, H, Dh):
     return [qkv[..., j * D:(j + 1) * D].unflatten(-1, (H, Dh)) for j in range(3)]
 
 
+#: the tile loop of B1 above 64 keys and of B7 in bf16 (wgmma fed by TMA)
+WGMMA_HEADER = "adaptive_classifier_tpu_torch/csrc/attention_hopper.cuh"
+
 FLASH_TOLERANCE = ("f32: max abs err <= 1e-4 (TF32 off); bf16: max abs err <= 0.05 "
                    "and cosine > 0.999; a fully masked row is the uniform average of V")
 
@@ -511,9 +531,10 @@ FLASH_TOLERANCE = ("f32: max abs err <= 1e-4 (TF32 off); bf16: max abs err <= 0.
 def check_flash() -> dict:
     """B6 at S in {32, 128, 512, 1024, 2048} and B7 at S in {32, 128, 512},
     H 8 and 12, Dh 64, f32 and bf16; then both in bf16 at S 17 (a row that
-    is no multiple of the tensor-core tiles) and at Dh 128; ragged masks
-    with batch row 1 fully masked, against their plain versions; raises on
-    any disagreement."""
+    is no multiple of the tensor-core tiles) and at Dh 128; B7 in bf16 at
+    the edges of its wgmma forms (S 136 to 2,048, Dh 32 and 128); ragged
+    masks with batch row 1 fully masked, against their plain versions;
+    raises on any disagreement."""
     from adaptive_classifier_tpu_torch.ops import flash_attention as fa
 
     out = {"flash_attention": [], "oneshot_attention": []}
@@ -523,6 +544,13 @@ def check_flash() -> dict:
              if name == "flash_attention" or S <= 512]
     cases += [(name, B, S, H, Dh, torch.bfloat16) for name in out
               for B, S, H, Dh in ((16, 17, 8, 64), (4, 200, 4, 128))]
+    # B7 at the wgmma forms' edges (csrc/attention_hopper.cuh): rows kept
+    # whole by a warpgroup to S 256, split between the two to 512, two
+    # passes above, to B7's longest row; Dh 32 and 128
+    cases += [("oneshot_attention", B, S, H, Dh, torch.bfloat16)
+              for B, S, H, Dh in ((8, 136, 8, 64), (4, 256, 8, 64), (4, 264, 8, 64),
+                                  (2, 520, 8, 64), (2, 1024, 8, 64), (2, 2048, 8, 64),
+                                  (4, 512, 4, 32), (2, 512, 4, 128))]
     for i, (name, B, S, H, Dh, dtype) in enumerate(cases):
         qkv, mask = qkv_inputs(200 + i, dtype, B, S, H, Dh, masked_rows=(1,))
         q, k, v = head_views(qkv, H, Dh)
@@ -4199,6 +4227,7 @@ def main() -> int:
         "name": "attention_qkv",
         "route": "cuda",
         "source": "adaptive_classifier_tpu_torch/csrc/attention_qkv.cu",
+        "header": WGMMA_HEADER,
         "replaces": "adaptive_classifier_tpu/ops/attention_qkv.py:216",
         "launches": launches.total["attention_qkv"],
         "max_abs_err": max(r["max_abs_err"] for r in timings),
@@ -4207,6 +4236,8 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "library_call": main_row["library_call"],
+        "tflops": main_row["tflops"], "bound_share": main_row["bound_share"],
         "shape": main_row["shape"],
         "instantiation": main_row["instantiation"],
         "tolerance": "f32: max abs err <= 1e-4 (TF32 off); "
@@ -4265,6 +4296,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "adaptive_classifier_tpu_torch/csrc/flash_attention.cu",
+            **({"header": WGMMA_HEADER} if name == "oneshot_attention" else {}),
             "replaces": replaces,
             "launches": launches.total[name],
             "max_abs_err": max(c["max_abs_err"] for c in flash_checks[name]

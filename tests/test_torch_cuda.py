@@ -122,9 +122,10 @@ def test_attention_kernel_rounds_like_the_plain_version(cuda, kernel, B, S):
     assert (got == want).float().mean().item() >= 0.95
 
 
-# B1 in bf16 at the edges of its forms: one 32-key tile and 2 warps (S 8,
-# 24), one 64-key tile (40), one pass over two tiles (72, 128), two passes
-# (136, 512); Dh 24 and 40 (zero-padded), 32 and 128; a base off 16 bytes
+# B1 in bf16 at the edges of its forms: the tile loop's one 32-key tile and
+# 2 warps (S 8, 24) and one 64-key tile (40, 48); the wgmma kernel's rows
+# kept whole by a warpgroup (72, 96, 128, 136, 200) and split between the
+# two (512); Dh 24 and 40 (zero-padded), 32 and 128; a base off 16 bytes
 # (rows staged element by element)
 _B1_EDGES = [(64, 8, 8, 64, 0), (64, 24, 8, 64, 0), (32, 40, 8, 64, 0),
              (16, 72, 8, 64, 0), (16, 128, 8, 64, 0), (8, 136, 8, 64, 0),
@@ -152,18 +153,132 @@ def test_attention_kernel_tile_edges(cuda, B, S, H, Dh, offset):
 
 
 def test_attention_kernel_one_pass_instantiation(cuda):
-    """At the hallucination chunk's S = 128 (bf16, Dh 64) B1 takes one pass:
-    4 warps, Q and two 64-key K/V tiles with their biases in 45.5 KB of
-    shared memory, every score of a warp's rows in at most 128 registers a
-    thread, unspilled: four blocks share an SM."""
+    """At the hallucination chunk's S = 128 (bf16, Dh 64) B1 runs the wgmma
+    kernel of csrc/attention_hopper.cuh in its one-pass ROWS form: a
+    producer warpgroup and two consumer warpgroups (384 threads), each
+    warpgroup's [64, 128] scores in registers, unspilled; two Q buffers of
+    128 rows, a ring of 16 K/V tiles of 64 keys with their key biases and
+    the barriers in 165 KB of shared memory, one block an SM (persistent)."""
     from adaptive_classifier_tpu_torch.ops import attention_qkv as aq
 
     qkv, _ = _inputs(cuda, 40, torch.bfloat16, 2, 128, 8, 64)
     info = aq.kernel_info(qkv, 8, 64)
-    assert info["threads"] == 128
-    assert info["shared_bytes"] == 2 * (64 * 72 + 2 * 2 * 64 * 72) + 4 * 2 * 64
-    assert info["registers"] <= 128 and info["local_bytes"] == 0
-    assert info["blocks_per_sm"] >= 4
+    assert info["threads"] == 384 and info["warpgroups"] == 2
+    assert info["wgmma_form"] == "rows" and info["tma"]
+    assert info["shared_bytes"] == (2 * 128 * 64 * 2 + 16 * (64 * 64 * 2 + 64 * 4)
+                                    + 8 * (4 + 2 * 16) + 1024)
+    assert info["local_bytes"] == 0
+    assert info["blocks_per_sm"] == 1
+
+
+# the wgmma kernel's forms (csrc/attention_hopper.cuh) by row length, head
+# width and alignment: S, Dh, element offset of the base -> form, TMA-fed
+_WGMMA_FORMS = [(72, 64, 0, "rows", True), (128, 64, 0, "rows", True),
+                (136, 64, 0, "rows", True), (256, 64, 0, "rows", True),
+                (264, 64, 0, "split keys", True), (512, 64, 0, "split keys", True),
+                (520, 64, 0, "two passes", True), (256, 128, 0, "rows", True),
+                (512, 128, 0, "split keys", True), (512, 32, 0, "split keys", True),
+                (128, 64, 1, "rows", False), (512, 64, 3, "split keys", False)]
+
+
+@pytest.mark.parametrize("S,Dh,offset,form,tma", _WGMMA_FORMS)
+def test_attention_wgmma_instantiations(cuda, S, Dh, offset, form, tma):
+    """Each form B1 launches above 64 keys is unspilled (ptxas keeps the
+    score block in registers) and fits one block an SM."""
+    from adaptive_classifier_tpu_torch.ops import attention_qkv as aq
+
+    qkv, _ = _inputs(cuda, 41, torch.bfloat16, 2, S, 4, Dh)
+    if offset:
+        buf = torch.zeros(qkv.numel() + offset, dtype=qkv.dtype, device=cuda)
+        qkv = buf[offset:].view(qkv.shape)
+    info = aq.kernel_info(qkv, 4, Dh)
+    assert (info["wgmma_form"], info["tma"]) == (form, tma)
+    assert info["threads"] == 384 and info["warpgroups"] == 2
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] == 1
+
+
+# B1 and B7 at the edges of the wgmma forms: the last ROWS rows (S 136:
+# three tiles in four, 256), the first and last SPLIT rows (264, 512), the
+# first two-pass row (520), two passes at 1,024 and 2,048; Dh 32
+# (zero-padded to 64) and 128 (two swizzle atoms) in each one-pass form;
+# batch row 1 fully masked
+_WGMMA_EDGES = [(8, 136, 8, 64), (4, 256, 8, 64), (4, 264, 4, 64), (4, 512, 12, 64),
+                (2, 520, 4, 64), (4, 128, 8, 32), (3, 256, 4, 32), (3, 512, 4, 32),
+                (4, 128, 4, 128), (3, 256, 4, 128), (3, 512, 2, 128), (2, 520, 2, 128)]
+
+
+@pytest.mark.parametrize("kernel", ["attention_qkv", "oneshot_attention"])
+@pytest.mark.parametrize("B,S,H,Dh", _WGMMA_EDGES + [(2, 1024, 4, 64), (2, 2048, 4, 64)])
+def test_attention_wgmma_edges(cuda, kernel, B, S, H, Dh):
+    from adaptive_classifier_tpu_torch.ops import flash_attention as fa
+
+    qkv, mask = _inputs(cuda, 50 + S + Dh, torch.bfloat16, B, S, H, Dh, masked_row=1)
+    port.reset_launch_counts()
+    if kernel == "attention_qkv":
+        got = attention_from_qkv(qkv, mask, H, Dh)
+        want = attention_from_qkv_ref(qkv, mask, H, Dh)
+        v = qkv[1, :, 2 * H * Dh:].unflatten(-1, (H, Dh))
+    else:
+        q, k, v3 = _packed_views(qkv, H, Dh)
+        got = fa.oneshot_attention(q, k, v3, mask).flatten(-2)
+        want = fa.oneshot_attention_ref(q, k, v3, mask).flatten(-2)
+        v = v3[1]
+    torch.cuda.synchronize()
+    assert port.launch_counts[kernel] == 1
+    _assert_attention_close(got, want, torch.bfloat16)
+    # a fully masked row is the uniform average of V over exactly S keys
+    uniform = v.float().mean(dim=0).flatten()
+    torch.testing.assert_close(got[1].float(), uniform.expand(S, -1), atol=0.05, rtol=0)
+
+
+@pytest.mark.parametrize("S", [128, 512])
+def test_attention_kernel_never_reads_the_next_batch_row(cuda, S):
+    """B1's tensor maps see qkv as [B, S, H, Dh] at each of the q, k, v
+    offsets: a box clips at its own batch row's S, so NaN in batch row 1
+    leaves rows 0 and 2 as the plain version computes them."""
+    B, H, Dh = 3, 4, 64
+    qkv, mask = _inputs(cuda, 60 + S, torch.bfloat16, B, S, H, Dh)
+    qkv[1] = float("nan")
+    got = attention_from_qkv(qkv, mask, H, Dh)
+    want = attention_from_qkv_ref(qkv, mask, H, Dh)
+    torch.cuda.synchronize()
+    for b in (0, 2):
+        _assert_attention_close(got[b], want[b], torch.bfloat16)
+
+
+@pytest.mark.parametrize("kernel", ["attention_qkv", "oneshot_attention"])
+def test_attention_wgmma_first_call_in_a_new_thread(cuda, kernel):
+    """The first launch from a host thread that has made no CUDA call yet,
+    every tensor it allocates served from the allocator's cache (a serving
+    worker's case): the tensor-map encoder needs the device's context bound
+    to that thread, and the launcher binds it."""
+    import threading
+
+    from adaptive_classifier_tpu_torch.ops import flash_attention as fa
+
+    H, Dh = 8, 64
+    qkv, mask = _inputs(cuda, 70, torch.bfloat16, 16, 128, H, Dh)
+    q, k, v = _packed_views(qkv, H, Dh)
+    if kernel == "attention_qkv":
+        call = lambda: attention_from_qkv(qkv, mask, H, Dh)   # noqa: E731
+    else:
+        call = lambda: fa.oneshot_attention(q, k, v, mask)    # noqa: E731
+    want = call().clone()                                     # out now cached
+    torch.cuda.synchronize()
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append(call())
+        except Exception as e:   # reported below
+            errors.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive() and not errors, errors
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want)
 
 
 def test_unported_kernels_raise_on_the_gpu(cuda, monkeypatch):
@@ -925,13 +1040,24 @@ def test_flash_kernels_are_deterministic(cuda, kernel):
 
 @pytest.mark.parametrize("oneshot", [False, True])
 def test_tensor_core_instantiation_fits_four_blocks(cuda, oneshot):
-    """At the main path's shape (bf16, Dh 64) a block is 4 warps with 45.5 KB
-    of shared memory (Q, a two-slot K/V ring, the key biases) and at most
-    128 registers a thread, unspilled: four blocks share an SM."""
+    """At the main path's shape (bf16, Dh 64) B6's block is 4 warps with
+    45.5 KB of shared memory (Q, a two-slot K/V ring, the key biases) and at
+    most 128 registers a thread, unspilled: four blocks share an SM.  B7
+    runs the wgmma kernel of csrc/attention_hopper.cuh instead: a producer
+    warpgroup and two consumer warpgroups (384 threads) fed by TMA,
+    unspilled, two Q buffers and its ring of 16 K/V tiles in 165 KB, one
+    persistent block an SM."""
     from adaptive_classifier_tpu_torch.ops import flash_attention as fa
 
     (q, k, v), _ = _heads(cuda, 12, torch.bfloat16, 2, 128, 8, 64)
     info = fa.kernel_info(q, k, v, oneshot)
+    if oneshot:
+        assert info["threads"] == 384 and info["warpgroups"] == 2
+        assert info["wgmma_form"] == "rows" and info["tma"]
+        assert info["shared_bytes"] == (2 * 128 * 64 * 2 + 16 * (64 * 64 * 2 + 64 * 4)
+                                        + 8 * (4 + 2 * 16) + 1024)
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] == 1
+        return
     assert info["threads"] == 128
     assert info["shared_bytes"] == 2 * (64 * 72 + 2 * 2 * 64 * 72) + 4 * 2 * 64
     assert info["registers"] <= 128 and info["local_bytes"] == 0
