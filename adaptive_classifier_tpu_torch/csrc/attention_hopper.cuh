@@ -1,12 +1,16 @@
-// The bf16 attention of kernels B1 (attention_qkv.cu) and B7
+// The bf16 attention of kernels B1 (attention_qkv.cu), B6 and B7
 // (flash_attention.cu) on Hopper's asynchronous path: TMA loads on
-// mbarriers, warpgroup products (wgmma) and the exact row softmax, with
-// Q K^T computed once per (batch row, head, query tile) up to S 512.
+// mbarriers, warpgroup products (wgmma) and, for B1 and B7, the exact row
+// softmax, with Q K^T computed once per (batch row, head, query tile) up to
+// S 512; for B6 the online recurrence (the FLASH form, below).
 //
-// Function (both kernels): out[b, s, h] = softmax(q k^T / sqrt(Dh) + bias) v
+// Function (B1, B7): out[b, s, h] = softmax(q k^T / sqrt(Dh) + bias) v
 // per head, bias an ADDITIVE -1e9 on keys whose mask is 0, in the TPU
 // kernels' order of rounding: each row's exact max m and sum l first, then
 // p = exp(s - m) / max(l, 1e-30) rounded to bf16, then P V with f32 sums.
+// B6 computes the same function in its TPU kernel's order: per 64-key tile
+// the running max, p = exp(s - m) rounded to bf16 for P V, the rescaled f32
+// sums, and the division at the end.
 // Keys past S do not exist: a tile pads them in, and their scores become
 // -inf by their index (p = 0), so a fully masked row is the uniform average
 // of V over exactly S keys.  Queries are not masked.  q, k and v are
@@ -45,8 +49,9 @@
 //    contiguous, is the MN-major B operand (the transpose bit).  Outputs go
 //    straight from the accumulators to device memory.
 //
-// Three forms, by the row length S (the key tiles NT = ceil(S / 64); rows
-// of at most 64 keys run one_tile_rows of attention_tile.cuh instead):
+// B1's and B7's three forms, by the row length S (the key tiles NT =
+// ceil(S / 64); rows of at most 64 keys run one_tile_rows of
+// attention_tile.cuh instead):
 //  - ROWS, NT <= 4 (S <= 256): each consumer warpgroup owns 64 of the
 //    query tile's 128 queries and every key: its [64, S] scores live in
 //    registers (S / 2 a thread, 128 at S 256).  At S 128 a query tile is a
@@ -63,12 +68,24 @@
 //    and the rescaled sum, pass 2 streams K and V, recomputes the scores and
 //    forms p = 2^(s - m) / max(l, 1e-30).  l then may differ from the plain
 //    version's sum in its last bits.
+// B6's FLASH form (any S above 64): each warpgroup owns 64 of a 128-query
+//   tile and walks the key tiles in order with the online recurrence, one
+//   tile's [64, 64] scores in registers; Q K^T of tile t is issued with P V
+//   of tile t - 1 and awaited alone, so tile t's exps overlap that P V.  K
+//   and V (interleaved in the ring) stay for all of a (b, h)'s query tiles
+//   where 2 NT tiles fit the ring (Params::resident), else stream per
+//   query tile.
 // What bounds them (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): the two
 // warpgroups of the SPLIT form meet at their exchanges, so their products
 // and their exps (the 16 a clock an SM of ex2) run one after the other;
 // with more than 168 registers a thread the products of one tile could
 // overlap the softmax of another, but 9 or more warps a block cap a thread
-// there (3 warps on one of the 4 schedulers' 16,384 registers).
+// there (3 warps on one of the 4 schedulers' 16,384 registers).  The FLASH
+// form holds one tile's scores (32 registers) and needs no exchange; its
+// exps are the wall at bert-base (16 ex2 a clock an SM; 0.027 ms of them
+// against 0.0261 ms of products and 0.0301 of bytes).  Issuing the two
+// warpgroups' products in strict turns (FlashAttention-3's ping-pong) measured
+// slower (0.104 -> 0.140 ms at bert-base; PERF.md §6).
 // exp(s - m) is taken as 2^(s' - m') on scores s' = s log2(e) (log2 e
 // folded into the scale and the biases), so a row whose keys are all
 // masked (every s' the same -1.4e9) gets p = 1 exactly.  No atomics and a
@@ -96,7 +113,7 @@ using ac_attn::quad_max;
 using ac_attn::quad_sum;
 using namespace ac_hopper;
 
-enum Form { ROWS = 1, SPLIT = 2, TWO_PASS = 3 };
+enum Form { ROWS = 1, SPLIT = 2, TWO_PASS = 3, FLASH = 4 };
 
 constexpr int TK = 64;                     // keys a tile
 constexpr int NC = 2;                      // consumer warpgroups
@@ -110,7 +127,8 @@ constexpr int ROWS_MAX_NT = 4;             // longest ROWS form: S 256
 constexpr int SPLIT_MAX_NT = 8;            // longest one-pass row: S 512
 
 // Geometry of one instantiation: DHP the padded head width (64 or 128),
-// FORM, NTW key tiles a warpgroup holds in registers (ROWS and SPLIT).
+// FORM, NTW key tiles a warpgroup holds in registers (ROWS and SPLIT; 1
+// for TWO_PASS and FLASH, which hold one).
 template <int DHP_, int FORM_, int NTW_>
 struct Geo {
   static constexpr int DHP = DHP_, FORM = FORM_, NTW = NTW_;
@@ -121,9 +139,10 @@ struct Geo {
   static constexpr int NACC = DHP / 2;                     // P V accumulators a thread
   static constexpr int TILE_READERS = FORM == SPLIT ? 4 : 8;   // warps that read a tile
   // K and V tiles of a query tile (one pass), and whether they stay in the
-  // ring for all the query tiles of a work unit
+  // ring for all the query tiles of a work unit (FLASH: by the row length,
+  // Params::resident)
   static constexpr int KV_TILES = 2 * (FORM == SPLIT ? 2 * NTW : NTW);
-  static constexpr bool RESIDENT = FORM != TWO_PASS && KV_TILES <= STAGES;
+  static constexpr bool RESIDENT = (FORM == ROWS || FORM == SPLIT) && KV_TILES <= STAGES;
   // from the first 1024-byte boundary: Q buffers, ring, key biases, the
   // SPLIT form's exchange (partial P V, row maxima, row sums), barriers
   static constexpr int OFF_RING = 2 * QTILE;
@@ -149,29 +168,12 @@ struct Params {
   int qpu, nqu, units;         // query tiles a work unit, units a (b, h), units
   int tma;                     // rows go by TMA (else element by element)
   int pairs;                   // outputs stored two at a time (Dh even)
+  int resident;                // K and V stay in the ring for a unit's query tiles
 };
 
 // ---------------------------------------------------------------------------
 // PTX wrappers
 // ---------------------------------------------------------------------------
-
-// Wait until the phase of parity `parity` has completed, the polling loop
-// inside one asm block: to the compiler a straight line, so no branch sits
-// between a wgmma and its wait_group.  After 2^26 polls it traps, so a
-// fault in the protocol fails the launch instead of holding the card.
-__device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred ready;\n.reg .u32 polls;\nmov.u32 polls, 0;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 ready, [%0], %1;\n"
-      "@ready bra DONE;\n"
-      "add.u32 polls, polls, 1;\n"
-      "setp.lt.u32 ready, polls, 67108864;\n"
-      "@ready bra WAIT;\n"
-      "trap;\n"
-      "DONE:\n}\n"
-      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
-}
 
 // one arrival of the warp (its lane 0, after every lane's reads)
 __device__ __forceinline__ void warp_arrive(uint64_t* bar) {
@@ -381,6 +383,13 @@ __device__ __forceinline__ void produce(const CUtensorMap* mq, const CUtensorMap
         for (int t = 0; t < p.nt; ++t) {
           tile(mk, p.k, t, true);
           tile(mv, p.v, t, false);
+        }
+      } else if constexpr (G::FORM == FLASH) {
+        if (!p.resident || j == 0) {
+          for (int t = 0; t < p.nt; ++t) {
+            tile(mk, p.k, t, true);
+            tile(mv, p.v, t, false);
+          }
         }
       } else if (!G::RESIDENT || j == 0) {
         for (int t = 0; t < G::KV_TILES / 2; ++t) tile(mk, p.k, t, true);
@@ -719,6 +728,101 @@ __device__ __forceinline__ void consume_two_pass(const Params& p) {
   }
 }
 
+// FLASH (B6): the warpgroup's 64 of each 128-query tile, the online
+// recurrence over the key tiles in order (K and V of tile t at ring
+// positions pos + 2t and pos + 2t + 1).  Q K^T of tile t is issued with
+// P V of tile t - 1 and awaited alone, so tile t's exps run while the
+// tensor cores still multiply P V; the other warpgroup's work fills the
+// rest.
+template <class G>
+__device__ __forceinline__ void consume_flash(const Params& p) {
+  extern __shared__ unsigned char smem_raw[];
+  const Smem<G> sm(smem_raw);
+  const int wg = threadIdx.x / 128;
+  uint32_t pos = 0;
+  int n = 0;
+  for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+    const Unit it(u, p);
+    for (int j = 0; j < it.nqt; ++j, ++n) {
+      const int qb = n & 1;
+      const bool release = !p.resident || j + 1 == it.nqt;
+      wait_phase(&sm.qfull()[qb], (n >> 1) & 1);
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+      float o[G::NACC];
+      uint32_t a[1][4][4];
+      float sc[1][32];
+      // Q K^T of tile t into sc, and o (+)= P V of tile t (issued, not
+      // committed)
+      auto issue_qk = [&](int t) {
+        const uint32_t at = pos + 2 * t;
+        wait_phase(&sm.full()[at % G::STAGES], (at / G::STAGES) & 1);
+        qk<G>(sc[0], sm.q(qb), G::QROWS, 64 * wg, sm.tile(at % G::STAGES));
+      };
+      auto issue_pv = [&](int t) {
+        const uint32_t at = pos + 2 * t + 1;
+        wait_phase(&sm.full()[at % G::STAGES], (at / G::STAGES) & 1);
+        pv<G>(o, a[0], sm.tile(at % G::STAGES), t == 0);
+      };
+      // tile t's scores into p = 2^(s - m), with the new running max m, the
+      // correction corr = 2^(m_old - m) and l = l corr + the sum of p
+      auto softmax = [&](int t) {
+        fence_operands(sc[0]);
+        const uint32_t at = pos + 2 * t;
+        scale_bias(sc[0], sm.bias(at % G::STAGES), p.scale2, t * TK, p.S);
+        if (release) warp_arrive(&sm.empty()[at % G::STAGES]);
+        #pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float mn = fmaxf(m[r], quad_max(row_max(sc, r)));
+          corr[r] = exp2_approx(m[r] - mn);       // 0 on the first tile
+          m[r] = mn;
+          l[r] = l[r] * corr[r] + quad_sum(row_exp(sc, r, mn));
+        }
+      };
+      // P V of tile t done: o and the fragments free, the V slot released
+      auto retire_pv = [&](int t) {
+        fence_operands(o);
+        fence_fragments(a);
+        if (release) warp_arrive(&sm.empty()[(pos + 2 * t + 1) % G::STAGES]);
+      };
+
+      wgmma_fence();
+      issue_qk(0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      softmax(0);
+      pack_p(sc, 1.f, 1.f, a);                    // p rounded to bf16
+      for (int t = 1; t < p.nt; ++t) {
+        wgmma_fence();
+        issue_qk(t);
+        wgmma_commit();
+        issue_pv(t - 1);
+        wgmma_commit();
+        wgmma_wait<1>();                          // Q K^T of tile t
+        softmax(t);
+        wgmma_wait<0>();                          // P V of tile t - 1
+        retire_pv(t - 1);
+        #pragma unroll
+        for (int i = 0; i < G::NACC; ++i) o[i] *= corr[(i >> 1) & 1];
+        pack_p(sc, 1.f, 1.f, a);
+      }
+      warp_arrive(&sm.qempty()[qb]);
+      wgmma_fence();
+      issue_pv(p.nt - 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      retire_pv(p.nt - 1);
+
+      // acc / max(l, 1e-30), as the row's reciprocal times acc
+      const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
+      #pragma unroll
+      for (int i = 0; i < G::NACC; ++i) o[i] *= inv[(i >> 1) & 1];
+      if (!p.resident) pos += 2 * p.nt;
+      store<G>(o, it, (it.qt0 + j) * G::QROWS + 64 * wg, p);
+    }
+    if (p.resident) pos += 2 * p.nt;
+  }
+}
+
 template <class G>
 __global__ void __launch_bounds__(THREADS, 1)
 attention_wg_kernel(const __grid_constant__ CUtensorMap mq,
@@ -747,7 +851,8 @@ attention_wg_kernel(const __grid_constant__ CUtensorMap mq,
     setmaxnreg_inc<CONSUMER_REGS>();
     if constexpr (G::FORM == ROWS) consume_rows<G>(p);
     else if constexpr (G::FORM == SPLIT) consume_split<G>(p);
-    else consume_two_pass<G>(p);
+    else if constexpr (G::FORM == TWO_PASS) consume_two_pass<G>(p);
+    else consume_flash<G>(p);
   }
 }
 
@@ -843,8 +948,9 @@ cudaError_t launch_geo(const Args& a, bool tma) {
   p.nt = (a.S + TK - 1) / TK;
   // Units of one query tile, or, where K and V stay in the ring, of as many
   // of a (b, h)'s query tiles as leave every SM a unit or more
+  p.resident = G::FORM == FLASH ? 2 * p.nt <= G::STAGES : G::RESIDENT;
   const long long tiles = (long long)a.B * a.H * p.nq;
-  const long long per = G::RESIDENT ? (tiles + sms - 1) / sms : 1;
+  const long long per = p.resident ? (tiles + sms - 1) / sms : 1;
   p.qpu = (int)(per < p.nq ? per : p.nq);
   p.nqu = (p.nq + p.qpu - 1) / p.qpu;
   const long long units = (long long)a.B * a.H * p.nqu;
@@ -859,10 +965,11 @@ cudaError_t launch_geo(const Args& a, bool tma) {
 
 // the form by row length: ROWS up to 4 key tiles (S 256; rows of at most
 // SHORT_MAX_S keys run the tile loop, below), SPLIT up to 8 (S 512),
-// TWO_PASS above
+// TWO_PASS above; B6 (flash) takes FLASH at every length
 template <int DHP>
-cudaError_t launch_dhp(const Args& a, bool tma) {
+cudaError_t launch_dhp(const Args& a, bool tma, bool flash) {
   const int nt = (a.S + TK - 1) / TK;
+  if (flash) return launch_geo<Geo<DHP, FLASH, 1>>(a, tma);
   if (nt <= 2) return launch_geo<Geo<DHP, ROWS, 2>>(a, tma);
   if (nt <= ROWS_MAX_NT) return launch_geo<Geo<DHP, ROWS, ROWS_MAX_NT>>(a, tma);
   if (nt <= SPLIT_MAX_NT) return launch_geo<Geo<DHP, SPLIT, SPLIT_MAX_NT / 2>>(a, tma);
@@ -878,7 +985,7 @@ cudaError_t launch_dhp(const Args& a, bool tma) {
 
 constexpr int SHORT_MAX_S = 64;
 
-template <class Tl, bool ALIGNED>
+template <class Tl, bool ALIGNED, bool FLASH_ORDER>
 __global__ void __launch_bounds__(Tl::THREADS, ac_attn::kMinBlocks<Tl>)
 one_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const int* __restrict__ mask,
@@ -886,14 +993,14 @@ one_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 long long sh, float scale2) {
   const int h = blockIdx.y, b = blockIdx.z;
   const long long off = (long long)b * sb + (long long)h * sh;
-  ac_attn::one_tile_rows<Tl, ALIGNED>(q + off, k + off, v + off, mask + (long long)b * S,
-                                      out, b, h, S, H, Dh, ss, scale2);
+  ac_attn::one_tile_rows<Tl, ALIGNED, FLASH_ORDER>(
+      q + off, k + off, v + off, mask + (long long)b * S, out, b, h, S, H, Dh, ss, scale2);
 }
 
 // info[5..7] of the tile loop: no warpgroups, no wgmma form, no TMA
-template <class Tl, bool ALIGNED>
+template <class Tl, bool ALIGNED, bool FLASH_ORDER>
 cudaError_t launch_one_tile(const Args& a) {
-  auto* kernel = one_tile_kernel<Tl, ALIGNED>;
+  auto* kernel = one_tile_kernel<Tl, ALIGNED, FLASH_ORDER>;
   const size_t smem = Tl::smem_bytes();
   if (a.info) {
     a.info[5] = a.info[6] = a.info[7] = 0;
@@ -912,31 +1019,34 @@ cudaError_t launch_one_tile(const Args& a) {
 
 // 2 warps and one 32-key tile at S <= 32 (no half of a tile is padding),
 // else 4 warps and one 64-key tile
-template <int DHP, bool ALIGNED>
+template <int DHP, bool ALIGNED, bool FLASH_ORDER>
 cudaError_t launch_short(const Args& a) {
-  if (a.S <= 32) return launch_one_tile<ac_attn::Tile<DHP, 2, 32>, ALIGNED>(a);
-  return launch_one_tile<ac_attn::Tile<DHP, 4, 64>, ALIGNED>(a);
+  if (a.S <= 32) return launch_one_tile<ac_attn::Tile<DHP, 2, 32>, ALIGNED, FLASH_ORDER>(a);
+  return launch_one_tile<ac_attn::Tile<DHP, 4, 64>, ALIGNED, FLASH_ORDER>(a);
 }
 
-template <bool ALIGNED>
+template <bool ALIGNED, bool FLASH_ORDER>
 cudaError_t launch_short_dh(const Args& a) {
-  if (a.Dh <= 32) return launch_short<32, ALIGNED>(a);
-  if (a.Dh <= 64) return launch_short<64, ALIGNED>(a);
-  return launch_short<128, ALIGNED>(a);
+  if (a.Dh <= 32) return launch_short<32, ALIGNED, FLASH_ORDER>(a);
+  if (a.Dh <= 64) return launch_short<64, ALIGNED, FLASH_ORDER>(a);
+  return launch_short<128, ALIGNED, FLASH_ORDER>(a);
 }
 
 // bf16 attention on q, k, v [B, S, H, Dh] (Dh <= 128; the caller checks
-// the envelope), out [B, S, H * Dh]; with a.info, the instantiation.  Rows
-// of at most SHORT_MAX_S keys run the tile loop (16-byte copies where TMA
-// could take the rows and out starts on 16 bytes, else element by
-// element), longer rows the wgmma kernel.
-inline cudaError_t launch(const Args& a) {
+// the envelope), out [B, S, H * Dh]; with a.info, the instantiation.  flash:
+// B6's order of rounding (the online recurrence: p = 2^(s - m) rounded,
+// the division at the end), else B1's and B7's (p normalized, then
+// rounded).  Rows of at most SHORT_MAX_S keys run the tile loop (16-byte
+// copies where TMA could take the rows and out starts on 16 bytes, else
+// element by element), longer rows the wgmma kernel.
+inline cudaError_t launch(const Args& a, bool flash = false) {
   const bool tma = tma_rows(a);
   if (a.S <= SHORT_MAX_S) {
-    const bool out16 = (reinterpret_cast<uintptr_t>(a.out) & 15) == 0;
-    return tma && out16 ? launch_short_dh<true>(a) : launch_short_dh<false>(a);
+    const bool fast = tma && (reinterpret_cast<uintptr_t>(a.out) & 15) == 0;
+    if (flash) return fast ? launch_short_dh<true, true>(a) : launch_short_dh<false, true>(a);
+    return fast ? launch_short_dh<true, false>(a) : launch_short_dh<false, false>(a);
   }
-  return a.Dh <= 64 ? launch_dhp<64>(a, tma) : launch_dhp<128>(a, tma);
+  return a.Dh <= 64 ? launch_dhp<64>(a, tma, flash) : launch_dhp<128>(a, tma, flash);
 }
 
 }  // namespace ac_wg

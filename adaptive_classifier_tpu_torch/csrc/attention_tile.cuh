@@ -1,19 +1,19 @@
-// The bf16 tensor-core tile loop of B6 (flash_attention.cu) and of B1's
-// and B7's short rows (S <= 64, one_tile_rows), and the softmax helpers
-// that attention_hopper.cuh (B1 and B7 above 64 keys) shares.  Each warp owns 16 query rows,
-// and a block of NW warps streams TK-key tiles of K and V past its 16 * NW
-// query rows.
+// The bf16 tensor-core tile loop of the attention kernels' short rows (S
+// <= 64: one_tile_rows, for B1 in attention_qkv.cu and B6, B7 in
+// flash_attention.cu), and the softmax helpers that attention_hopper.cuh
+// (every longer row) shares.  Each warp owns 16 query rows, and a block of
+// NW warps multiplies its 16 * NW query rows by one staged TK-key tile.
 //
 // - Products: mma.sync.m16n8k16 bf16 x bf16 -> f32 for Q K^T and for P V.
 //   A bf16 product is exact in f32, so the only differences from a plain
 //   f32 product of the same bf16 values are the order of the sums.
-// - Fragments: a warp's Q rows are loaded once with ldmatrix and stay in
-//   registers; K comes from shared memory by ldmatrix, V by ldmatrix.trans.
-//   The scores stay in the f32 accumulator layout (rows g = lane / 4 and
-//   g + 8, columns 2 (lane % 4) + {0, 1} of each 8-key block), so a row's
-//   max and sum take two quad shuffles, and the accumulators of two
-//   neighbouring 8-key blocks are, rounded to bf16, the A operand of the
-//   P V product: p never goes through shared memory.
+// - Fragments: a warp's Q rows are loaded with ldmatrix; K comes from
+//   shared memory by ldmatrix, V by ldmatrix.trans.  The scores stay in the
+//   f32 accumulator layout (rows g = lane / 4 and g + 8, columns 2 (lane %
+//   4) + {0, 1} of each 8-key block), so a row's max and sum take two quad
+//   shuffles, and the accumulators of two neighbouring 8-key blocks are,
+//   rounded to bf16, the A operand of the P V product: p never goes
+//   through shared memory.
 // - exp(s - m) is taken as 2^(s' - m') on scores s' = s log2(e): log2(e) is
 //   folded into the scale and the bias, so a score costs one ex2 and no
 //   range reduction.  s' - m' is formed before the ex2, so a row whose keys
@@ -21,12 +21,9 @@
 // - Staging: tiles are kept in shared memory as bf16, rows padded to DHP +
 //   8 elements (16 bytes), so the eight 16-byte rows an ldmatrix phase
 //   reads fall in eight distinct bank groups.  ALIGNED tiles (16-byte
-//   aligned rows, Dh % 8 == 0) are copied with 16-byte cp.async.cg into a
-//   ring of two slots, so tile j + 1 loads while tile j is multiplied, with
-//   one barrier a tile (a deeper ring measured no faster: the loop is bound
-//   by its own instructions, not by the loads); otherwise the same ring is
-//   filled element by element.  Rows past S are zeros; columns Dh..DHP are
-//   zeroed once, so Dh is zero-padded to DHP (32, 64 or 128) and every
+//   aligned rows, Dh % 8 == 0) are copied with 16-byte cp.async.cg;
+//   otherwise element by element.  Rows past S are zeros; columns Dh..DHP
+//   are zeroed, so Dh is zero-padded to DHP (32, 64 or 128) and every
 //   product runs over whole DHP columns with no run-time bound inside its
 //   unrolled loops.
 #pragma once
@@ -57,7 +54,6 @@ struct Tile {
   static constexpr int DHP = DHP_;
   static constexpr int NW = NW_;
   static constexpr int TK = TK_;
-  static constexpr int STAGES = 2;             // ring slots
   static constexpr int THREADS = 32 * NW;
   static constexpr int TQ = 16 * NW;
   static constexpr int LDS = DHP + 8;          // shared row stride, elements
@@ -65,12 +61,12 @@ struct Tile {
   static constexpr int NDT = DHP / 8;          // 8-column output blocks
   static constexpr int Q_ELEMS = TQ * LDS;
   static constexpr int KV_ELEMS = TK * LDS;
-  static constexpr int SMEM_ROWS = TQ + STAGES * 2 * TK;  // bf16 rows, Q then ring
+  static constexpr int SMEM_ROWS = TQ + 2 * TK;  // bf16 rows: Q, K, V
   static_assert(DHP % 16 == 0 && TK % 16 == 0, "mma steps are 16 deep");
   static_assert(THREADS % (DHP / 8) == 0, "a thread stages one 16-byte column");
-  // Q | STAGES x (K, V) | STAGES x TK key biases (f32)
+  // Q | K | V | TK key biases (f32)
   static constexpr size_t smem_bytes() {
-    return sizeof(bf16) * size_t(SMEM_ROWS) * LDS + sizeof(float) * size_t(STAGES) * TK;
+    return sizeof(bf16) * size_t(SMEM_ROWS) * LDS + sizeof(float) * size_t(TK);
   }
 };
 
@@ -83,14 +79,12 @@ constexpr int kMinBlocks = (Tl::DHP <= 64 ? 512 : 256) / Tl::THREADS;
 template <class Tl>
 struct Smem {
   bf16* q;        // [TQ][LDS]
-  bf16* ring;     // STAGES x (K [TK][LDS], V [TK][LDS])
-  float* bias;    // STAGES x [TK]
+  bf16* k;        // [TK][LDS]
+  bf16* v;        // [TK][LDS]
+  float* b;       // [TK]
   __device__ explicit Smem(unsigned char* raw)
-      : q(reinterpret_cast<bf16*>(raw)), ring(q + Tl::Q_ELEMS),
-        bias(reinterpret_cast<float*>(ring + Tl::STAGES * 2 * Tl::KV_ELEMS)) {}
-  __device__ bf16* k(int slot) const { return ring + slot * 2 * Tl::KV_ELEMS; }
-  __device__ bf16* v(int slot) const { return k(slot) + Tl::KV_ELEMS; }
-  __device__ float* b(int slot) const { return bias + slot * Tl::TK; }
+      : q(reinterpret_cast<bf16*>(raw)), k(q + Tl::Q_ELEMS), v(k + Tl::KV_ELEMS),
+        b(reinterpret_cast<float*>(v + Tl::KV_ELEMS)) {}
 };
 
 // ---------------------------------------------------------------------------
@@ -194,25 +188,6 @@ __device__ __forceinline__ void stage_bias(float* bs, const int* __restrict__ mr
     bs[i] = key_bias(mrow, k0 + i, S) * LOG2E;
 }
 
-// The block's ring schedule over `steps` staged steps: stage(i, slot)
-// issues step i's copies into a slot, step(i, slot) consumes them.  The
-// caller has issued Q and step 0 as one committed group.  Each step waits
-// for its copies, passes one barrier (after which every warp is done with
-// step i - 1, so its slot is free), issues step i + 1 into that slot and
-// computes step i while the copies land.
-template <class Stage, class Step>
-__device__ __forceinline__ void ring_loop(int steps, Stage stage, Step step) {
-  for (int i = 0; i < steps; ++i) {
-    cp_async_wait_all();
-    __syncthreads();
-    if (i + 1 < steps) {
-      stage(i + 1, (i + 1) & 1);
-      cp_async_commit();
-    }
-    step(i, i & 1);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // products and softmax
 // ---------------------------------------------------------------------------
@@ -257,33 +232,6 @@ __device__ __forceinline__ void tile_scores(const uint32_t qf[Tl::DHP / 16][4],
     sc[n][1] = sc[n][1] * scale2 + bb.y;
     sc[n][2] = sc[n][2] * scale2 + bb.x;
     sc[n][3] = sc[n][3] * scale2 + bb.y;
-  }
-}
-
-// The online-softmax step of one tile for the thread's two rows (r = 0:
-// row g, elements 0 and 1 of each block; r = 1: row g + 8, elements 2 and
-// 3): m becomes max(m, tile max), corr[r] = 2^(m_old - m_new) (0 on the
-// first tile), sc becomes p = 2^(s - m_new) and l = l * corr + the row's
-// sum of p.
-template <class Tl>
-__device__ __forceinline__ void online_softmax(float sc[Tl::NKT][4], float m[2], float l[2],
-                                               float corr[2]) {
-  #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float mx = -INFINITY;
-    #pragma unroll
-    for (int n = 0; n < Tl::NKT; ++n) mx = fmaxf(mx, fmaxf(sc[n][2 * r], sc[n][2 * r + 1]));
-    const float mn = fmaxf(m[r], quad_max(mx));
-    corr[r] = exp2_approx(m[r] - mn);
-    m[r] = mn;
-    float sum = 0.f;
-    #pragma unroll
-    for (int n = 0; n < Tl::NKT; ++n) {
-      sc[n][2 * r] = exp2_approx(sc[n][2 * r] - mn);
-      sc[n][2 * r + 1] = exp2_approx(sc[n][2 * r + 1] - mn);
-      sum += sc[n][2 * r] + sc[n][2 * r + 1];
-    }
-    l[r] = l[r] * corr[r] + quad_sum(sum);
   }
 }
 
@@ -349,15 +297,17 @@ __device__ __forceinline__ void store_rows(bf16* Qs, const float o[Tl::NDT][4],
 }
 
 // ---------------------------------------------------------------------------
-// the exact row softmax over one staged tile (B1 and B7 at S <= TK)
+// the row softmax over one staged tile (B1, B6 and B7 at S <= TK)
 // ---------------------------------------------------------------------------
 
-// softmax(s) v for the block's query tile of a row of at most TK keys, p =
-// exp(s - m) / max(l, 1e-30) rounded to bf16 before the PV product: Q, K, V
-// and the key biases staged at once, every score of a warp's rows in
-// registers.  q, k, v at their head's offset of batch row b, rows ss
-// elements apart; out [B, S, H, Dh].
-template <class Tl, bool ALIGNED>
+// softmax(s) v for the block's query tile of a row of at most TK keys: Q,
+// K, V and the key biases staged at once, every score of a warp's rows in
+// registers.  B1's and B7's order: p = exp(s - m) / max(l, 1e-30) rounded
+// to bf16 before the PV product.  FLASH_ORDER (B6's recurrence over its one
+// tile): p = exp(s - m) rounded to bf16, l summed from the unrounded p, and
+// the PV product times 1 / max(l, 1e-30).  q, k, v at their head's offset
+// of batch row b, rows ss elements apart; out [B, S, H, Dh].
+template <class Tl, bool ALIGNED, bool FLASH_ORDER = false>
 __device__ __forceinline__ void one_tile_rows(const bf16* __restrict__ q,
                                               const bf16* __restrict__ k,
                                               const bf16* __restrict__ v,
@@ -369,9 +319,9 @@ __device__ __forceinline__ void one_tile_rows(const bf16* __restrict__ q,
   const int q0 = blockIdx.x * Tl::TQ;
   zero_pad_cols<Tl>(sm.q, Tl::SMEM_ROWS, Dh);
   stage_rows<Tl, ALIGNED>(sm.q, q, ss, q0, Tl::TQ, S, Dh);
-  stage_rows<Tl, ALIGNED>(sm.k(0), k, ss, 0, Tl::TK, S, Dh);
-  stage_rows<Tl, ALIGNED>(sm.v(0), v, ss, 0, Tl::TK, S, Dh);
-  stage_bias<Tl>(sm.b(0), mrow, 0, S);
+  stage_rows<Tl, ALIGNED>(sm.k, k, ss, 0, Tl::TK, S, Dh);
+  stage_rows<Tl, ALIGNED>(sm.v, v, ss, 0, Tl::TK, S, Dh);
+  stage_bias<Tl>(sm.b, mrow, 0, S);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
@@ -379,10 +329,11 @@ __device__ __forceinline__ void one_tile_rows(const bf16* __restrict__ q,
   uint32_t qf[Tl::DHP / 16][4];
   float sc[Tl::NKT][4];
   load_q<Tl>(sm.q, qf);
-  tile_scores<Tl>(qf, sm.k(0), sm.b(0), scale2, sc);
+  tile_scores<Tl>(qf, sm.k, sm.b, scale2, sc);
 
-  // p = 2^(s - m) / max(l, 1e-30) (rounded to bf16 in tile_pv); the
-  // thread's rows g (r = 0) and g + 8 (r = 1)
+  // p = 2^(s - m) (/ max(l, 1e-30) unless FLASH_ORDER; rounded to bf16 in
+  // tile_pv); the thread's rows g (r = 0) and g + 8 (r = 1)
+  float inv_l[2];
   #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float mx = -INFINITY;
@@ -396,18 +347,26 @@ __device__ __forceinline__ void one_tile_rows(const bf16* __restrict__ q,
       sc[n][2 * r + 1] = exp2_approx(sc[n][2 * r + 1] - mx);
       sum += sc[n][2 * r] + sc[n][2 * r + 1];
     }
-    const float inv_l = 1.f / fmaxf(quad_sum(sum), 1e-30f);
-    #pragma unroll
-    for (int n = 0; n < Tl::NKT; ++n) {
-      sc[n][2 * r] *= inv_l;
-      sc[n][2 * r + 1] *= inv_l;
+    inv_l[r] = 1.f / fmaxf(quad_sum(sum), 1e-30f);
+    if (!FLASH_ORDER) {
+      #pragma unroll
+      for (int n = 0; n < Tl::NKT; ++n) {
+        sc[n][2 * r] *= inv_l[r];
+        sc[n][2 * r + 1] *= inv_l[r];
+      }
     }
   }
 
   float o[Tl::NDT][4];
   #pragma unroll
   for (int n = 0; n < Tl::NDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  tile_pv<Tl>(sc, sm.v(0), o);
+  tile_pv<Tl>(sc, sm.v, o);
+  if (FLASH_ORDER) {
+    #pragma unroll
+    for (int n = 0; n < Tl::NDT; ++n)
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= inv_l[e >> 1];
+  }
   store_rows<Tl, ALIGNED>(sm.q, o, out, b, q0, S, H, h, Dh);
 }
 

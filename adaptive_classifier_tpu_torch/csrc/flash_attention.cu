@@ -25,43 +25,37 @@
 // the mask moved once at 3.35 TB/s): memory at the zoo's chunks, 0.0100 ms
 // of bytes against 0.0005 ms of products at [256, 32] x 8 heads, 0.0401
 // against 0.0087 at [256, 128]; about balanced at bert-base [32, 512] x 12
-// heads, 0.0301 ms of bytes against 0.0261 of products.
+// heads, 0.0301 ms of bytes against 0.0261 of products; products at [4,
+// 2,048] x 12 (0.0521 ms against 0.0150 of bytes).  Past both, the exps:
+// one ex2 a score, 16 a clock an SM (0.027 ms at bert-base).
 //
-// B6, bf16 (attention_tile.cuh): both products on the tensor cores
-// (mma.sync m16n8k16, f32 accumulation), softmax on the accumulator
-// fragments, K/V tiles staged as bf16 by 16-byte cp.async into a two-slot
-// ring, so the bytes are read once per (batch, head, query tile) with the
-// next tile in flight while the current one is multiplied, and no score or
-// probability reaches shared or device memory.  A block is 4 warps of 16
-// query rows and 64-key tiles (2 warps and 32-key tiles at S <= 32, so no
-// half of a tile is padding): 45.5 KB of shared memory and at most 128
-// registers a thread at Dh 64, so 4 blocks share an SM.  Rows that are not
-// 16-byte aligned (Dh % 8 != 0, or an odd base or stride) are staged
-// element by element by the same kernel.  exp is taken as 2^x on scores
-// scaled by log2(e), and each division by max(l, 1e-30) as a product with
-// the row's reciprocal: both within a few f32 ulps of the plain version's
-// values before the bf16 rounding.  B6 rounds exp(s - m) to bf16 straight
-// from the score accumulators into the A operand of the PV product; l is
-// summed from the f32 values.  Its recurrence steps over the plain
-// version's 64-key tiles.
-//
-// B7, bf16, above 64 keys (attention_hopper.cuh): TMA loads into a ring on
-// mbarriers, a producer warpgroup, two consumer warpgroups on wgmma,
-// persistent over work units of one (batch row, head).  Each row's exact
-// max comes before it normalizes, with Q K^T computed once up to S 512:
-// the [64, S] scores of a warpgroup's queries in registers to S 256 (at
-// S 128 one query tile per batch row and head), the keys split between the
-// two warpgroups, which exchange their rows' maxima and sums through
-// shared memory, to S 512 (K and V loaded once for all 8 query tiles of a
-// (b, h) at bert-base); above, two passes on the same loop (the running
-// max and rescaled sum, then the scores again with V).  p = exp(s - m) /
-// max(l, 1e-30) rounded to bf16 in registers is the A operand of P V.
+// bf16, above 64 keys, both kernels run attention_hopper.cuh: TMA loads
+// into a ring on mbarriers, a producer warpgroup, two consumer warpgroups
+// on wgmma, persistent over work units of one (batch row, head).
+// - B6 (its FLASH form): each warpgroup owns 64 of a 128-query tile and
+//   walks the key tiles in order, the plain version's 64-key tiles: s = q
+//   k^T scale + bias, m_new = max(m, rowmax s), corr = 2^(m - m_new), p =
+//   2^(s - m_new) rounded to bf16 in registers as the A operand of P V, l =
+//   l corr + the sum of the unrounded p, acc = acc corr + P V in f32, and
+//   acc / max(l, 1e-30) at the end.  Q K^T of tile t is issued with P V of
+//   tile t - 1 and awaited alone, so tile t's exps overlap that P V.  K and
+//   V stay in the ring for all the query tiles of a (b, h) where they fit
+//   (S <= 512 at Dh <= 64, 256 at Dh 128: at bert-base K and V are read
+//   once per (b, h) for its 4 query tiles); longer rows stream them per
+//   query tile.
+// - B7 (ROWS, SPLIT, TWO_PASS forms): each row's exact max comes before it
+//   normalizes, with Q K^T computed once up to S 512: the [64, S] scores
+//   of a warpgroup's queries in registers to S 256, the keys split
+//   between the two warpgroups, which exchange their rows' maxima and sums
+//   through shared memory, to S 512; above, two passes (the running max
+//   and rescaled sum, then the scores again with V).  p = exp(s - m) /
+//   max(l, 1e-30) rounded to bf16 in registers is the A operand of P V.
 // Rows TMA cannot take (Dh % 8 != 0, an odd base or stride: Dh 20 or 100)
 // are staged element by element by the producer's loading warp into the
-// same layout.  At S <= 64 one_tile_rows of attention_tile.cuh (one staged
-// tile, mma.sync, the exact softmax on the fragments): the wgmma form pads
-// such rows to 128-query, 64-key tiles and measured 2.1x slower there.
-// Times (NVIDIA H100 80GB HBM3, 700 W): PERF.md §6.
+// same layout.  At S <= 64 both run one_tile_rows of attention_tile.cuh
+// (one staged tile, mma.sync, each kernel's order of rounding): the wgmma
+// kernel pads such rows to 128-query, 64-key tiles and measured 2.1-2.4x
+// slower there.  Times (NVIDIA H100 80GB HBM3, 700 W): PERF.md §6.
 //
 // f32 keeps the first port's CUDA-core loop below: TF32 is off in this
 // port, and a bf16 mma would not compute the f32 function.  B6 layout: one
@@ -357,63 +351,6 @@ oneshot_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the tensor-core tile loop of attention_tile.cuh
-// ---------------------------------------------------------------------------
-
-using ac_attn::bf16;
-using ac_attn::kMinBlocks;
-
-// B6, bf16
-template <class Tl, bool ALIGNED>
-__global__ void __launch_bounds__(Tl::THREADS, kMinBlocks<Tl>)
-flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const int* __restrict__ mask,
-                bf16* __restrict__ out, int S, int H, int Dh, long long sb, long long ss,
-                long long sh, float scale2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const ac_attn::Smem<Tl> sm(smem_raw);
-  const int q0 = blockIdx.x * Tl::TQ, h = blockIdx.y, b = blockIdx.z;
-  const long long off = (long long)b * sb + (long long)h * sh;
-  const int* mrow = mask + (long long)b * S;
-
-  auto stage = [&](int j, int slot) {
-    ac_attn::stage_rows<Tl, ALIGNED>(sm.k(slot), k + off, ss, j * Tl::TK, Tl::TK, S, Dh);
-    ac_attn::stage_rows<Tl, ALIGNED>(sm.v(slot), v + off, ss, j * Tl::TK, Tl::TK, S, Dh);
-    ac_attn::stage_bias<Tl>(sm.b(slot), mrow, j * Tl::TK, S);
-  };
-  ac_attn::zero_pad_cols<Tl>(sm.q, Tl::SMEM_ROWS, Dh);
-  ac_attn::stage_rows<Tl, ALIGNED>(sm.q, q + off, ss, q0, Tl::TQ, S, Dh);
-  stage(0, 0);
-  ac_attn::cp_async_commit();
-
-  uint32_t qf[Tl::DHP / 16][4];
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[Tl::NDT][4];
-  #pragma unroll
-  for (int n = 0; n < Tl::NDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  ac_attn::ring_loop((S + Tl::TK - 1) / Tl::TK, stage, [&](int j, int slot) {
-    if (j == 0) ac_attn::load_q<Tl>(sm.q, qf);
-    float sc[Tl::NKT][4], corr[2];
-    ac_attn::tile_scores<Tl>(qf, sm.k(slot), sm.b(slot), scale2, sc);
-    ac_attn::online_softmax<Tl>(sc, m, l, corr);
-    #pragma unroll
-    for (int n = 0; n < Tl::NDT; ++n)
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
-    ac_attn::tile_pv<Tl>(sc, sm.v(slot), o);
-  });
-
-  // acc / max(l, 1e-30), as the row's reciprocal times acc (within an f32
-  // ulp of the division, before the bf16 rounding)
-  const float inv_l[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
-  #pragma unroll
-  for (int n = 0; n < Tl::NDT; ++n)
-    #pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] *= inv_l[e >> 1];
-  ac_attn::store_rows<Tl, ALIGNED>(sm.q, o, out, b, q0, S, H, h, Dh);
-}
-
-// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -489,44 +426,6 @@ cudaError_t dispatch_dh(const Args& a, bool oneshot) {
   return dispatch_rows<T, 128>(a, oneshot);
 }
 
-template <class Tl, bool ALIGNED>
-cudaError_t launch_tc(const Args& a) {
-  auto* kernel = flash_tc_kernel<Tl, ALIGNED>;
-  const size_t smem = Tl::smem_bytes();
-  if (a.info) return loop_info(kernel, smem, Tl::THREADS, a.info);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + Tl::TQ - 1) / Tl::TQ, a.H, a.B);
-  kernel<<<grid, Tl::THREADS, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), a.mask, static_cast<bf16*>(a.out), a.S, a.H, a.Dh,
-      a.sb, a.ss, a.sh, ac_attn::LOG2E / sqrtf((float)a.Dh));
-  return cudaGetLastError();
-}
-
-// B6: 4 warps, 64-key tiles; at S <= 32 2 warps and 32-key tiles (one
-// tile, the same recurrence as 64 keys), so no half of a tile is padding
-template <int DHP, bool ALIGNED>
-cudaError_t dispatch_tc_tiles(const Args& a) {
-  if (a.S <= 32) return launch_tc<ac_attn::Tile<DHP, 2, 32>, ALIGNED>(a);
-  return launch_tc<ac_attn::Tile<DHP, 4, 64>, ALIGNED>(a);
-}
-
-template <bool ALIGNED>
-cudaError_t dispatch_tc(const Args& a) {
-  if (a.Dh <= 32) return dispatch_tc_tiles<32, ALIGNED>(a);
-  if (a.Dh <= 64) return dispatch_tc_tiles<64, ALIGNED>(a);
-  return dispatch_tc_tiles<128, ALIGNED>(a);
-}
-
-// every q, k, v and out row starts on 16 bytes and holds whole 16-byte chunks
-bool rows_aligned(const Args& a) {
-  auto al = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
-  return a.Dh % 8 == 0 && a.sb % 8 == 0 && a.ss % 8 == 0 && a.sh % 8 == 0 && al(a.q)
-         && al(a.k) && al(a.v) && al(a.out);
-}
-
 int run(const Args& a, int dtype, bool oneshot) {
   if (a.B <= 0 || a.S <= 0 || a.H <= 0 || a.Dh <= 0 || a.Dh > 128 || a.H > 65535
       || a.B > 65535 || (oneshot && a.S > MAX_ONESHOT_S))
@@ -534,10 +433,8 @@ int run(const Args& a, int dtype, bool oneshot) {
   switch (dtype) {
     case 0: return (int)dispatch_dh<float>(a, oneshot);
     case 1:
-      if (oneshot)
-        return (int)ac_wg::launch({a.q, a.k, a.v, a.mask, a.out, a.B, a.S, a.H, a.Dh, a.sb,
-                                   a.ss, a.sh, a.stream, a.info});
-      return (int)(rows_aligned(a) ? dispatch_tc<true>(a) : dispatch_tc<false>(a));
+      return (int)ac_wg::launch({a.q, a.k, a.v, a.mask, a.out, a.B, a.S, a.H, a.Dh, a.sb,
+                                 a.ss, a.sh, a.stream, a.info}, !oneshot);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -52,21 +52,22 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
 
 // Wait until the phase of parity `parity` has completed.  A fresh barrier
 // counts its phase before the first as completed, so a producer waits on
-// an empty slot with parity 1 on its first round.  A wait that never ends
-// (a fault in the protocol) traps after ~2^26 polls, so the launch fails
-// with an error instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  for (uint32_t polls = 0;; ++polls) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
-    if (polls >= (1u << 26)) __trap();
-  }
+// an empty slot with parity 1 on its first round.  The polling loop is
+// inside one asm block: to the compiler a straight line, so no branch sits
+// between a wgmma and its wait_group.  After 2^26 polls it traps, so a
+// fault in the protocol fails the launch instead of holding the card.
+__device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred ready;\n.reg .u32 polls;\nmov.u32 polls, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 ready, [%0], %1;\n"
+      "@ready bra DONE;\n"
+      "add.u32 polls, polls, 1;\n"
+      "setp.lt.u32 ready, polls, 67108864;\n"
+      "@ready bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n}\n"
+      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
 // ---------------------------------------------------------------------------

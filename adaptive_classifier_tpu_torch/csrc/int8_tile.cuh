@@ -1,6 +1,8 @@
-// Building blocks of the int8 kernels (B2, B9 in matmul_int8.cu; B3, B8 in
-// ffn_block_int8.cu), so every kernel quantizes, multiplies and normalizes
-// with the same arithmetic as the others and as their plain torch versions:
+// Building blocks of the int8 kernels (B2, B9 in matmul_int8.cu; B3 in
+// ffn_block_int8.cu; B8 in int8_hopper.cuh, which takes the arithmetic
+// below and multiplies with wgmma), so every kernel quantizes, multiplies
+// and normalizes with the same arithmetic as the others and as their plain
+// torch versions:
 //
 // - per-row symmetric int8 quantization: scale = max(absmax, 1e-8) times
 //   1/127 (B2, B9: adaptive_classifier_tpu/ops/matmul_int8.py:40-45) or
@@ -8,7 +10,7 @@
 //   scale), -127, 127), with rint's round-half-even and an IEEE division,
 //   so the int8 operands agree bit for bit with the plain versions;
 // - an int8 x int8 -> int32 tile product on the tensor cores
-//   (mma.sync.m16n8k32.s8.s8.s32), exact;
+//   (mma.sync.m16n8k32.s8.s8.s32; B8: wgmma), exact;
 // - the f32 scale/bias epilogue (acc * row_scale) * col_scale + bias, each
 //   step rounded on its own (no fused multiply-add), as the plain versions
 //   compute it;
@@ -116,7 +118,7 @@ __device__ __forceinline__ int acc_row(int i) { return ((threadIdx.x & 31) >> 2)
 __device__ __forceinline__ int acc_col(int i) { return 2 * (threadIdx.x & 3) + (i & 1); }
 
 // ---------------------------------------------------------------------------
-// ring_gemm: K-contiguous weights through a cp.async ring (B2, B3, B8, B9)
+// ring_gemm: K-contiguous weights through a cp.async ring (B2, B3, B9)
 // ---------------------------------------------------------------------------
 
 // Geometry of one ring_gemm: WM x WN warps, each MT m16 x NT n8 tiles, so a
@@ -234,8 +236,8 @@ __device__ void ring_gemm(const int8_t* a, int lda, const int8_t* __restrict__ w
 }
 
 // ---------------------------------------------------------------------------
-// epilogues (B3, B8, B9): pairs of elements, and row statistics reduced
-// across the column warps of a block
+// epilogues (B3, B9; B8 takes the pair loads and stores): pairs of
+// elements, and row statistics reduced across the column warps of a block
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float quad_max(float v) {

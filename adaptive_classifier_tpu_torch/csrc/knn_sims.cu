@@ -167,7 +167,7 @@ sims_kernel(const __grid_constant__ CUtensorMap map_q,
       const int s0 = blockIdx.z * per, n = min(slices, s0 + per) - s0;
       for (int i = 0; i < n; ++i) {
         const int st = i % HI_STAGES;
-        mbar_wait(&empty[st], ((i / HI_STAGES) & 1) ^ 1);
+        wait_phase(&empty[st], ((i / HI_STAGES) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[st], SLICE);
         const int k0 = (s0 + i) * KS;
         tma_load_2d(hi + st * SLICE, &map_q, &full[st], k0, blockIdx.y * BM);
@@ -188,7 +188,7 @@ sims_kernel(const __grid_constant__ CUtensorMap map_q,
     #pragma unroll
     for (int r = 0; r < 64; ++r) acc[r] = part[r] = 0.f;
 
-    mbar_wait(&full[0], 0);
+    wait_phase(&full[0], 0);
     split_slice(hi, lo, ct, sq);
     named_bar_sync(CONSUMER_BAR, CT);
     for (int i = 0; i < n; ++i) {
@@ -196,7 +196,7 @@ sims_kernel(const __grid_constant__ CUtensorMap map_q,
       issue_slice(hi + st * SLICE, lo + i % LO_BUFS * SLICE, wg, part);
       // while slice i's products run, split slice i + 1 into the other lo buffer
       if (i + 1 < n) {
-        mbar_wait(&full[(i + 1) % HI_STAGES], ((i + 1) / HI_STAGES) & 1);
+        wait_phase(&full[(i + 1) % HI_STAGES], ((i + 1) / HI_STAGES) & 1);
         split_slice(hi + (i + 1) % HI_STAGES * SLICE, lo + (i + 1) % LO_BUFS * SLICE, ct, sq);
       }
       wgmma_wait<0>();

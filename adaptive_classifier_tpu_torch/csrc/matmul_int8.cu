@@ -46,10 +46,9 @@
 // would not fit the registers of two blocks an SM), 8 warps side by side
 // over the columns (D / 64 each), so M = 8,192 launches 256 blocks, two an
 // SM.  The product is B2's ring_gemm on the weight's K-contiguous copy, in
-// [D, 64] slices through a two-slot ring.  Its epilogue is the O-projection
-// stage of B8 (ffn_block_int8.cu) without the re-quantization: the
-// dequantized rows plus bias and residual stay in the accumulators'
-// registers, ln_stats reduces each row's sum and squared deviations across
+// [D, 64] slices through a two-slot ring.  Its epilogue is B8's
+// O-projection stage without the re-quantization: the dequantized rows
+// plus bias and residual stay in the accumulators' registers, ln_stats reduces each row's sum and squared deviations across
 // the 8 column warps through shared memory, and each thread writes its
 // normalized values straight to out.  No f32 tile of the rows and no
 // scratch: 82 KB of shared memory at D 512 (q(x) 17 KB, the ring 64 KB).

@@ -971,13 +971,13 @@ def attention_policy(cfg: EncoderConfig, device: torch.device, seq_len: int,
 
 def resolve_quantization(quantization: Optional[str],
                          device: torch.device) -> Optional[str]:
-    """``None`` (float), ``"int8"``, or ``"auto"`` resolved for ``device``."""
+    """The forward ``quantization`` runs on ``device``: ``"int8"``, or
+    ``None`` (float), with ``"auto"`` resolved for the device.  Any other
+    value runs the float forward, as the JAX package's encoder does (it
+    tests only for ``"int8"``)."""
     if quantization == "auto":
         return "int8" if _AUTO_INT8_ON_CUDA and device.type == "cuda" else None
-    if quantization not in (None, "int8"):
-        raise NotImplementedError(
-            f"quantization={quantization!r}: the port runs None, 'int8' or 'auto'")
-    return quantization
+    return "int8" if quantization == "int8" else None
 
 
 def int8_arch(cfg: EncoderConfig) -> bool:
@@ -1074,7 +1074,10 @@ class Encoder:
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype!r} not in {list(_DTYPES)}")
         self.compute_dtype = _DTYPES[compute_dtype]
-        self.quantization = resolve_quantization(quantization, self.device)
+        # a value other than None, "int8" and "auto" is kept as given (the
+        # JAX package keeps it too); the forward tests for "int8" only
+        self.quantization = (resolve_quantization(quantization, self.device)
+                             if quantization in (None, "int8", "auto") else quantization)
         #: forces the attention path (one of ``ATTN_IMPLS``; it wins over
         #: ``AC_ATTN_IMPL``); None = policy
         self.attn_impl: Optional[str] = None

@@ -18,14 +18,19 @@ no fallback between them.  The plain versions repeat the kernels'
 arithmetic step for step; a last-ulp difference of ``tanh`` can move one
 requantized GELU value by one int8 step.
 
-Both run in one CUDA kernel (``csrc/ffn_block_int8.cu``; B8 puts an
-O-projection stage in front of B3's body) on K-contiguous weights:
-``k_contiguous`` makes the ``[N, K]`` copy once per weight and keeps it on
-the weight tensor, and ``prepare_int8_weights`` does so for a whole int8
-encoder state when it reaches the device (the QKV weight for B2 too).  The
-CPU path never reads a copy.  The first product runs twice, once for each
-row's GELU maximum and once to quantize the same values.  B8 keeps its
-first LayerNorm's f32 rows in a scratch ``[M, D]`` the wrapper allocates.
+Both read K-contiguous weights: ``k_contiguous`` makes the ``[N, K]``
+copy once per weight and keeps it on the weight tensor, and
+``prepare_int8_weights`` does so for a whole int8 encoder state when it
+reaches the device (the QKV weight for B2 too).  The CPU path never reads a
+copy.  B3 is an ``mma.sync`` loop (``csrc/ffn_block_int8.cu``) that runs
+its first product twice, once for each row's GELU maximum and once to
+quantize the same values.  B8 runs on Hopper's ``wgmma`` with TMA
+(``csrc/int8_hopper.cuh``): its first product and GELU run once, the f32
+GELU values go to a device scratch the wrapper allocates
+(``attn_ffn_scratch_bytes``, beside the f32 LayerNorm rows and q(f)) and
+are read back to be quantized.  ``ffn_block_int8_wgmma`` is B3's function
+on that body, the kernel B3 moves onto next; the port's forwards do not
+launch it.
 """
 
 from __future__ import annotations
@@ -145,13 +150,35 @@ def ffn_block_info(D: int, F: int, o_proj: bool = False) -> dict:
     """What B3 (B8 with ``o_proj``) would launch at widths D, F on the
     current CUDA device, as the CUDA runtime reports the instantiation:
     registers per thread, shared bytes per block, threads per block, blocks
-    resident per SM, local (spill) bytes per thread and rows per block.
-    Launches nothing."""
-    info = (ctypes.c_int * 6)()
+    resident per SM, local (spill) bytes per thread, rows per block and
+    consumer warpgroups (0: no ``wgmma``).  Launches nothing."""
+    info = (ctypes.c_int * 7)()
     _build.check(_build.library().ac_ffn_block_int8_info(D, F, int(o_proj), info),
                  "ffn_block_int8_info")
     return dict(zip(("registers", "shared_bytes", "threads", "blocks_per_sm",
-                     "local_bytes", "rows"), info))
+                     "local_bytes", "rows", "warpgroups"), info))
+
+
+def attn_ffn_scratch_bytes(M: int, D: int, F: int) -> int:
+    """Bytes of the device scratch B8 takes for M rows at widths D, F on the
+    current CUDA device: a slot of 64 rows for each block of its persistent
+    grid, each holding f32 LayerNorm rows, f32 GELU values and q(f)."""
+    n = int(_build.library().ac_attn_ffn_block_int8_scratch_bytes(M, D, F))
+    if n <= 0:
+        raise RuntimeError("attn_ffn_block_int8: cannot read the current CUDA device")
+    return n
+
+
+def _wgmma_scratch(name: str, device: torch.device, M: int, D: int, F: int):
+    """The device scratch of ``csrc/int8_hopper.cuh``'s body for M rows at
+    widths D, F, after checking that the body's shared memory fits."""
+    if D > B3_MAX_D:
+        raise ValueError(f"{name}: D={D} > {B3_MAX_D}: the kernel keeps q(h) "
+                         f"[64, D] in shared memory")
+    _check_smem(name, device, D, F,
+                _build.library().ac_ffn_block_int8_smem_bytes(D, F, 64, 1))
+    with torch.cuda.device(device):
+        return torch.empty(attn_ffn_scratch_bytes(M, D, F), dtype=torch.uint8, device=device)
 
 
 def ffn_block_int8(h, w1_q, s1, b1, w2_q, s2, b2, ln_scale, ln_bias,
@@ -192,18 +219,34 @@ def attn_ffn_block_int8(ctx, x, o_wq, o_s, o_b, ln1_scale, ln1_bias,
         return attn_ffn_block_int8_ref(ctx, x, o_wq, o_s, o_b, ln1_scale, ln1_bias,
                                        w1_q, s1, b1, w2_q, s2, b2, ln2_scale,
                                        ln2_bias, eps)
-    if D > B3_MAX_D:
-        raise ValueError(f"{name}: D={D} > {B3_MAX_D}: the kernel keeps every "
-                         f"column of its rows in registers")
     ptrs = cuda_args(name, ctx.device, ctx, x, k_contiguous(o_wq), o_s, o_b, ln1_scale,
                      ln1_bias, k_contiguous(w1_q), s1, b1, k_contiguous(w2_q), s2, b2,
                      ln2_scale, ln2_bias)
-    # its 32-row tile (64 rows where they fit)
-    _check_smem(name, ctx.device, D, F,
-                _build.library().ac_ffn_block_int8_smem_bytes(D, F, 32, 1))
-    h = torch.empty((M, D), dtype=torch.float32, device=ctx.device)   # LN1's rows
+    scratch = _wgmma_scratch(name, ctx.device, M, D, F)
     out = torch.empty_like(ctx)
     launch(name, "attn_ffn_int8", ctx.device, _build.library().ac_attn_ffn_block_int8,
-           *ptrs, float(eps), h.data_ptr(), out.data_ptr(), M, D, F,
+           *ptrs, float(eps), scratch.data_ptr(), out.data_ptr(), M, D, F,
            _DTYPE_CODES[ctx.dtype])
+    return out
+
+
+def ffn_block_int8_wgmma(h, w1_q, s1, b1, w2_q, s2, b2, ln_scale, ln_bias,
+                         eps: float) -> torch.Tensor:
+    """B3's function on B8's ``wgmma`` body (``csrc/int8_hopper.cuh`` without
+    its O-projection stage), the kernel B3 moves onto next → ``[M, D]`` in
+    h's type: the plain version for a CPU tensor, the kernel for a CUDA
+    tensor, counted as B3's.  The port's forwards launch ``ffn_block_int8``
+    (the ``mma.sync`` kernel) and never this one."""
+    name = "ffn_block_int8_wgmma"
+    check_rows(name, h)
+    M, D = h.shape
+    F = _check_ffn(name, D, w1_q, s1, b1, w2_q, s2, b2, ln_scale, ln_bias)
+    if h.device.type == "cpu":
+        return ffn_block_int8_ref(h, w1_q, s1, b1, w2_q, s2, b2, ln_scale, ln_bias, eps)
+    ptrs = cuda_args(name, h.device, h, k_contiguous(w1_q), s1, b1, k_contiguous(w2_q),
+                     s2, b2, ln_scale, ln_bias)
+    scratch = _wgmma_scratch(name, h.device, M, D, F)
+    out = torch.empty_like(h)
+    launch(name, "ffn_int8", h.device, _build.library().ac_ffn_block_int8_wg, *ptrs,
+           float(eps), scratch.data_ptr(), out.data_ptr(), M, D, F, _DTYPE_CODES[h.dtype])
     return out

@@ -14,11 +14,11 @@ additive −1e9 bias on padded keys.  They round differently:
   ``max(l, 1e-30)`` and then rounded to the input type, then the PV product
   in f32.  Rows of at most ``MAX_ONESHOT_S`` keys.
 
-In bf16 both kernels multiply on the tensor cores, B6 with ``mma.sync``
-(``csrc/attention_tile.cuh``), B7 with ``wgmma`` fed by TMA
-(``csrc/attention_hopper.cuh``): bf16 products are exact in f32, so only the
-order of the sums differs from the plain versions.  In f32 they multiply on
-the CUDA cores.
+In bf16 both kernels multiply on the tensor cores with ``wgmma`` fed by
+TMA (``csrc/attention_hopper.cuh``; rows of at most 64 keys on the
+``mma.sync`` tile loop of ``csrc/attention_tile.cuh``): bf16 products are
+exact in f32, so only the order of the sums differs from the plain
+versions.  In f32 they multiply on the CUDA cores.
 
 Each ``*_ref`` is the plain torch version in its kernel's order of rounding:
 the CPU path, and the yardstick the kernel is held to on the GPU.  The
@@ -39,8 +39,8 @@ from . import _build, count_launch, refuse_autograd
 
 NEG = -1e9
 #: keys per step of the flash recurrence (``TK`` in csrc/flash_attention.cu
-#: and the 64-key tiles of csrc/attention_tile.cuh; rows of S <= 32 take one
-#: 32-key tile, the same single step)
+#: and csrc/attention_hopper.cuh; rows of at most 64 keys take one tile of
+#: csrc/attention_tile.cuh, the same single step)
 K_TILE = 64
 #: longest row the one-shot kernel takes: in f32 its query tile keeps every
 #: score of its rows in shared memory (the bf16 kernel keeps them in
@@ -49,13 +49,14 @@ MAX_ONESHOT_S = 2048
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: the forms of the bf16 kernel of ``csrc/attention_hopper.cuh`` (B1 above
-#: 64 keys, B7), by the code ``kernel_info`` reads back: "rows" keeps a
+#: the forms of the bf16 kernel of ``csrc/attention_hopper.cuh`` (B1, B6 and
+#: B7 above 64 keys), by the code ``kernel_info`` reads back: "rows" keeps a
 #: warpgroup's [64, S] scores in registers (S <= 256), "split keys" halves
 #: the keys between the two consumer warpgroups (S <= 512), "two passes"
-#: computes the scores twice (S > 512); "none" is a loop without wgmma (B6,
-#: B1's short rows, the f32 kernels)
-WGMMA_FORMS = {0: "none", 1: "rows", 2: "split keys", 3: "two passes"}
+#: computes the scores twice (S > 512), "flash" is B6's online recurrence
+#: over the key tiles (any S); "none" is a loop without wgmma (rows of at
+#: most 64 keys, the f32 kernels)
+WGMMA_FORMS = {0: "none", 1: "rows", 2: "split keys", 3: "two passes", 4: "flash"}
 
 
 def _info_dict(info) -> dict:

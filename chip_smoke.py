@@ -18,15 +18,18 @@ Phases, each of which must pass:
    exact ties, and values within 1e-5 (k 1 to 128, B off its 64-query
    tile, D 500 and 510); the int8 kernels at the zoo's
    widths (M 8,192, and ragged for the 64-row blocks of B2, B3 and B8) and
-   at bert-base's (D 768, F 3,072, where B3 and B8 take 32-row blocks; M
-   16,384 and ragged), f32 and bf16: the QKV projection (B2) to
+   at bert-base's (D 768, F 3,072, where B3 takes 32-row blocks; M 16,384
+   and ragged), f32 and bf16, and B8 also at M 1, 63, 64, at D 1,024 / F
+   4,096 and at D 384 / F 1,152: the QKV projection (B2) to
    1e-5 (the share of outputs equal to the plain version's bit for bit
    reported) and the projection + LayerNorm (B9) to 1e-4 in f32, the FFN block
    (B3) and the post-attention body (B8) to per-row cosine >= 0.9999 and
    max abs error <= 0.05 in f32, all to cosine > 0.999 in bf16; flash
    attention (B6) at S 32 to 2,048 and one-shot attention (B7) at S 32 to
    512, H 8 and 12, and both in bf16 at S 17 and at Dh 128, with ragged
-   masks and a fully masked row, to B1's tolerances; the fused add +
+   masks and a fully masked row, B6 also at its wgmma form's edges (S 65
+   to 2,048, Dh 32 / 64 / 128) and both with NaN in a neighbouring batch
+   row, to B1's tolerances; the fused add +
    LayerNorm (B10) at M 8,192, 32,768 and 1,000, D 512, to 1e-5 in f32
    and one bf16 step in bf16;
 4. holds the float forward's linear layers on the card to the JAX
@@ -52,9 +55,12 @@ Phases, each of which must pass:
    hallucination-detector's rows); times the int8 and
    bf16 encoder forwards per chunk in turns, and profiles one
    hallucination-detector chunk's int8 forward as phase 4 does; on the
-   first banking chunk,
-   ``fuse_o_proj=True`` sends every layer through B8 (cosine >= 0.999 with
-   the default int8 forward), and the two forwards are timed in turns;
+   first chunk of each task ``fuse_o_proj=True`` sends every layer through
+   B8 (pooled cosine >= 0.999 with the default int8 forward in f32, > 0.99
+   in bf16), and the two forwards are timed in turns; then each task's
+   ``predict_batch`` with ``fuse_o_proj`` (B8 once per layer per chunk, B3
+   never): accuracy >= manifest - 0.03, top-1 agreement >= 0.95 with the
+   default int8 forward;
 4a. serves both zoo tasks with ``AC_ATTN_IMPL=flash`` and then
    ``=oneshot`` (bf16), and banking-intents int8 with each: B6 or B7 once
    per layer per chunk and B1 never, accuracy >= manifest - 0.03, top-1
@@ -240,7 +246,8 @@ Phases, each of which must pass:
 3b. times every kernel, its plain version and the nearest single PyTorch
    call at the shapes the main path gave it, on the main path's inputs, as
    device time (the stream held until the host has queued every timed
-   call); B1, B6 and B7 also at bert-base [32, 512], B6 and B7 with their
+   call); B1, B6 and B7 also at bert-base [32, 512], B6 and B7 also at
+   [4, 2,048] H 12 (where the policy takes B6), B6 and B7 with their
    achieved TFLOP/s and the bound's share of their time; B4 also at the
    production classifier's width [256, 33,280] x [1,024, 33,280] (B4 and
    B5 bounded by their three TF32 products a pair); B1, B2, B3, B4,
@@ -358,6 +365,21 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, queue_ahead: bool = False) -> 
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """Host milliseconds per call of ``fn`` (its Python, argument checks and
+    launch), with the stream held by a GPU sleep so that no call waits on
+    the device."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9 * 0.05))
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / iters * 1e3
 
 
 def top_device_ops(fn, n: int = 10) -> dict:
@@ -521,8 +543,10 @@ def head_views(qkv, H, Dh):
     return [qkv[..., j * D:(j + 1) * D].unflatten(-1, (H, Dh)) for j in range(3)]
 
 
-#: the tile loop of B1 above 64 keys and of B7 in bf16 (wgmma fed by TMA)
+#: the tile loop of B1, B6 and B7 above 64 keys in bf16 (wgmma fed by TMA)
 WGMMA_HEADER = "adaptive_classifier_tpu_torch/csrc/attention_hopper.cuh"
+#: B8's kernel (s8 wgmma fed by TMA)
+INT8_WGMMA_HEADER = "adaptive_classifier_tpu_torch/csrc/int8_hopper.cuh"
 
 FLASH_TOLERANCE = ("f32: max abs err <= 1e-4 (TF32 off); bf16: max abs err <= 0.05 "
                    "and cosine > 0.999; a fully masked row is the uniform average of V")
@@ -532,8 +556,11 @@ def check_flash() -> dict:
     """B6 at S in {32, 128, 512, 1024, 2048} and B7 at S in {32, 128, 512},
     H 8 and 12, Dh 64, f32 and bf16; then both in bf16 at S 17 (a row that
     is no multiple of the tensor-core tiles) and at Dh 128; B7 in bf16 at
-    the edges of its wgmma forms (S 136 to 2,048, Dh 32 and 128); ragged
-    masks with batch row 1 fully masked, against their plain versions;
+    the edges of its wgmma forms (S 136 to 2,048, Dh 32 and 128); B6 in bf16
+    at the edges of its wgmma flash form (S 65, 128, 136, 512, 1,024 and
+    2,048 at Dh 32 and 128, 65 and 136 at Dh 64); ragged masks with batch
+    row 1 fully masked, against their plain versions; then B6 and B7 with
+    NaN in batch row 1 (rows 0 and 2 as the plain version computes them);
     raises on any disagreement."""
     from adaptive_classifier_tpu_torch.ops import flash_attention as fa
 
@@ -551,6 +578,13 @@ def check_flash() -> dict:
               for B, S, H, Dh in ((8, 136, 8, 64), (4, 256, 8, 64), (4, 264, 8, 64),
                                   (2, 520, 8, 64), (2, 1024, 8, 64), (2, 2048, 8, 64),
                                   (4, 512, 4, 32), (2, 512, 4, 128))]
+    # B6 at its flash form's edges (csrc/attention_hopper.cuh): the first
+    # row past the tile loop, one and two query tiles, K and V kept in the
+    # ring or streamed per query tile; Dh 32 (padded to 64) and 128
+    cases += [("flash_attention", B, S, H, Dh, torch.bfloat16)
+              for B, S, H, Dh in ((4, 65, 8, 64), (4, 136, 8, 64)) + tuple(
+                  (4 if S <= 512 else 2, S, 4, Dh) for S in (65, 128, 136, 512, 1024, 2048)
+                  for Dh in (32, 128))]
     for i, (name, B, S, H, Dh, dtype) in enumerate(cases):
         qkv, mask = qkv_inputs(200 + i, dtype, B, S, H, Dh, masked_rows=(1,))
         q, k, v = head_views(qkv, H, Dh)
@@ -566,6 +600,22 @@ def check_flash() -> dict:
         log(f"  check {name} {json.dumps(res)}")
         if not res["ok"]:
             raise AssertionError(f"{name} kernel disagrees with plain: {res}")
+        out[name].append(res)
+    # the tensor maps clip at each batch row's S: NaN in row 1 reaches
+    # neither neighbour
+    for i, (name, S) in enumerate((n, S) for n in out for S in (128, 512, 1024)
+                                  if n == "flash_attention" or S <= 512):
+        qkv, mask = qkv_inputs(260 + i, torch.bfloat16, 3, S, 4, 64)
+        qkv[1] = float("nan")
+        q, k, v = head_views(qkv, 4, 64)
+        got = getattr(fa, name)(q, k, v, mask)
+        want = getattr(fa, name + "_ref")(q, k, v, mask)
+        torch.cuda.synchronize()
+        res = {"case": f"bfloat16 B=3 S={S} H=4 Dh=64, NaN in batch row 1",
+               **compare(got[0::2], want[0::2], torch.bfloat16)}
+        log(f"  check {name} {json.dumps(res)}")
+        if not res["ok"]:
+            raise AssertionError(f"{name} reads another batch row: {res}")
         out[name].append(res)
     return out
 
@@ -1025,8 +1075,11 @@ def check_int8() -> dict:
     """B2, B3, B9 and B8 against their plain versions at the zoo's widths
     (D 512, F 2048: M = 8,192, a banking chunk, and a ragged M) and at
     bert-base's (D 768, F 3,072: M = 16,384, a B = 32, S = 512 batch, and a
-    ragged M), f32 and bf16; raises on any disagreement.  → results and the
-    launches made."""
+    ragged M), f32 and bf16; then B8 alone at the edges of its 64-row tiles
+    (M 1, 63, 64), at bert-large's widths (D 1,024, F 4,096), at D 384,
+    F 1,152 (chunks past D and F) and at D 128 and 256 (q(f)'s ring at its
+    two-slot floor; ac-tiny's width); raises on any disagreement.  → results
+    and the launches made."""
     import adaptive_classifier_tpu_torch as port
 
     out = {name: [] for name in INT8_TOLERANCE}
@@ -1049,6 +1102,21 @@ def check_int8() -> dict:
                     raise AssertionError(f"{name} kernel disagrees with plain: {res}")
                 out[name].append(res)
         del mats, lns, calls
+        torch.cuda.empty_cache()
+    for D, F, Ms in ((512, 2048, (1, 63, 64)), (1024, 4096, (2048 + 5,)), (384, 1152, (333,)),
+                     (128, 512, (1000,)), (256, 1024, (333,))):
+        mats, lns = int8_weights(2, D, F)
+        for dtype, M in ((d, m) for m in Ms for d in (torch.float32, torch.bfloat16)):
+            kernel, plain, _ = int8_calls(mats, lns, int8_rows(M, M, D, dtype))["attn_ffn_int8"]
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            res = {"case": f"{str(dtype).split('.')[-1]} M={M} D={D} F={F}",
+                   **int8_compare("attn_ffn_int8", got, want, dtype)}
+            log(f"  check attn_ffn_int8 {json.dumps(res)}")
+            if not res["ok"]:
+                raise AssertionError(f"attn_ffn_int8 kernel disagrees with plain: {res}")
+            out["attn_ffn_int8"].append(res)
+        del mats, lns
         torch.cuda.empty_cache()
     return {"results": out, "launches": dict(port.launch_counts)}
 
@@ -1080,7 +1148,8 @@ def time_int8(chunks: dict) -> dict:
     """The four int8 kernels, their plain versions and the products alone
     (torch._int_mm on the quantized operands) at the main path's chunk
     shapes (name → (M, D, F)), bf16 rows; every kernel result is held to its
-    plain version."""
+    plain version.  ``host_ms`` is the host's time per wrapper call (B8's
+    includes encoding its four tensor maps)."""
     rows = {name: [] for name in INT8_TOLERANCE}
     weights = {}
     for task, (M, D, F) in chunks.items():
@@ -1098,6 +1167,7 @@ def time_int8(chunks: dict) -> dict:
                    "library_call": "torch._int_mm on the quantized operands "
                                    "(the int8 products alone)"}
             row["ms_repeat"] = kernel_ms(kernel)
+            row["host_ms"] = host_ms(kernel)
             row["bound_ms"], row["bound_by"] = int8_bound(name, M, torch.bfloat16, D, F)
             if name in ("ffn_int8", "attn_ffn_int8"):
                 from adaptive_classifier_tpu_torch.ops.ffn_int8 import ffn_block_info
@@ -1365,9 +1435,10 @@ def row_cosines(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def run_fuse_o_proj(enc, ids, mask, layers, launches: "Launches") -> dict:
-    """Kernel B8 on a path: one chunk through ``encoder_forward_int8`` with
-    ``fuse_o_proj=True`` against the default int8 forward, per embedding
-    row (pooled and normalized, one per text).  In f32 the two compute the
+    """Kernel B8 on a path: one chunk of a task (banking and hallucination)
+    through ``encoder_forward_int8`` with ``fuse_o_proj=True`` against the
+    default int8 forward, per embedding row (pooled and normalized, one per
+    text).  In f32 the two compute the
     same function up to the LayerNorms' last bits, which move a few
     requantized values by one int8 step per layer: cosine >= 0.999.  In
     bf16 the default forward also rounds the O-projection and the first
@@ -1409,6 +1480,39 @@ def run_fuse_o_proj(enc, ids, mask, layers, launches: "Launches") -> dict:
             raise AssertionError(f"fuse_o_proj {name}: {res}")
         out[name] = res
     return out
+
+
+def fuse_o_proj_top1(clf, texts, labels, int8_top1, floor: float, launches_expected: int,
+                     launches: "Launches") -> dict:
+    """The int8 classifier's ``predict_batch`` with ``fuse_o_proj=True`` in
+    every forward (kernel B8 once per layer per chunk, B3 never): top-1
+    accuracy >= the manifest's - 0.03 and top-1 agreement with the default
+    int8 forward >= INT8_AGREEMENT_FLOOR, as phase 4i holds int8 to bf16."""
+    import functools
+
+    from adaptive_classifier_tpu_torch.models import encoder_int8
+
+    default = encoder_int8.embed_texts_device_int8
+    encoder_int8.embed_texts_device_int8 = functools.partial(default, fuse_o_proj=True)
+    try:
+        clf._clear_embedding_caches()
+        preds, counts = launches.run(lambda: clf.predict_batch(texts, k=1))
+    finally:
+        encoder_int8.embed_texts_device_int8 = default
+        clf._clear_embedding_caches()
+    if counts["attn_ffn_int8"] != launches_expected or counts["ffn_int8"] != 0:
+        raise AssertionError(f"fuse_o_proj predict_batch: B8 launched "
+                             f"{counts['attn_ffn_int8']} times, B3 {counts['ffn_int8']} "
+                             f"(expected {launches_expected}, 0)")
+    top1 = [p[0][0] if p else None for p in preds]
+    res = {"launches": counts,
+           "top1_accuracy": float(np.mean([p == y for p, y in zip(top1, labels)])),
+           "accuracy_floor": floor,
+           "top1_agreement_with_int8": float(np.mean([a == b for a, b in zip(top1, int8_top1)]))}
+    if not (res["top1_accuracy"] >= floor
+            and res["top1_agreement_with_int8"] >= INT8_AGREEMENT_FLOOR):
+        raise AssertionError(f"fuse_o_proj predict_batch: {res}")
+    return res
 
 
 def run_task_int8(task: str, manifest: dict, gpu: str, bf16_top1, float_encoder,
@@ -1473,8 +1577,9 @@ def run_task_int8(task: str, manifest: dict, gpu: str, bf16_top1, float_encoder,
     if ops is not None:
         out["encoder_forward_top_device_ops"] = ops
 
-    if task == TASKS[0]:
-        out["fuse_o_proj"] = run_fuse_o_proj(enc, ids, mask, layers, launches)
+    out["fuse_o_proj"] = run_fuse_o_proj(enc, ids, mask, layers, launches)
+    out["fuse_o_proj"]["predict_batch"] = fuse_o_proj_top1(
+        clf, texts, labels, top1, floor, layers * n_chunks, launches)
     log(f"  task int8 {json.dumps(out)}")
     out["top1"] = top1
     del clf
@@ -4214,7 +4319,9 @@ def main() -> int:
                             "bert-base B=32 S=128": (4096, 768, 3072)})
     flash_times = time_flash({
         **{f"{t} chunk": r["shape"] for t, r in runs.items()},
-        "bert-base B=32 S=512": (np.ones((32, 512), np.int32), 12, 64, torch.bfloat16)})
+        "bert-base B=32 S=512": (np.ones((32, 512), np.int32), 12, 64, torch.bfloat16),
+        # where the attention policy takes B6 on the card (S >= 1,024)
+        "B=4 S=2048 H=12": (np.ones((4, 2048), np.int32), 12, 64, torch.bfloat16)})
     ln_times = time_layernorm({**{f"{t} chunk": r["chunk_rows"] for t, r in fused_ln.items()},
                                "ELECTRA-small chunk": (8192, 256),
                                "bert-base-width family chunk": (8192, 768)})
@@ -4276,6 +4383,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"adaptive_classifier_tpu_torch/csrc/{source}",
+            **({"header": INT8_WGMMA_HEADER} if name == "attn_ffn_int8" else {}),
             "replaces": replaces,
             "launches": launches.total[name],
             "max_abs_err": max(c["max_abs_err"] for c in
@@ -4296,7 +4404,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "adaptive_classifier_tpu_torch/csrc/flash_attention.cu",
-            **({"header": WGMMA_HEADER} if name == "oneshot_attention" else {}),
+            "header": WGMMA_HEADER,
             "replaces": replaces,
             "launches": launches.total[name],
             "max_abs_err": max(c["max_abs_err"] for c in flash_checks[name]
@@ -4353,9 +4461,14 @@ def main() -> int:
                         ("B9", "proj_residual_ln_int8")):
         log(f"  {label} ms by shape " + json.dumps(
             {r["task"]: r["ms"] for r in int8_times[name]}))
-    log(f"  fuse_o_proj (B8) vs default int8 forward, one banking chunk (ms) " + json.dumps(
-        {k: {"fuse_o_proj": r["forward_ms"], "default": r["default_forward_ms"]}
-         for k, r in runs_int8[TASKS[0]]["fuse_o_proj"].items()}))
+    log(f"  fuse_o_proj (B8) vs default int8 forward, one chunk a task (ms) " + json.dumps(
+        {f"{t} {k}": {"fuse_o_proj": r["forward_ms"], "default": r["default_forward_ms"]}
+         for t in TASKS for k, r in runs_int8[t]["fuse_o_proj"].items()
+         if k != "predict_batch"}))
+    log(f"  fuse_o_proj predict_batch top-1 (accuracy, agreement with int8) " + json.dumps(
+        {t: [runs_int8[t]["fuse_o_proj"]["predict_batch"]["top1_accuracy"],
+             runs_int8[t]["fuse_o_proj"]["predict_batch"]["top1_agreement_with_int8"]]
+         for t in TASKS}))
     for label, r in (("bf16", runs[TASKS[1]]["summary"]), ("int8", runs_int8[TASKS[1]])):
         log(f"  {TASKS[1]} {label} forward, top device kernels "
             + json.dumps(r.get("encoder_forward_top_device_ops")))

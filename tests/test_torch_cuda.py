@@ -246,7 +246,7 @@ def test_attention_kernel_never_reads_the_next_batch_row(cuda, S):
         _assert_attention_close(got[b], want[b], torch.bfloat16)
 
 
-@pytest.mark.parametrize("kernel", ["attention_qkv", "oneshot_attention"])
+@pytest.mark.parametrize("kernel", ["attention_qkv", "oneshot_attention", "flash_attention"])
 def test_attention_wgmma_first_call_in_a_new_thread(cuda, kernel):
     """The first launch from a host thread that has made no CUDA call yet,
     every tensor it allocates served from the allocator's cache (a serving
@@ -262,7 +262,7 @@ def test_attention_wgmma_first_call_in_a_new_thread(cuda, kernel):
     if kernel == "attention_qkv":
         call = lambda: attention_from_qkv(qkv, mask, H, Dh)   # noqa: E731
     else:
-        call = lambda: fa.oneshot_attention(q, k, v, mask)    # noqa: E731
+        call = lambda: getattr(fa, kernel)(q, k, v, mask)     # noqa: E731
     want = call().clone()                                     # out now cached
     torch.cuda.synchronize()
     got, errors = [], []
@@ -730,10 +730,10 @@ def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 @pytest.mark.parametrize("fuse_o", [False, True])
 @pytest.mark.parametrize("dtype,M", [(torch.float32, 1000), (torch.bfloat16, 4096)])
 def test_ffn_blocks_two_pass_at_bert_base_width(cuda, fuse_o, dtype, M):
-    """At D 768, F 3,072 B3 and B8 run their two passes over W1 in 32-row
-    blocks and match their plain versions."""
+    """At D 768, F 3,072 B3 and B8 run their two passes over W1 (B3 in
+    32-row blocks, B8 in its 64-row tiles) and match their plain versions."""
     (x, y), m, lns = _int8_layer(cuda, 5, M, dtype, D=768, F=3072)
-    assert ffn_int8.ffn_block_info(768, 3072, o_proj=fuse_o)["rows"] == 32
+    assert ffn_int8.ffn_block_info(768, 3072, o_proj=fuse_o)["rows"] == (64 if fuse_o else 32)
     port.reset_launch_counts()
     if fuse_o:
         args = (x, y, *m["o"], *lns[0], *m["w1"], *m["w2"], *lns[1], 1e-12)
@@ -765,6 +765,74 @@ def test_attn_ffn_block_kernel_ragged_rows_and_widths(cuda, dtype, D, F, M):
     assert port.launch_counts["ffn_int8"] == 0
     assert got.shape == (M, D) and got.dtype == dtype
     _assert_int8_close(got, want, dtype)
+
+
+# B8 on s8 wgmma (csrc/int8_hopper.cuh): one row, a ragged and a whole
+# 64-row tile, the banking and hallucination chunks at the zoo's widths,
+# bert-base's and bert-large's widths, D 384 (a chunk pair whose second
+# 128-column chunk is past D), and D 128 and 256 (q(f)'s ring at its
+# two-slot floor; ac-tiny's width), f32 and bf16
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,D,F", [(1, 512, 2048), (63, 512, 2048), (64, 512, 2048),
+                                   (8192, 512, 2048), (32768, 512, 2048),
+                                   (4096, 768, 3072), (2048 + 5, 1024, 4096),
+                                   (333, 384, 1152), (1000, 128, 512),
+                                   (333, 256, 1024)])
+def test_attn_ffn_wgmma_cases(cuda, dtype, M, D, F):
+    (ctx, x), m, lns = _int8_layer(cuda, 12, M, dtype, D=D, F=F)
+    args = (ctx, x, *m["o"], *lns[0], *m["w1"], *m["w2"], *lns[1], 1e-12)
+    port.reset_launch_counts()
+    got = ffn_int8.attn_ffn_block_int8(*args)
+    want = ffn_int8.attn_ffn_block_int8_ref(*args)
+    torch.cuda.synchronize()
+    assert port.launch_counts["attn_ffn_int8"] == 1
+    assert ffn_int8.ffn_block_info(D, F, o_proj=True)["warpgroups"] == 4
+    assert got.shape == (M, D) and got.dtype == dtype
+    _assert_int8_close(got, want, dtype)
+
+
+# B3's function on B8's body (int8_hopper.cuh without the O-projection
+# stage, the kernel B3 moves onto next) at the widths B3 takes, ragged M
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,D,F", [(8192 + 37, 512, 2048), (4096, 768, 3072),
+                                   (2048 + 5, 1024, 4096), (333, 384, 1152),
+                                   (1000, 128, 512), (1, 256, 1024)])
+def test_ffn_block_on_the_wgmma_body(cuda, dtype, M, D, F):
+    (h, _), m, lns = _int8_layer(cuda, 14, M, dtype, D=D, F=F)
+    args = (h, *m["w1"], *m["w2"], *lns[0], 1e-12)
+    port.reset_launch_counts()
+    got = ffn_int8.ffn_block_int8_wgmma(*args)
+    want = ffn_int8.ffn_block_int8_ref(*args)
+    torch.cuda.synchronize()
+    assert port.launch_counts["ffn_int8"] == 1
+    assert got.shape == (M, D) and got.dtype == dtype
+    _assert_int8_close(got, want, dtype)
+
+
+def test_attn_ffn_first_call_in_a_new_thread(cuda):
+    """B8's first launch from a host thread that has made no CUDA call yet,
+    its output and scratch served from the allocator's cache: the tensor
+    maps' encoder needs the device's context bound to that thread."""
+    import threading
+
+    (ctx, x), m, lns = _int8_layer(cuda, 13, 4096, torch.bfloat16)
+    args = (ctx, x, *m["o"], *lns[0], *m["w1"], *m["w2"], *lns[1], 1e-12)
+    want = ffn_int8.attn_ffn_block_int8(*args).clone()
+    torch.cuda.synchronize()
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append(ffn_int8.attn_ffn_block_int8(*args))
+        except Exception as e:   # reported below
+            errors.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive() and not errors, errors
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want)
 
 
 # B3 at ragged M for its 64-row (D 512) and 32-row blocks, at the zoo's and
@@ -800,25 +868,22 @@ def test_ffn_block_instantiation(cuda):
         assert info["shared_bytes"] <= props.shared_memory_per_block_optin
 
 
-#: B8's local memory per thread (bytes) as measured on an H100 at D 512,
-#: 768 and 1,024: B3's (160, 48, 168) plus the frame of its non-inlined
-#: O-projection stage; its spill stores (ptxas) are below B3's at D 512
-_B8_LOCAL_BYTES = {512: 168, 768: 56, 1024: 232}
-
-
 def test_post_attention_body_and_qkv_instantiation(cuda):
-    """B8 runs B3's blocks (64 rows at the zoo's widths, 32 at bert-base's
-    and bert-large's, 16 warps, one block per SM) with no more local memory
-    than measured for this design; B2 runs at least two blocks per SM, on a
-    grid of at least two blocks per SM at every main-path shape, with no
-    spills."""
+    """B8 runs the wgmma kernel of csrc/int8_hopper.cuh at every width: 64
+    rows a tile, a producer warpgroup and four consumer warpgroups (640
+    threads), unspilled, one block an SM, in the shared memory of its
+    layout (q(h) [64, D], at least two 64 x 128-byte boxes of q(f), a ring
+    of 16 weight boxes of 64 x 128 bytes, the row scales, the exchange
+    buffers and the barriers, from a 1024-byte boundary), whatever F; B2 runs at least two blocks per SM, on a grid of
+    at least two blocks per SM at every main-path shape, with no spills."""
     props = torch.cuda.get_device_properties(cuda)
-    for (D, F), rows in (((512, 2048), 64), ((768, 3072), 32), ((1024, 4096), 32)):
+    for D, F in ((512, 2048), (768, 3072), (1024, 4096), (128, 512)):
         b8 = ffn_int8.ffn_block_info(D, F, o_proj=True)
-        assert b8["rows"] == rows and b8["threads"] == 512
-        assert b8["blocks_per_sm"] == 1
+        assert b8["rows"] == 64 and b8["threads"] == 640 and b8["warpgroups"] == 4
+        assert b8["blocks_per_sm"] == 1 and b8["local_bytes"] == 0
+        assert b8["shared_bytes"] == (max(64 * D, 2 * 64 * 128) + 16 * 64 * 128 + 64 * 4 + 2 * 4 * 64 * 4
+                                      + 8 * (2 * 16 + 2 * 8 + 1) + 1024)
         assert b8["shared_bytes"] <= props.shared_memory_per_block_optin
-        assert b8["local_bytes"] <= _B8_LOCAL_BYTES[D]
     for M, D in ((8192, 512), (32768, 512), (4096, 768)):
         b2 = matmul_int8.quant_matmul_info(M, D, 3 * D)
         assert b2["blocks_per_sm"] >= 2
@@ -1026,6 +1091,61 @@ def test_flash_kernels_fully_masked_short_row(cuda, kernel):
                             torch.bfloat16)
 
 
+# B6 on the wgmma kernel's flash form: the first row past the tile loop (S
+# 65), one and two query tiles (128, 136), K and V kept in the ring for a
+# (b, h)'s query tiles (512 at Dh <= 64) or streamed per query tile (1,024,
+# 2,048, and Dh 128 past 256), at Dh 32 (zero-padded to 64), 64 and 128 (two
+# swizzle atoms); batch row 1 fully masked
+@pytest.mark.parametrize("S", [65, 128, 136, 512, 1024, 2048])
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+def test_flash_wgmma_edges(cuda, S, Dh):
+    from adaptive_classifier_tpu_torch.ops import flash_attention as fa
+
+    B, H = (3, 4) if S <= 512 else (2, 2)
+    (q, k, v), mask = _heads(cuda, 80 + S + Dh, torch.bfloat16, B, S, H, Dh, masked_row=1)
+    port.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, mask)
+    want = fa.flash_attention_ref(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert port.launch_counts["flash_attention"] == 1
+    assert fa.kernel_info(q, k, v, False)["wgmma_form"] == "flash"
+    assert got.shape == (B, S, H, Dh) and got.dtype == torch.bfloat16
+    _assert_attention_close(got, want, torch.bfloat16)
+    # a fully masked row is the uniform average of V over exactly S keys
+    uniform = v[1].float().mean(dim=0)
+    torch.testing.assert_close(got[1].float(), uniform.expand(S, -1, -1), atol=0.05, rtol=0)
+
+
+def test_flash_wgmma_fully_masked_row_at_1024(cuda):
+    """At the policy's first flash length every query of a fully masked
+    batch row averages V over its 1,024 keys, streamed tile by tile."""
+    from adaptive_classifier_tpu_torch.ops import flash_attention as fa
+
+    (q, k, v), mask = _heads(cuda, 90, torch.bfloat16, 3, 1024, 4, 64, masked_row=2)
+    got = fa.flash_attention(q, k, v, mask).float()
+    torch.cuda.synchronize()
+    uniform = v[2].float().mean(dim=0)
+    torch.testing.assert_close(got[2], uniform.expand(1024, -1, -1), atol=0.05, rtol=0)
+    _assert_attention_close(got, fa.flash_attention_ref(q, k, v, mask), torch.bfloat16)
+
+
+@pytest.mark.parametrize("S", [128, 512, 1024])
+def test_flash_kernel_never_reads_the_next_batch_row(cuda, S):
+    """B6's tensor maps see q, k, v as [B, S, H, Dh]: a box clips at its own
+    batch row's S, so NaN in batch row 1 leaves rows 0 and 2 as the plain
+    version computes them."""
+    from adaptive_classifier_tpu_torch.ops import flash_attention as fa
+
+    qkv, mask = _inputs(cuda, 95 + S, torch.bfloat16, 3, S, 4, 64)
+    qkv[1] = float("nan")
+    q, k, v = _packed_views(qkv, 4, 64)
+    got = fa.flash_attention(q, k, v, mask)
+    want = fa.flash_attention_ref(q, k, v, mask)
+    torch.cuda.synchronize()
+    for b in (0, 2):
+        _assert_attention_close(got[b], want[b], torch.bfloat16)
+
+
 @pytest.mark.parametrize("kernel", ["flash_attention", "oneshot_attention"])
 def test_flash_kernels_are_deterministic(cuda, kernel):
     """No atomics and a fixed order of sums: two launches agree bit for bit."""
@@ -1040,28 +1160,29 @@ def test_flash_kernels_are_deterministic(cuda, kernel):
 
 @pytest.mark.parametrize("oneshot", [False, True])
 def test_tensor_core_instantiation_fits_four_blocks(cuda, oneshot):
-    """At the main path's shape (bf16, Dh 64) B6's block is 4 warps with
-    45.5 KB of shared memory (Q, a two-slot K/V ring, the key biases) and at
-    most 128 registers a thread, unspilled: four blocks share an SM.  B7
-    runs the wgmma kernel of csrc/attention_hopper.cuh instead: a producer
-    warpgroup and two consumer warpgroups (384 threads) fed by TMA,
-    unspilled, two Q buffers and its ring of 16 K/V tiles in 165 KB, one
-    persistent block an SM."""
+    """At the hallucination chunk's S 128 (bf16, Dh 64) B6 and B7 run the
+    wgmma kernel of csrc/attention_hopper.cuh: a producer warpgroup and two
+    consumer warpgroups (384 threads) fed by TMA, unspilled, two Q buffers
+    of 128 rows and a ring of 16 K/V tiles in 165 KB, one persistent block
+    an SM; B6 in its flash form (the online recurrence), B7 in its rows
+    form.  At the banking chunk's S 32 both run the tile loop of
+    csrc/attention_tile.cuh: 2 warps and one 32-key tile, unspilled, at
+    least four blocks an SM."""
     from adaptive_classifier_tpu_torch.ops import flash_attention as fa
 
     (q, k, v), _ = _heads(cuda, 12, torch.bfloat16, 2, 128, 8, 64)
     info = fa.kernel_info(q, k, v, oneshot)
-    if oneshot:
-        assert info["threads"] == 384 and info["warpgroups"] == 2
-        assert info["wgmma_form"] == "rows" and info["tma"]
-        assert info["shared_bytes"] == (2 * 128 * 64 * 2 + 16 * (64 * 64 * 2 + 64 * 4)
-                                        + 8 * (4 + 2 * 16) + 1024)
-        assert info["local_bytes"] == 0 and info["blocks_per_sm"] == 1
-        return
-    assert info["threads"] == 128
-    assert info["shared_bytes"] == 2 * (64 * 72 + 2 * 2 * 64 * 72) + 4 * 2 * 64
-    assert info["registers"] <= 128 and info["local_bytes"] == 0
-    assert info["blocks_per_sm"] >= 4
+    assert info["threads"] == 384 and info["warpgroups"] == 2
+    assert info["wgmma_form"] == ("rows" if oneshot else "flash") and info["tma"]
+    assert info["shared_bytes"] == (2 * 128 * 64 * 2 + 16 * (64 * 64 * 2 + 64 * 4)
+                                    + 8 * (4 + 2 * 16) + 1024)
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] == 1
+    (q, k, v), _ = _heads(cuda, 12, torch.bfloat16, 2, 32, 8, 64)
+    short = fa.kernel_info(q, k, v, oneshot)
+    assert short["threads"] == 64 and short["warpgroups"] == 0
+    assert short["wgmma_form"] == "none" and not short["tma"]
+    assert short["shared_bytes"] == 2 * (32 + 2 * 32) * 72 + 4 * 32
+    assert short["local_bytes"] == 0 and short["blocks_per_sm"] >= 4
 
 
 def test_flash_kernels_refuse_what_they_do_not_take(cuda):

@@ -149,13 +149,19 @@ def test_encoder_defaults_to_the_gpu():
 def test_encoder_rejects_int8(caplog):
     """The int8 forward takes BERT, DistilBERT, RoBERTa and projection-free
     ELECTRA: int8 for another family logs the JAX package's warning and
-    resolves to float; a quantization the port does not run raises."""
+    resolves to float.  A quantization other than None, "int8" and "auto"
+    runs the float forward and is kept as given, as the JAX package's
+    encoder keeps it (it tests only for "int8")."""
     with caplog.at_level("WARNING"):
         assert tenc.check_int8_arch(tenc.EncoderConfig(arch="mpnet"), "int8") is None
     assert "'mpnet'" in caplog.text
     assert tenc.check_int8_arch(tenc.EncoderConfig(arch="roberta"), "int8") == "int8"
-    with pytest.raises(NotImplementedError, match="int8"):
-        tenc.Encoder(str(CKPTS / "ac-tiny"), device="cpu", quantization="int4")
+    unknown = tenc.Encoder(str(CKPTS / "ac-tiny"), device="cpu", quantization="int4",
+                           compute_dtype="float32")
+    plain = tenc.Encoder(str(CKPTS / "ac-tiny"), device="cpu", compute_dtype="float32")
+    assert unknown.quantization == "int4"
+    texts = ["where is my card", "how do I reset my password"]
+    assert torch.equal(unknown.embed(texts), plain.embed(texts))
 
 
 def _intent_texts():
