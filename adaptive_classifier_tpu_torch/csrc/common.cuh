@@ -59,7 +59,10 @@ cudaError_t kernel_info(Kernel* kernel, size_t smem, int threads, int* info) {
   cudaFuncAttributes at;
   cudaError_t err = cudaFuncGetAttributes(&at, kernel);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // raise the kernel's cap on dynamic shared memory to smem, never lower
+  // it: a launch may have raised it further
+  if (at.maxDynamicSharedSizeBytes < (int)smem)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);

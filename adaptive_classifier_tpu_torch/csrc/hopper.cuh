@@ -19,6 +19,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <mutex>
+
 #include "common.cuh"
 
 namespace ac_hopper {
@@ -103,6 +106,91 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 // async-proxy reads of it (wgmma operands written by ordinary stores)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// box of the 2-D tensor map at element coordinates (x = column, y = row)
+// <- shared memory (as tma_load_2d lays it out); rows and columns outside
+// the tensor are not written.  Completes in the thread's bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int x,
+                                             int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(x), "r"(y)
+      : "memory");
+}
+
+// bytes (a multiple of 16) of global memory from p (16-byte aligned) into
+// the L2, asynchronously, with nothing to wait on
+__device__ __forceinline__ void bulk_prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n"
+               :: "l"(reinterpret_cast<uint64_t>(p)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's bulk stores have finished reading shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// this thread's bulk stores are complete
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// thread block clusters
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of the cluster: arrive, then wait for all (release, acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the shared::cluster address of `p` (a shared variable of this block) in
+// the block of rank `rank` of the cluster
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_peer(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" :: "r"(addr), "f"(v) : "memory");
+}
+
+// one arrival on a barrier of another block of the cluster (its
+// shared::cluster address), releasing this thread's prior writes at
+// cluster scope
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// wait_phase with acquire at cluster scope: for phases completed by the
+// arrivals of other blocks of the cluster
+__device__ __forceinline__ void wait_phase_cluster(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred ready;\n.reg .u32 polls;\nmov.u32 polls, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 ready, [%0], %1;\n"
+      "@ready bra DONE;\n"
+      "add.u32 polls, polls, 1;\n"
+      "setp.lt.u32 ready, polls, 67108864;\n"
+      "@ready bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n}\n"
+      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -251,6 +339,39 @@ inline cudaError_t bind_device(int* device) {
   cudaError_t err = cudaGetDevice(device);
   return err == cudaSuccess ? cudaSetDevice(*device) : err;
 }
+
+// What launches of one kernel need to know of a device (its SMs, the
+// shared memory a block may take, the kernel's attributes set there),
+// made by make(device, &value) on the kernel's first launch on the current
+// device and kept: later launches there read it back without asking the
+// CUDA runtime.  Keyed by device only (up to 16; past that, made every launch).
+template <typename T>
+class PerDevice {
+ public:
+  template <typename Make>
+  cudaError_t get(T* out, Make make) {
+    int device = 0;
+    cudaError_t err = bind_device(&device);
+    if (err != cudaSuccess) return err;
+    if (device >= N) return make(device, out);
+    if (!made_[device].load(std::memory_order_acquire)) {
+      std::lock_guard<std::mutex> lock(mu_);
+      if (!made_[device].load(std::memory_order_relaxed)) {
+        err = make(device, &value_[device]);
+        if (err != cudaSuccess) return err;
+        made_[device].store(true, std::memory_order_release);
+      }
+    }
+    *out = value_[device];
+    return cudaSuccess;
+  }
+
+ private:
+  static constexpr int N = 16;
+  T value_[N] = {};
+  std::atomic<bool> made_[N] = {};
+  std::mutex mu_;
+};
 
 // Tensor map of a row-major f32 matrix [rows, cols] (cols % 4 == 0, ptr
 // 16-byte aligned) read in boxes of box_rows x 32 columns, 128-byte swizzle,

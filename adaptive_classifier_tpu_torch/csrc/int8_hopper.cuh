@@ -1,20 +1,31 @@
-// Kernel B8 (ffn_block_int8.cu's ac_attn_ffn_block_int8) on Hopper's
-// asynchronous path: the int8 products on warpgroup MMAs (wgmma
-// m64n64k32 s8 x s8 -> s32), both operands read K-major from shared memory
-// in the 128-byte swizzle, brought in by TMA on mbarriers by a producer
-// warp, for four consumer warpgroups.
+// Hopper's int8 path: kernel B8 (ffn_block_int8.cu's ac_attn_ffn_block_int8,
+// replacing adaptive_classifier_tpu/ops/ffn_int8.py:202) below, and the
+// pieces kernels B2 (matmul_int8.cu, replacing ops/matmul_int8.py:80) and
+// B3 (ffn_block_int8.cu, replacing ops/ffn_int8.py:95) share with it: s8
+// warpgroup MMAs (wgmma m64n{32,64}k32 s8 x s8 -> s32, both operands
+// K-major in shared memory in the 128-byte swizzle), the A operand's
+// swizzled layout (a_offset), the per-row quantization of a tile's rows
+// into it (quant_rows), and the 2-D TMA map over an int8 array in boxes of
+// 64 rows x 128 bytes (bytes_map: the weights' K-contiguous copies, B3's
+// and B8's q(f)).  What bounds each kernel and the choices of B2 and B3
+// are noted in their sources.
 //
-// Function, per row (ops/ffn_int8.py attn_ffn_block_int8_ref):
+// B8's function, per row (ops/ffn_int8.py attn_ffn_block_int8_ref):
 //     h   = LN1(q(ctx) @ Wo * s_c * so + bo + x)                 f32
 //     f   = gelu_tanh(q(h) @ W1 * s_h * s1 + b1)                 f32
 //     out = LN2(q(f) @ W2 * s_f * s2 + b2 + h)                   ctx's type
 // q() the per-row int8 quantization, scale max(absmax, 1e-8) / 127 and q =
-// clip(rint(v / scale), -127, 127) with an IEEE division; every epilogue
+// clip(rint(v / scale), -127, 127), the quotient the IEEE division's
+// (int8_tile.cuh quant_rcp, in B2, B3 and B8 alike); every epilogue
 // step rounded on its own (no contraction), tanh GELU, f32 LayerNorm
 // statistics (int8_tile.cuh's helpers, which the plain version repeats).
+// Bound on an H100: operations, 2*M*D*(D + 2F) at 1,979 TOP/s: 19.5 us at
+// the banking chunk (M 8,192, D 512, F 2,048), 78.1 at the hallucination
+// chunk (M 32,768), 22.0 at bert-base (M 4,096, D 768, F 3,072).
 //
-// Design, per tile of 64 rows (one wgmma M), a persistent block an SM over
-// the tiles:
+// B8's design, per tile of 64 rows (one wgmma M), a persistent block an SM
+// over the tiles, a producer warp and four consumer warpgroups (640
+// threads: ptxas gives each 96 registers):
 // - Columns split between the four consumer warpgroups: each product runs
 //   in chunks of 64 output columns, warpgroup g taking chunks 4p + g, so a
 //   chunk is 32 s32 accumulators a thread and the epilogues (the LayerNorm
@@ -51,11 +62,8 @@
 // The scratch (hs) has a slot for each block of the persistent grid,
 // reused tile after tile: f32 [64, D] rows (y, h), f32 [64, F] GELU values,
 // int8 [64, F] q(f), each array's slots after one another:
-// scratch_bytes().
-// OPROJ false is kernel B3's body (in = h, no O-projection stage), so that
-// B3 can move onto this kernel by that switch: ffn_block_int8.cu's
-// ac_ffn_block_int8_wg launches it (held to B3's plain version on the
-// card); B3 itself still launches ffn_block_int8.cu's mma.sync kernel.
+// scratch_bytes().  B3 runs its function without these f32 round trips on a
+// kernel of its own (ffn_block_int8.cu).
 #pragma once
 
 #include <cuda.h>
@@ -76,7 +84,7 @@ using ac_int8::gelu_tanh;
 using ac_int8::load2;
 using ac_int8::quad_max;
 using ac_int8::quad_sum;
-using ac_int8::quant;
+using ac_int8::quant_rcp;
 using ac_int8::row_scale;
 using ac_int8::store2;
 using ac_int8::warp_max;
@@ -84,6 +92,10 @@ using ac_int8::warp_max;
 constexpr int ROWS = 64;                   // rows a tile (wgmma M)
 constexpr int BN = 64;                     // output columns a warpgroup's chunk
 constexpr int KB = 128;                    // bytes of K a box (one swizzle atom)
+// rows of every box bytes_map's tensor maps deliver: a weight box's output
+// columns (B2's, B3's and B8's chunks of 64), a q(f) box's rows
+constexpr int BOX_ROWS = 64;
+static_assert(BOX_ROWS == BN && BOX_ROWS == ROWS, "a box is a chunk's columns, a tile's rows");
 constexpr int NC = 4;                      // consumer warpgroups
 constexpr int CT = 128 * NC;               // consumer threads
 constexpr int THREADS = CT + 128;          // + the producer warpgroup
@@ -93,7 +105,7 @@ constexpr int THREADS = CT + 128;          // + the producer warpgroup
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 112;
 constexpr int XBAR = 1;                    // named barrier of the consumer threads
 constexpr int STAGES = 16;                 // weight slots, four a warpgroup
-constexpr int BOX = ROWS * KB;             // bytes of a box: 64 rows x 128 bytes
+constexpr int BOX = BOX_ROWS * KB;         // bytes of a box: 64 rows x 128 bytes
 constexpr int MAX_D = 1024;
 constexpr int MAX_A = MAX_D / KB;          // q(f) slots (the A operand's slabs)
 
@@ -130,7 +142,7 @@ static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * CT <= 96 * THREADS,
               "within the registers the block is given at launch");
 
 struct Params {
-  const void *in, *x;                      // ctx (B3: h) and x [M, D], ctx's type
+  const void *in, *x;                      // ctx and x [M, D], ctx's type
   const float *so, *bo, *g1, *be1;         // O-projection, LayerNorm 1 [D]
   const float *s1, *b1;                    // [F]
   const float *s2, *b2, *g2, *be2;         // [D]
@@ -188,16 +200,42 @@ __device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32], uint64_t a, uin
       : "memory");
 }
 
+// d[16] (+)= A[64 x 32] . B[32 x 32]^T, as wgmma_m64n64k32_s8 over 32
+// output columns (j = 0..3)
+__device__ __forceinline__ void wgmma_m64n32k32_s8(int (&d)[16], uint64_t a, uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
 // Tie the accumulators to this point (after their wgmma_wait)
-__device__ __forceinline__ void fence_acc(int (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
   #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 // order this thread's stores to device memory before later async-proxy
 // (TMA) reads of them
 __device__ __forceinline__ void fence_proxy_async_global() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// named barrier `id` over `count` threads, reached by a warp that may have
+// diverged just before (a thread that waited on its bulk stores, a lane
+// that wrote a shared value): bar.sync counts whole warps, so a diverged
+// warp could be counted twice and release the barrier early
+__device__ __forceinline__ void warps_bar_sync(int id, int count) {
+  __syncwarp();
+  named_bar_sync(id, count);
 }
 
 // ---------------------------------------------------------------------------
@@ -230,6 +268,66 @@ __device__ __forceinline__ int a_offset(int r, int c) {
   return (c >> 7) * BOX + r * KB + (((cc >> 4) ^ (r & 7)) << 4) + (cc & 15);
 }
 
+// Quantize rows [row0, row0 + 64) of src [M, W] (W % 128 == 0; rows past M
+// as zeros) into the A operand at abuf (a_offset's layout) and their scales
+// into cs: the quantization of a tile's rows that B2, B3 and B8 share.  Of
+// the NT threads calling it, thread t (warp t / 32) takes rows t / 32,
+// t / 32 + NT / 32, ...; lane l loads 16 bytes of a row at a time, columns
+// E k + V l (V = 16 / sizeof(T), E = 32 V), every load of 1,024 columns in
+// flight together for the row's absolute maximum, then the same again from
+// L1 to be quantized.  MUL: the scale absmax * (1/127) (B2's plain
+// version), else absmax / 127 (B3's and B8's).
+template <int NT, bool MUL, typename T>
+__device__ __forceinline__ void quant_rows(const T* src, int M, int W, int row0, int t,
+                                           unsigned char* abuf, float* cs) {
+  constexpr int V = 16 / sizeof(T), E = 32 * V, STEP = 1024, LOADS = STEP / E;
+  const int lane = t & 31;
+  auto load = [&](int gr, int c, float (&v)[V]) {
+    const uint4 u = gr < M && c < W
+        ? *reinterpret_cast<const uint4*>(src + (size_t)gr * W + c) : make_uint4(0, 0, 0, 0);
+    const uint32_t words[4] = {u.x, u.y, u.z, u.w};
+    #pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (sizeof(T) == 4) {
+        v[i] = __uint_as_float(words[i]);
+      } else {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&words[i]));
+        v[2 * i] = f.x;
+        v[2 * i + 1] = f.y;
+      }
+    }
+  };
+  for (int r = t >> 5; r < ROWS; r += NT / 32) {
+    const int gr = row0 + r;
+    float amax = 0.f;
+    for (int c0 = 0; c0 < W; c0 += STEP) {
+      #pragma unroll
+      for (int k = 0; k < LOADS; ++k) {
+        float v[V];
+        load(gr, c0 + E * k + V * lane, v);
+        #pragma unroll
+        for (int i = 0; i < V; ++i) amax = fmaxf(amax, fabsf(v[i]));
+      }
+    }
+    const float s = row_scale<MUL>(warp_max(amax)), rs = __frcp_rn(s);
+    for (int c0 = 0; c0 < W; c0 += STEP) {
+      #pragma unroll
+      for (int k = 0; k < LOADS; ++k) {
+        const int c = c0 + E * k + V * lane;
+        if (c >= W) continue;
+        float v[V];
+        load(gr, c, v);                        // again, from L1
+        #pragma unroll
+        for (int i = 0; i < V; i += 4)
+          *reinterpret_cast<uint32_t*>(abuf + a_offset(r, c + i)) =
+              ac_int8::pack4(quant_rcp(v[i], s, rs), quant_rcp(v[i + 1], s, rs),
+                             quant_rcp(v[i + 2], s, rs), quant_rcp(v[i + 3], s, rs));
+      }
+    }
+    if (lane == 0) cs[r] = s;
+  }
+}
+
 // groups of NC chunks of 64 columns over N, warpgroup g taking chunk
 // NC p + g of group p (a chunk past N is not loaded and its columns are not
 // stored)
@@ -243,7 +341,7 @@ __host__ __device__ __forceinline__ int groups(int N) {
 
 __device__ __forceinline__ void produce(const CUtensorMap* mwo, const CUtensorMap* mw1,
                                         const CUtensorMap* mw2, const CUtensorMap* mqf,
-                                        const Params& p, bool oproj) {
+                                        const Params& p) {
   extern __shared__ unsigned char smem_raw[];
   const Smem sm(smem_raw, p.da);
   uint32_t i = 0, ai = 0;                  // weight boxes and q(f) boxes so far
@@ -274,7 +372,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* mwo, const CUtensorMa
           }
         }
     };
-    if (oproj) product(mwo, p.D, p.D, false);
+    product(mwo, p.D, p.D, false);
     product(mw1, p.F, p.D, false);         // f and the rows' |GELU| maxima
     wait_phase(sm.qf_ready(), n & 1);      // the tile's q(f) is stored, q(h) read
     product(mw2, p.D, p.F, true);
@@ -440,53 +538,6 @@ struct Consumer {
     }
   }
 
-  // quantize rows [row0, row0 + 64) of src [M, D] (zeros past M) into the
-  // A operand, the scales into cs: warp w of the 16 takes rows w, w + 16,
-  // ...; lane l holds columns 128 k + 4 l .. + 3 of a row, loaded together
-  // (read again from L1 to be quantized)
-  template <typename T>
-  __device__ __forceinline__ void quant_rows(const T* src, int row0) {
-    const int w = threadIdx.x >> 5;
-    unsigned char* abuf = sm.abuf();
-    // columns c .. c + 3 of global row gr as f32 (zeros past M)
-    auto load4 = [&](int gr, int c) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gr < p.M) {
-        const T* at = src + (size_t)gr * p.D + c;
-        if constexpr (sizeof(T) == 4) {
-          v = *reinterpret_cast<const float4*>(at);
-        } else {
-          const uint2 q = *reinterpret_cast<const uint2*>(at);
-          const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-          const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
-          v = make_float4(lo.x, lo.y, hi.x, hi.y);
-        }
-      }
-      return v;
-    };
-    for (int r = w; r < ROWS; r += CT / 32) {
-      const int gr = row0 + r;
-      float4 v[MAX_D / 128];
-      float amax = 0.f;
-      #pragma unroll
-      for (int k = 0; k < MAX_D / 128; ++k) {
-        const int c = 128 * k + 4 * lane;
-        v[k] = c < p.D ? load4(gr, c) : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      #pragma unroll
-      for (int k = 0; k < MAX_D / 128; ++k)
-        amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v[k].x), fabsf(v[k].y)),
-                                 fmaxf(fabsf(v[k].z), fabsf(v[k].w))));
-      const float s = row_scale<false>(warp_max(amax));
-      for (int c = 4 * lane; c < p.D; c += 128) {
-        const float4 q = load4(gr, c);
-        *reinterpret_cast<uint32_t*>(abuf + a_offset(r, c)) =
-            ac_int8::pack4(quant(q.x, s), quant(q.y, s), quant(q.z, s), quant(q.w, s));
-      }
-      if (lane == 0) sm.cs()[r] = s;
-    }
-  }
-
   // the A operand's writes before the wgmmas that read them
   __device__ __forceinline__ void publish_a() {
     fence_proxy_async();
@@ -531,7 +582,6 @@ __device__ __forceinline__ float ln(float y, float mean, float inv, float g, flo
   return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(y, mean), inv), g), b);
 }
 
-template <bool OPROJ>
 __device__ __forceinline__ void consume(const Params& p) {
   extern __shared__ unsigned char smem_raw[];
   const Smem sm(smem_raw, p.da);
@@ -543,18 +593,18 @@ __device__ __forceinline__ void consume(const Params& p) {
     float* hrow = p.hs + (size_t)blockIdx.x * ROWS * D;     // y, then h, then y2
     float* frow = p.fv + (size_t)blockIdx.x * ROWS * F;     // the GELU values
     int8_t* qrow = p.qf + (size_t)blockIdx.x * ROWS * F;    // q(f)
-    // h at (r, c), c + 1: LN1's rows in hs, or (B3) the input rows
-    auto h_at = [&](int, int r, int c) {
-      if constexpr (OPROJ) return __ldcg(cn.at(hrow, r, c));
-      else return row0 + r < p.M ? load2(p.in, p.bf16, (size_t)(row0 + r) * D + c)
-                                 : make_float2(0.f, 0.f);
-    };
-    float hsc[2];                                      // q(h)'s row scales
+    // h at (r, c), c + 1: LN1's rows in hs
+    auto h_at = [&](int, int r, int c) { return __ldcg(cn.at(hrow, r, c)); };
+    float hsc[2], hrc[2];                              // q(h)'s row scales, reciprocals
 
-    if (p.bf16) cn.quant_rows(static_cast<const __nv_bfloat16*>(p.in), row0);
-    else cn.quant_rows(static_cast<const float*>(p.in), row0);
+    if (p.bf16)
+      quant_rows<CT, false>(static_cast<const __nv_bfloat16*>(p.in), p.M, D, row0, threadIdx.x,
+                            sm.abuf(), sm.cs());
+    else
+      quant_rows<CT, false>(static_cast<const float*>(p.in), p.M, D, row0, threadIdx.x,
+                            sm.abuf(), sm.cs());
     cn.publish_a();
-    if constexpr (OPROJ) {
+    {
       // y = q(ctx) @ Wo * s_c * so + bo + x into hs
       cn.run<false>(D, D, [&](int n0, int (&acc)[32]) {
         cn.gather(n0, [&](int, int r, int c) {
@@ -581,20 +631,18 @@ __device__ __forceinline__ void consume(const Params& p) {
       });
       cn.exchange<true>(mx);
       #pragma unroll
-      for (int h = 0; h < 2; ++h) hsc[h] = row_scale<false>(mx[h]);
+      for (int h = 0; h < 2; ++h) hsc[h] = row_scale<false>(mx[h]), hrc[h] = __frcp_rn(hsc[h]);
       // q(h) over q(ctx) (whose products are done: every thread has passed
       // the exchanges since)
       unsigned char* abuf = sm.abuf();
       cn.chunks(D, [&](int n0) {
         cn.gather<true>(n0, h_at, [&](int h, int r, int c, int, float2 hv) {
           *reinterpret_cast<uint16_t*>(abuf + a_offset(r, c)) =
-              (uint16_t)((quant(hv.x, hsc[h]) & 0xff) | ((quant(hv.y, hsc[h]) & 0xff) << 8));
+              (uint16_t)((quant_rcp(hv.x, hsc[h], hrc[h]) & 0xff) |
+                         ((quant_rcp(hv.y, hsc[h], hrc[h]) & 0xff) << 8));
         });
       });
       cn.publish_a();
-    } else {
-      #pragma unroll
-      for (int h = 0; h < 2; ++h) hsc[h] = sm.cs()[cn.r0 + 8 * h];
     }
 
     // f at accumulator a of row r0 + 8h, column c
@@ -614,8 +662,9 @@ __device__ __forceinline__ void consume(const Params& p) {
       });
     });
     cn.exchange<true>(fsc);
+    float frc[2];
     #pragma unroll
-    for (int h = 0; h < 2; ++h) fsc[h] = row_scale<false>(fsc[h]);
+    for (int h = 0; h < 2; ++h) fsc[h] = row_scale<false>(fsc[h]), frc[h] = __frcp_rn(fsc[h]);
     // the same values read back by the threads that wrote them, quantized,
     // and stored to the slot's q(f) rows
     cn.chunks(F, [&](int n0) {
@@ -623,7 +672,8 @@ __device__ __forceinline__ void consume(const Params& p) {
         return __ldcg(reinterpret_cast<const float2*>(frow + (size_t)r * F + c));
       }, [&](int h, int r, int c, int, float2 v) {
         *reinterpret_cast<uint16_t*>(qrow + (size_t)r * F + c) =
-            (uint16_t)((quant(v.x, fsc[h]) & 0xff) | ((quant(v.y, fsc[h]) & 0xff) << 8));
+            (uint16_t)((quant_rcp(v.x, fsc[h], frc[h]) & 0xff) |
+                       ((quant_rcp(v.y, fsc[h], frc[h]) & 0xff) << 8));
       });
     });
     // q(f) stored before the producer's TMA reads it, and q(h)'s products
@@ -654,7 +704,6 @@ __device__ __forceinline__ void consume(const Params& p) {
   }
 }
 
-template <bool OPROJ>
 __global__ void __launch_bounds__(THREADS, 1)
 ffn_wg_kernel(const __grid_constant__ CUtensorMap mwo, const __grid_constant__ CUtensorMap mw1,
               const __grid_constant__ CUtensorMap mw2, const __grid_constant__ CUtensorMap mqf,
@@ -676,10 +725,10 @@ ffn_wg_kernel(const __grid_constant__ CUtensorMap mwo, const __grid_constant__ C
   __syncthreads();
   if (threadIdx.x >= CT) {
     setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x == CT) produce(&mwo, &mw1, &mw2, &mqf, p, OPROJ);
+    if (threadIdx.x == CT) produce(&mwo, &mw1, &mw2, &mqf, p);
   } else {
     setmaxnreg_inc<CONSUMER_REGS>();
-    consume<OPROJ>(p);
+    consume(p);
   }
 }
 
@@ -700,14 +749,15 @@ struct Args {
   int* info;                               // set: report the instantiation
 };
 
-// a 2-D map over an int8 [rows, cols] row-major array, boxes of 64 rows x
-// 128 bytes, 128-byte swizzle, zeros outside
+// a 2-D map over an int8 [rows, cols] row-major array, boxes of BOX_ROWS
+// rows x 128 bytes (BOX bytes, what each box's expect_tx waits for),
+// 128-byte swizzle, zeros outside
 inline cudaError_t bytes_map(CUtensorMap* map, const void* ptr, long long rows, int cols) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorSymbolNotFound;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols};
-  const cuuint32_t box[2] = {KB, ROWS};
+  const cuuint32_t box[2] = {KB, BOX_ROWS};
   const cuuint32_t step[2] = {1, 1};
   const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
                           strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -716,39 +766,50 @@ inline cudaError_t bytes_map(CUtensorMap* map, const void* ptr, long long rows, 
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// info[7]: registers, shared bytes, threads, blocks per SM, spill bytes (as
-// ac_common::kernel_info), rows a tile, consumer warpgroups.  The caller
-// checks the envelope: D % 128 == 0, F % 128 == 0, D <= MAX_D; every array
-// starts on 16 bytes.
-template <bool OPROJ>
-cudaError_t launch(const Args& a) {
-  auto* kernel = ffn_wg_kernel<OPROJ>;
+// info[9]: registers, shared bytes, threads, blocks per SM, spill bytes (as
+// ac_common::kernel_info), rows a tile, consumer warpgroups, blocks a tile
+// (1: no cluster), blocks of the launch over M rows.  The caller checks the
+// envelope: D % 128 == 0, F % 128 == 0, D <= MAX_D; every array starts on
+// 16 bytes.
+inline cudaError_t launch(const Args& a) {
+  auto* kernel = ffn_wg_kernel;
   const int smem = Layout(a_width(a.D)).total;
   if (a.info) {
-    const cudaError_t err = ac_common::kernel_info(kernel, smem, THREADS, a.info);
+    cudaError_t err = ac_common::kernel_info(kernel, smem, THREADS, a.info);
+    int device = 0, sms = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     a.info[5] = ROWS;
     a.info[6] = NC;
+    a.info[7] = 1;
+    a.info[8] = grid_for(a.M, sms);
     return err;
   }
   // vector loads of the rows and TMA boxes of the weights and the scratch
   auto aligned = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) == 0; };
   if (!aligned(a.in) || !aligned(a.out) || !aligned(a.hs) || !aligned(a.w1t) || !aligned(a.w2t)
-      || (OPROJ && (!aligned(a.x) || !aligned(a.wot))))
+      || !aligned(a.x) || !aligned(a.wot))
     return cudaErrorInvalidValue;
-  // setmaxnreg hands the producer's registers to the consumers: the block
-  // must have been given them at launch
-  static int regs = -1;
-  if (regs < 0) {
+  // once a device: its SMs; the kernel's cap on dynamic shared memory
+  // raised to what a block may take there (launches differ in D's share);
+  // and the registers the block is given at launch checked, which
+  // setmaxnreg hands from the producer to the consumers
+  static PerDevice<int> plans;
+  int sms = 0;
+  cudaError_t err = plans.get(&sms, [&](int device, int* out) {
     cudaFuncAttributes at;
-    const cudaError_t err = cudaFuncGetAttributes(&at, kernel);
-    if (err != cudaSuccess) return err;
-    regs = at.numRegs;
-  }
-  if (regs * THREADS < PRODUCER_REGS * 128 + CONSUMER_REGS * CT)
-    return cudaErrorInvalidConfiguration;
-  int device = 0, sms = 0;
-  cudaError_t err = bind_device(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    int optin = 0;
+    cudaError_t e = cudaFuncGetAttributes(&at, kernel);
+    if (e == cudaSuccess && at.numRegs * THREADS < PRODUCER_REGS * 128 + CONSUMER_REGS * CT)
+      e = cudaErrorInvalidConfiguration;
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(out, cudaDevAttrMultiProcessorCount, device);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    return e;
+  });
   if (err != cudaSuccess) return err;
   Params p;
   p.in = a.in, p.x = a.x;
@@ -765,12 +826,10 @@ cudaError_t launch(const Args& a) {
   p.out = a.out;
   p.bf16 = a.bf16;
   CUtensorMap maps[4] = {};
-  err = OPROJ ? bytes_map(&maps[0], a.wot, a.D, a.D) : cudaSuccess;
+  err = bytes_map(&maps[0], a.wot, a.D, a.D);
   if (err == cudaSuccess) err = bytes_map(&maps[1], a.w1t, a.F, a.D);
   if (err == cudaSuccess) err = bytes_map(&maps[2], a.w2t, a.D, a.F);
   if (err == cudaSuccess) err = bytes_map(&maps[3], p.qf, (long long)grid * ROWS, a.F);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, THREADS, smem, a.stream>>>(maps[0], maps[1], maps[2], maps[3], p);
   return cudaGetLastError();

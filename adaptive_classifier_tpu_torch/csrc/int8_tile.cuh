@@ -7,8 +7,10 @@
 // - per-row symmetric int8 quantization: scale = max(absmax, 1e-8) times
 //   1/127 (B2, B9: adaptive_classifier_tpu/ops/matmul_int8.py:40-45) or
 //   divided by 127 (B3, B8: ops/ffn_int8.py:64,76,169); q = clip(rint(v /
-//   scale), -127, 127), with rint's round-half-even and an IEEE division,
-//   so the int8 operands agree bit for bit with the plain versions;
+//   scale), -127, 127), with rint's round-half-even and the IEEE division's
+//   quotient (quant; B2, B3 and B8 take it from the scale's reciprocal,
+//   quant_rcp, the same float), so the int8 operands agree bit for bit
+//   with the plain versions;
 // - an int8 x int8 -> int32 tile product on the tensor cores
 //   (mma.sync.m16n8k32.s8.s8.s32; B8: wgmma), exact;
 // - the f32 scale/bias epilogue (acc * row_scale) * col_scale + bias, each
@@ -57,6 +59,21 @@ __device__ __forceinline__ float row_scale(float absmax) {
 __device__ __forceinline__ int quant(float v, float scale) {
   const float r = rintf(__fdiv_rn(v, scale));
   return (int)fminf(fmaxf(r, -127.f), 127.f);
+}
+
+// v / d from rcp = __frcp_rn(d), the correctly rounded reciprocal, and one
+// exact remainder: q = v rcp, r = v - d q (an FMA, exact), q + r rcp
+// rounded once (Markstein's correction) is the same float as __fdiv_rn(v,
+// d), without its slow path, for quotients of normal range; for a divisor
+// reused across a row
+__device__ __forceinline__ float div_rcp(float v, float d, float rcp) {
+  const float q = __fmul_rn(v, rcp);
+  return __fmaf_rn(__fmaf_rn(-d, q, v), rcp, q);
+}
+
+// quant(v, scale) with the quotient from div_rcp
+__device__ __forceinline__ int quant_rcp(float v, float scale, float rcp) {
+  return (int)fminf(fmaxf(rintf(div_rcp(v, scale, rcp)), -127.f), 127.f);
 }
 
 __device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {

@@ -48,12 +48,13 @@ SIGNATURES = {
     "ac_quant_matmul_int8_info": ([_CI] * 4 + [_VP], _CI),
     "ac_proj_residual_ln_int8": ([_VP] * 7 + [_CF, _VP] + [_CI] * 3 + [_VP], _CI),
     "ac_proj_residual_ln_int8_info": ([_CI] * 3 + [_VP], _CI),
-    "ac_ffn_block_int8": ([_VP] * 9 + [_CF, _VP] + [_CI] * 4 + [_VP], _CI),
+    "ac_int8_weight_map": ([_VP, _CL, _CI, _VP], _CI),
+    "ac_ffn_block_int8": ([_VP] * 9 + [_CF, _VP, _VP] + [_CI] * 4 + [_VP], _CI),
     "ac_attn_ffn_block_int8": ([_VP] * 15 + [_CF, _VP, _VP] + [_CI] * 4 + [_VP], _CI),
-    "ac_ffn_block_int8_wg": ([_VP] * 9 + [_CF, _VP, _VP] + [_CI] * 4 + [_VP], _CI),
-    "ac_ffn_block_int8_smem_bytes": ([_CI] * 4, ctypes.c_longlong),
-    "ac_attn_ffn_block_int8_scratch_bytes": ([_CI] * 3, ctypes.c_longlong),
-    "ac_ffn_block_int8_info": ([_CI] * 3 + [_VP], _CI),
+    "ac_ffn_block_int8_smem_bytes": ([_CI] * 2, _CL),
+    "ac_ffn_block_int8_scratch_bytes": ([_CI] * 3, _CL),
+    "ac_attn_ffn_block_int8_scratch_bytes": ([_CI] * 3, _CL),
+    "ac_ffn_block_int8_info": ([_CI] * 4 + [_VP], _CI),
     "ac_cuda_error_string": ([_CI], ctypes.c_char_p),
 }
 

@@ -21,16 +21,17 @@ requantized GELU value by one int8 step.
 Both read K-contiguous weights: ``k_contiguous`` makes the ``[N, K]``
 copy once per weight and keeps it on the weight tensor, and
 ``prepare_int8_weights`` does so for a whole int8 encoder state when it
-reaches the device (the QKV weight for B2 too).  The CPU path never reads a
-copy.  B3 is an ``mma.sync`` loop (``csrc/ffn_block_int8.cu``) that runs
+reaches the device (the QKV weight for B2 too).  ``weight_map`` keeps the
+tensor map B2 and B3 read a copy through beside it, made on the first
+launch with that weight.  The CPU path never reads a copy.  Both kernels
+run on Hopper's ``wgmma`` with TMA.  B3 (``csrc/ffn_block_int8.cu``) runs
 its first product twice, once for each row's GELU maximum and once to
-quantize the same values.  B8 runs on Hopper's ``wgmma`` with TMA
-(``csrc/int8_hopper.cuh``): its first product and GELU run once, the f32
-GELU values go to a device scratch the wrapper allocates
-(``attn_ffn_scratch_bytes``, beside the f32 LayerNorm rows and q(f)) and
-are read back to be quantized.  ``ffn_block_int8_wgmma`` is B3's function
-on that body, the kernel B3 moves onto next; the port's forwards do not
-launch it.
+quantize the same values, and sends only the int8 q(f) through a device
+scratch the wrapper allocates (``ffn_block_scratch_bytes``); from D 512 a
+pair of blocks (a cluster) shares each 64-row tile.  B8
+(``csrc/int8_hopper.cuh``) runs its first product and GELU once: the f32
+GELU values go to a device scratch (``attn_ffn_scratch_bytes``, beside the
+f32 LayerNorm rows and q(f)) and are read back to be quantized.
 """
 
 from __future__ import annotations
@@ -94,8 +95,8 @@ def _check_ffn(name: str, D: int, w1_q, s1, b1, w2_q, s2, b2, ln_scale, ln_bias)
     return F
 
 
-#: widest D B3 takes: its second product keeps every column of its rows in
-#: registers
+#: widest D B3 takes: its second product keeps its share of a tile's
+#: columns in registers
 B3_MAX_D = 1024
 
 #: K-contiguous copies made so far by ``k_contiguous`` (for tests)
@@ -113,6 +114,29 @@ def k_contiguous(w: torch.Tensor) -> torch.Tensor:
         w._ac_k_contiguous = kc
         k_contiguous_copies += 1
     return kc
+
+
+#: tensor maps made so far by ``weight_map`` (for tests)
+weight_maps_made = 0
+
+
+def weight_map(w: torch.Tensor) -> ctypes.Array:
+    """The host copy (128 bytes) of the TMA tensor map over int8 weight
+    ``w``'s K-contiguous copy that B2 and B3 read, in boxes of 64 rows x
+    128 bytes: made on the first call for this weight on ``w``'s device and
+    kept on the copy, so a launch encodes only its activations' maps.  A
+    new weight tensor gets its own copy and map."""
+    global weight_maps_made
+    kc = k_contiguous(w)
+    m = getattr(kc, "_ac_tma_map", None)
+    if m is None:
+        m = (ctypes.c_ubyte * 128)()
+        with torch.cuda.device(kc.device):
+            _build.check(_build.library().ac_int8_weight_map(
+                kc.data_ptr(), kc.shape[0], kc.shape[1], m), "int8 weight map")
+        kc._ac_tma_map = m
+        weight_maps_made += 1
+    return m
 
 
 #: the int8 weights the kernels read K-contiguous: QKV (B2), O (B8), the
@@ -146,17 +170,29 @@ def _check_smem(name: str, device: torch.device, D: int, F: int, need: int):
                          f"memory per block, the device has {have}")
 
 
-def ffn_block_info(D: int, F: int, o_proj: bool = False) -> dict:
-    """What B3 (B8 with ``o_proj``) would launch at widths D, F on the
-    current CUDA device, as the CUDA runtime reports the instantiation:
-    registers per thread, shared bytes per block, threads per block, blocks
-    resident per SM, local (spill) bytes per thread, rows per block and
-    consumer warpgroups (0: no ``wgmma``).  Launches nothing."""
-    info = (ctypes.c_int * 7)()
-    _build.check(_build.library().ac_ffn_block_int8_info(D, F, int(o_proj), info),
+def ffn_block_info(D: int, F: int, o_proj: bool = False, M: int = 8192) -> dict:
+    """What B3 (B8 with ``o_proj``) would launch for M rows at widths D, F
+    on the current CUDA device, as the CUDA runtime reports the
+    instantiation: registers per thread, shared bytes per block, threads
+    per block, blocks resident per SM, local (spill) bytes per thread, rows
+    a tile, consumer warpgroups, blocks a tile (``cluster``) and blocks of
+    the launch.  Launches nothing."""
+    info = (ctypes.c_int * 9)()
+    _build.check(_build.library().ac_ffn_block_int8_info(M, D, F, int(o_proj), info),
                  "ffn_block_int8_info")
     return dict(zip(("registers", "shared_bytes", "threads", "blocks_per_sm",
-                     "local_bytes", "rows", "warpgroups"), info))
+                     "local_bytes", "rows", "warpgroups", "cluster", "blocks"), info))
+
+
+def ffn_block_scratch_bytes(M: int, D: int, F: int) -> int:
+    """Bytes of the int8 q(f) scratch B3 takes for M rows at widths D, F on
+    the current CUDA device: 64 x F for each tile its persistent grid has in
+    flight."""
+    n = int(_build.library().ac_ffn_block_int8_scratch_bytes(M, D, F))
+    if n <= 0:
+        raise RuntimeError(f"ffn_block_int8: no launch at M={M}, D={D}, F={F} on the "
+                           f"current CUDA device")
+    return n
 
 
 def attn_ffn_scratch_bytes(M: int, D: int, F: int) -> int:
@@ -175,8 +211,7 @@ def _wgmma_scratch(name: str, device: torch.device, M: int, D: int, F: int):
     if D > B3_MAX_D:
         raise ValueError(f"{name}: D={D} > {B3_MAX_D}: the kernel keeps q(h) "
                          f"[64, D] in shared memory")
-    _check_smem(name, device, D, F,
-                _build.library().ac_ffn_block_int8_smem_bytes(D, F, 64, 1))
+    _check_smem(name, device, D, F, _build.library().ac_ffn_block_int8_smem_bytes(D, 1))
     with torch.cuda.device(device):
         return torch.empty(attn_ffn_scratch_bytes(M, D, F), dtype=torch.uint8, device=device)
 
@@ -192,16 +227,20 @@ def ffn_block_int8(h, w1_q, s1, b1, w2_q, s2, b2, ln_scale, ln_bias,
     if h.device.type == "cpu":
         return ffn_block_int8_ref(h, w1_q, s1, b1, w2_q, s2, b2, ln_scale, ln_bias, eps)
     if D > B3_MAX_D:
-        raise ValueError(f"{name}: D={D} > {B3_MAX_D}: the kernel keeps every "
-                         f"column of its rows in registers")
+        raise ValueError(f"{name}: D={D} > {B3_MAX_D}: the kernel keeps its share "
+                         f"of a tile's columns in registers")
     ptrs = cuda_args(name, h.device, h, k_contiguous(w1_q), s1, b1, k_contiguous(w2_q),
                      s2, b2, ln_scale, ln_bias)
-    # its 32-row tile (64 rows where they fit)
-    _check_smem(name, h.device, D, F,
-                _build.library().ac_ffn_block_int8_smem_bytes(D, F, 32, 0))
+    lib = _build.library()
+    _check_smem(name, h.device, D, F, lib.ac_ffn_block_int8_smem_bytes(D, 0))
+    with torch.cuda.device(h.device):
+        ptrs[1] = ctypes.addressof(weight_map(w1_q))
+        ptrs[4] = ctypes.addressof(weight_map(w2_q))
+        scratch = torch.empty(ffn_block_scratch_bytes(M, D, F), dtype=torch.uint8,
+                              device=h.device)
     out = torch.empty_like(h)
-    launch(name, "ffn_int8", h.device, _build.library().ac_ffn_block_int8, *ptrs,
-           float(eps), out.data_ptr(), M, D, F, _DTYPE_CODES[h.dtype])
+    launch(name, "ffn_int8", h.device, lib.ac_ffn_block_int8, *ptrs, float(eps),
+           scratch.data_ptr(), out.data_ptr(), M, D, F, _DTYPE_CODES[h.dtype])
     return out
 
 
@@ -229,24 +268,3 @@ def attn_ffn_block_int8(ctx, x, o_wq, o_s, o_b, ln1_scale, ln1_bias,
            _DTYPE_CODES[ctx.dtype])
     return out
 
-
-def ffn_block_int8_wgmma(h, w1_q, s1, b1, w2_q, s2, b2, ln_scale, ln_bias,
-                         eps: float) -> torch.Tensor:
-    """B3's function on B8's ``wgmma`` body (``csrc/int8_hopper.cuh`` without
-    its O-projection stage), the kernel B3 moves onto next → ``[M, D]`` in
-    h's type: the plain version for a CPU tensor, the kernel for a CUDA
-    tensor, counted as B3's.  The port's forwards launch ``ffn_block_int8``
-    (the ``mma.sync`` kernel) and never this one."""
-    name = "ffn_block_int8_wgmma"
-    check_rows(name, h)
-    M, D = h.shape
-    F = _check_ffn(name, D, w1_q, s1, b1, w2_q, s2, b2, ln_scale, ln_bias)
-    if h.device.type == "cpu":
-        return ffn_block_int8_ref(h, w1_q, s1, b1, w2_q, s2, b2, ln_scale, ln_bias, eps)
-    ptrs = cuda_args(name, h.device, h, k_contiguous(w1_q), s1, b1, k_contiguous(w2_q),
-                     s2, b2, ln_scale, ln_bias)
-    scratch = _wgmma_scratch(name, h.device, M, D, F)
-    out = torch.empty_like(h)
-    launch(name, "ffn_int8", h.device, _build.library().ac_ffn_block_int8_wg, *ptrs,
-           float(eps), scratch.data_ptr(), out.data_ptr(), M, D, F, _DTYPE_CODES[h.dtype])
-    return out

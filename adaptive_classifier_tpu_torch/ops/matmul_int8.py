@@ -15,9 +15,13 @@ Each wrapper takes its plain version (``*_ref``) for a CPU tensor and
 launches its CUDA kernel (``csrc/matmul_int8.cu``) for a CUDA tensor, or
 raises; there is no fallback between them.  Both kernels read the weight's
 K-contiguous copy (``ffn_int8.k_contiguous``, made once per weight; the CPU
-path never reads it).  The plain versions repeat the kernels' arithmetic
-step for step: the int8 operands agree bit for bit and the int32 sums are
-exact, so only the LayerNorm's sum order differs.
+path never reads it).  B2 runs on Hopper's ``wgmma`` with TMA: it
+quantizes each 64-row tile of x once per unit of work, reads the copy
+through a tensor map kept beside it (``ffn_int8.weight_map``) and writes
+its output by TMA stores; B9 is an ``mma.sync`` loop.  The plain versions
+repeat the kernels' arithmetic step for step: the int8 operands agree bit
+for bit and the int32 sums are exact, so B2's outputs equal the plain
+version's bit for bit and only B9's LayerNorm sum order differs.
 
 The shared pieces, ``quant_rows``, ``int8_matmul`` and ``layer_norm``, are
 also the plain arithmetic of ``ops.ffn_int8`` and ``models.encoder_int8``.
@@ -143,7 +147,8 @@ def quant_matmul_info(M: int, K: int, N: int, dtype: torch.dtype = torch.bfloat1
     on the current CUDA device, as the CUDA runtime reports the
     instantiation: registers per thread, shared bytes per block, threads per
     block, blocks resident per SM, local (spill) bytes per thread, rows and
-    columns a block, and blocks in the grid.  Launches nothing."""
+    columns a block's unit of work, and blocks in the grid.  Launches
+    nothing."""
     info = (ctypes.c_int * 8)()
     _build.check(_build.library().ac_quant_matmul_int8_info(M, K, N, _DTYPE_CODES[dtype],
                                                             info), "quant_matmul_int8_info")
@@ -178,10 +183,12 @@ def quant_matmul_int8(x: torch.Tensor, w_q: torch.Tensor, s: torch.Tensor,
     check_weight("quant_matmul_int8", w_q, K, w_q.shape[-1], s, b)
     if x.device.type == "cpu":
         return quant_matmul_int8_ref(x, w_q, s, b)
-    from .ffn_int8 import k_contiguous    # ffn_int8 imports this module
+    from .ffn_int8 import k_contiguous, weight_map    # ffn_int8 imports this module
 
     N = w_q.shape[1]
     ptrs = cuda_args("quant_matmul_int8", x.device, x, k_contiguous(w_q), s, b)
+    with torch.cuda.device(x.device):
+        ptrs[1] = ctypes.addressof(weight_map(w_q))
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     launch("quant_matmul_int8", "matmul_int8", x.device,
            _build.library().ac_quant_matmul_int8, *ptrs, out.data_ptr(), M, K, N,

@@ -17,11 +17,12 @@ Phases, each of which must pass:
    identical indices on inputs with no near-ties, lower-index order on
    exact ties, and values within 1e-5 (k 1 to 128, B off its 64-query
    tile, D 500 and 510); the int8 kernels at the zoo's
-   widths (M 8,192, and ragged for the 64-row blocks of B2, B3 and B8) and
-   at bert-base's (D 768, F 3,072, where B3 takes 32-row blocks; M 16,384
-   and ragged), f32 and bf16, and B8 also at M 1, 63, 64, at D 1,024 / F
-   4,096 and at D 384 / F 1,152: the QKV projection (B2) to
-   1e-5 (the share of outputs equal to the plain version's bit for bit
+   widths (M 8,192, and ragged for the 64-row tiles of B2, B3 and B8) and
+   at bert-base's (D 768, F 3,072, where a pair of blocks shares B3's
+   tiles; M 16,384 and ragged), f32 and bf16, B3 and B8 also at M 1, 63,
+   64 (and B3 65), at D 1,024 / F 4,096, D 384 / F 1,152 and D 128 / F 512,
+   and B2 and B3 with NaN in the batch row past M: the QKV projection (B2)
+   to 1e-5 (the share of outputs equal to the plain version's bit for bit
    reported) and the projection + LayerNorm (B9) to 1e-4 in f32, the FFN block
    (B3) and the post-attention body (B8) to per-row cosine >= 0.9999 and
    max abs error <= 0.05 in f32, all to cosine > 0.999 in bf16; flash
@@ -545,7 +546,7 @@ def head_views(qkv, H, Dh):
 
 #: the tile loop of B1, B6 and B7 above 64 keys in bf16 (wgmma fed by TMA)
 WGMMA_HEADER = "adaptive_classifier_tpu_torch/csrc/attention_hopper.cuh"
-#: B8's kernel (s8 wgmma fed by TMA)
+#: the s8 wgmma fed by TMA of B2, B3 and B8
 INT8_WGMMA_HEADER = "adaptive_classifier_tpu_torch/csrc/int8_hopper.cuh"
 
 FLASH_TOLERANCE = ("f32: max abs err <= 1e-4 (TF32 off); bf16: max abs err <= 0.05 "
@@ -1066,8 +1067,8 @@ INT8_TOLERANCE = {
 }
 
 
-#: (D, F) of the int8 checks: the zoo's widths (64-row blocks of B3 and B8)
-#: and bert-base's (32-row blocks)
+#: (D, F) of the int8 checks: the zoo's widths and bert-base's (where a pair
+#: of blocks shares each of B3's 64-row tiles)
 INT8_WIDTHS = ((512, 2048), (768, 3072))
 
 
@@ -1075,11 +1076,12 @@ def check_int8() -> dict:
     """B2, B3, B9 and B8 against their plain versions at the zoo's widths
     (D 512, F 2048: M = 8,192, a banking chunk, and a ragged M) and at
     bert-base's (D 768, F 3,072: M = 16,384, a B = 32, S = 512 batch, and a
-    ragged M), f32 and bf16; then B8 alone at the edges of its 64-row tiles
-    (M 1, 63, 64), at bert-large's widths (D 1,024, F 4,096), at D 384,
-    F 1,152 (chunks past D and F) and at D 128 and 256 (q(f)'s ring at its
-    two-slot floor; ac-tiny's width); raises on any disagreement.  → results
-    and the launches made."""
+    ragged M), f32 and bf16; then B3 and B8 at the edges of their 64-row
+    tiles (M 1, 63, 64; B3 also 65), at bert-large's widths (D 1,024,
+    F 4,096), at D 384, F 1,152 (chunks past D and F) and at D 128 and 256
+    (q(f)'s ring at its two-slot floor; ac-tiny's width); then B2 (bit for
+    bit) and B3 on rows whose buffer holds NaN in the row past M; raises on
+    any disagreement.  → results and the launches made."""
     import adaptive_classifier_tpu_torch as port
 
     out = {name: [] for name in INT8_TOLERANCE}
@@ -1087,7 +1089,7 @@ def check_int8() -> dict:
     for D, F in INT8_WIDTHS:
         mats, lns = int8_weights(0, D, F)
         big = 8192 if D == 512 else 16384
-        # big + 37: ragged for the 64-row (D 512) and 32-row (D 768) blocks
+        # big + 37: ragged for the 64-row tiles
         for dtype, M in ((torch.float32, big), (torch.float32, 1000),
                          (torch.bfloat16, big), (torch.bfloat16, 200),
                          (torch.bfloat16, big + 37), (torch.float32, big + 37)):
@@ -1103,21 +1105,47 @@ def check_int8() -> dict:
                 out[name].append(res)
         del mats, lns, calls
         torch.cuda.empty_cache()
-    for D, F, Ms in ((512, 2048, (1, 63, 64)), (1024, 4096, (2048 + 5,)), (384, 1152, (333,)),
-                     (128, 512, (1000,)), (256, 1024, (333,))):
+    for D, F, Ms in ((512, 2048, (1, 63, 64, 65)), (1024, 4096, (2048 + 5,)),
+                     (384, 1152, (333,)), (128, 512, (1000,)), (256, 1024, (333,))):
         mats, lns = int8_weights(2, D, F)
         for dtype, M in ((d, m) for m in Ms for d in (torch.float32, torch.bfloat16)):
-            kernel, plain, _ = int8_calls(mats, lns, int8_rows(M, M, D, dtype))["attn_ffn_int8"]
+            calls = int8_calls(mats, lns, int8_rows(M, M, D, dtype))
+            for name in ("ffn_int8", "attn_ffn_int8"):
+                if name == "attn_ffn_int8" and M == 65:
+                    continue
+                kernel, plain, _ = calls[name]
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                res = {"case": f"{str(dtype).split('.')[-1]} M={M} D={D} F={F}",
+                       **int8_compare(name, got, want, dtype)}
+                log(f"  check {name} {json.dumps(res)}")
+                if not res["ok"]:
+                    raise AssertionError(f"{name} kernel disagrees with plain: {res}")
+                out[name].append(res)
+        del mats, lns, calls
+        torch.cuda.empty_cache()
+    # NaN in the buffer's row M, past the rows: no TMA box or vector load of
+    # B2 or B3 reaches it
+    mats, lns = int8_weights(3)
+    for M in (63, 8192 + 37):
+        g = torch.Generator(device="cuda").manual_seed(M)
+        big = (0.5 * torch.randn((M + 1, 512), generator=g, device="cuda")).to(torch.bfloat16)
+        big[M] = float("nan")
+        calls = int8_calls(mats, lns, [big[:M], big[:M]])
+        for name in ("matmul_int8", "ffn_int8"):
+            kernel, plain, _ = calls[name]
             got, want = kernel(), plain()
             torch.cuda.synchronize()
-            res = {"case": f"{str(dtype).split('.')[-1]} M={M} D={D} F={F}",
-                   **int8_compare("attn_ffn_int8", got, want, dtype)}
-            log(f"  check attn_ffn_int8 {json.dumps(res)}")
+            res = {"case": f"bfloat16 M={M} D=512, NaN in row M of the buffer",
+                   **int8_compare(name, got, want, torch.bfloat16)}
+            if name == "matmul_int8":
+                res["ok"] = res["ok"] and res["bit_equal_share"] == 1.0
+            log(f"  check {name} {json.dumps(res)}")
             if not res["ok"]:
-                raise AssertionError(f"attn_ffn_int8 kernel disagrees with plain: {res}")
-            out["attn_ffn_int8"].append(res)
-        del mats, lns
-        torch.cuda.empty_cache()
+                raise AssertionError(f"{name} reads past its rows: {res}")
+            out[name].append(res)
+    del mats, lns, calls
+    torch.cuda.empty_cache()
     return {"results": out, "launches": dict(port.launch_counts)}
 
 
@@ -1148,8 +1176,9 @@ def time_int8(chunks: dict) -> dict:
     """The four int8 kernels, their plain versions and the products alone
     (torch._int_mm on the quantized operands) at the main path's chunk
     shapes (name → (M, D, F)), bf16 rows; every kernel result is held to its
-    plain version.  ``host_ms`` is the host's time per wrapper call (B8's
-    includes encoding its four tensor maps)."""
+    plain version.  ``host_ms`` is the host's time per wrapper call (B2's
+    and B3's include encoding their activations' tensor maps, B8's its four
+    maps)."""
     rows = {name: [] for name in INT8_TOLERANCE}
     weights = {}
     for task, (M, D, F) in chunks.items():
@@ -1172,7 +1201,7 @@ def time_int8(chunks: dict) -> dict:
             if name in ("ffn_int8", "attn_ffn_int8"):
                 from adaptive_classifier_tpu_torch.ops.ffn_int8 import ffn_block_info
 
-                row["instantiation"] = ffn_block_info(D, F, o_proj=name == "attn_ffn_int8")
+                row["instantiation"] = ffn_block_info(D, F, o_proj=name == "attn_ffn_int8", M=M)
             elif name == "matmul_int8":
                 from adaptive_classifier_tpu_torch.ops.matmul_int8 import quant_matmul_info
 
@@ -4383,7 +4412,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"adaptive_classifier_tpu_torch/csrc/{source}",
-            **({"header": INT8_WGMMA_HEADER} if name == "attn_ffn_int8" else {}),
+            **({"header": INT8_WGMMA_HEADER} if name != "proj_residual_ln_int8" else {}),
             "replaces": replaces,
             "launches": launches.total[name],
             "max_abs_err": max(c["max_abs_err"] for c in
@@ -4461,6 +4490,9 @@ def main() -> int:
                         ("B9", "proj_residual_ln_int8")):
         log(f"  {label} ms by shape " + json.dumps(
             {r["task"]: r["ms"] for r in int8_times[name]}))
+    log("  B2, B3, B8 (device ms, host ms a wrapper call) " + json.dumps(
+        {f"{name} {r['task']}": [r["ms"], r["host_ms"]]
+         for name in ("matmul_int8", "ffn_int8", "attn_ffn_int8") for r in int8_times[name]}))
     log(f"  fuse_o_proj (B8) vs default int8 forward, one chunk a task (ms) " + json.dumps(
         {f"{t} {k}": {"fuse_o_proj": r["forward_ms"], "default": r["default_forward_ms"]}
          for t in TASKS for k, r in runs_int8[t]["fuse_o_proj"].items()

@@ -1,6 +1,8 @@
 """Time the port's int8 kernels B2 (QKV projection), B3 (FFN block), B8
 (post-attention body) and B9 (projection + residual + LayerNorm) on one
 NVIDIA GPU, for an A/B of two versions of the package in one call.
+Where a package has ``ffn_block_int8_wgmma`` (B3's function on B8's body,
+which earlier versions of the package carried) it is timed beside B3.
 
     python3 scripts/torch_time_ffn_int8.py [--root DIR]
 
@@ -16,7 +18,8 @@ takes a comma-separated subset of the wrappers' names.  Seeded random bf16
 rows and int8 weights quantized as the port quantizes a checkpoint.  A
 time is the device's, in ms per call: the best
 of three runs of 20 calls, the stream held by a GPU sleep until the host
-has queued them.  Each line also gives the per-row cosine against the
+has queued them; ``host_ms`` is the host's time per wrapper call (its
+Python, checks and launch), the stream held so that no call waits.  Each line also gives the per-row cosine against the
 plain version, the share of outputs equal to it bit for bit and, where the
 package reports it, the launched instantiation.  Prints one JSON line; exits non-zero without a GPU.
 """
@@ -26,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -48,6 +52,18 @@ def device_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(1e8))
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / iters * 1e3
 
 
 def layer(M, D, F, quantize_weight, seed=0):
@@ -90,16 +106,19 @@ def main() -> int:
         h, x, m, lns = layer(M, D, F, quantize_weight)
         calls = {"quant_matmul_int8": (m8, (h, *m["qkv"])),
                  "ffn_block_int8": (f8, (h, *m["w1"], *m["w2"], *lns[0], 1e-12)),
+                 "ffn_block_int8_wgmma": (f8, (h, *m["w1"], *m["w2"], *lns[0], 1e-12)),
                  "attn_ffn_block_int8": (f8, (h, x, *m["o"], *lns[0], *m["w1"], *m["w2"],
                                               *lns[1], 1e-12)),
                  "proj_residual_ln_int8": (m8, (h, *m["o"], x, *lns[0], 1e-12))}
         for kern, (mod, a) in calls.items():
-            if only and kern not in only:
+            if (only and kern not in only) or not hasattr(mod, kern):
                 continue
-            f, ref = getattr(mod, kern), getattr(mod, kern + "_ref")
+            f = getattr(mod, kern)
+            ref = getattr(mod, kern.removesuffix("_wgmma") + "_ref")
             got, want = f(*a), ref(*a)
             g, w = got.float(), want.float()
             row = {"ms": min(device_ms(lambda: f(*a)) for _ in range(3)),
+                   "host_ms": host_ms(lambda: f(*a)),
                    "min_row_cosine": ((g * w).sum(1) / (g.norm(dim=1) * w.norm(dim=1)))
                    .min().item(),
                    "bit_equal_share": (got == want).double().mean().item()}
@@ -110,7 +129,7 @@ def main() -> int:
                     row["instantiation"] = f8.ffn_block_info(D, F, o_proj=True)
                 elif kern == "proj_residual_ln_int8":
                     row["instantiation"] = m8.proj_residual_ln_info(M, D)
-                else:
+                elif kern == "ffn_block_int8":
                     row["instantiation"] = f8.ffn_block_info(D, F)
             except (AttributeError, TypeError):
                 pass

@@ -122,7 +122,8 @@ def test_cuda_sources_are_packaged_and_bound():
                                   "proj_residual_ln_int8", "attn_ffn_int8"}
     # the kernels call no library (cuBLAS, CUTLASS).  They issue these
     # tensor-core products: int8 x int8 -> int32 in the int8 kernels
-    # (mma.sync, and wgmma in int8_hopper.cuh alone), bf16 x bf16 with f32
+    # (mma.sync, and wgmma of 32 and 64 columns defined in int8_hopper.cuh
+    # alone, which B2, B3 and B8 issue), bf16 x bf16 with f32
     # accumulation in the bf16 attention tile loops (mma.sync in
     # attention_tile.cuh, wgmma in attention_hopper.cuh), and TF32 with
     # f32 accumulation in B5 (mma.sync) and B4 (wgmma, defined in
@@ -136,17 +137,18 @@ def test_cuda_sources_are_packaged_and_bound():
     bf16_mma = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
     tf32_mma = "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"
     tf32_wgmma = "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32"
-    int8_wgmma = "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8"
+    int8_wgmma = {f"wgmma.mma_async.sync.aligned.m64n{n}k32.s32.s8.s8"
+                  for n in (32, 64)}
     bf16_wgmma = {f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16"
                   for n in (64, 128)}
     assert set(re.findall(r"(?<!w)mma\.sync\.[a-z0-9.]+", code)) == {
         int8_mma, bf16_mma, tf32_mma}
     assert set(re.findall(r"wgmma\.mma_async\.[a-z0-9.]+", code)) == (
-        {tf32_wgmma, int8_wgmma} | bf16_wgmma)
+        {tf32_wgmma} | int8_wgmma | bf16_wgmma)
     tf32_users = {"knn_topk.cu", "knn_sims.cu", "hopper.cuh"}
     for src in sources:
         body = re.sub(r"//[^\n]*", "", src.read_text()).lower()
-        allowed = ({int8_wgmma} if src.name == "int8_hopper.cuh" else
+        allowed = (int8_wgmma if src.name == "int8_hopper.cuh" else
                    {int8_mma} if "int8" in src.name else
                    {bf16_mma} if src.name == "attention_tile.cuh" else
                    {tf32_mma} if src.name == "knn_topk.cu" else

@@ -176,28 +176,17 @@ def _ffn_problem(seed, M, D=128, F=512):
     return h, ctx, mats, lns
 
 
-@pytest.mark.parametrize("M", [512, 320])
-def test_ffn_block_plain_matches_pallas(M):
-    h, _, m, lns = _ffn_problem(M, M)
+# two problems at each M: seeds M and M + 3
+@pytest.mark.parametrize("M,seed", [(512, 512), (320, 320), (512, 515), (320, 323)],
+                         ids=["512", "320", "512-seed515", "320-seed323"])
+def test_ffn_block_plain_matches_pallas(M, seed):
+    h, _, m, lns = _ffn_problem(seed, M)
     args = (*m["w1"], *m["w2"], *lns[0])
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jffn.ffn_block_int8(
             jnp.asarray(h), *[jnp.asarray(a) for a in args], 1e-12))
     got = ffn_int8.ffn_block_int8(_t(h), *[_t(a) for a in args], 1e-12)
-    err, cos = report(f"B3 M={M}", got.numpy(), want)
-    assert cos >= 0.9999 and err <= 0.05
-
-
-@pytest.mark.parametrize("M", [512, 320])
-def test_ffn_block_wgmma_plain_matches_pallas(M):
-    """B3's function on B8's wgmma body takes B3's plain version on the CPU."""
-    h, _, m, lns = _ffn_problem(M + 3, M)
-    args = (*m["w1"], *m["w2"], *lns[0])
-    with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(jffn.ffn_block_int8(
-            jnp.asarray(h), *[jnp.asarray(a) for a in args], 1e-12))
-    got = ffn_int8.ffn_block_int8_wgmma(_t(h), *[_t(a) for a in args], 1e-12)
-    err, cos = report(f"B3 on B8's body M={M}", got.numpy(), want)
+    err, cos = report(f"B3 M={M} seed={seed}", got.numpy(), want)
     assert cos >= 0.9999 and err <= 0.05
 
 
